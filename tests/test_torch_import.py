@@ -25,7 +25,8 @@ assert not [m for m in sys.modules if m.split(".")[0] == "xapiand_tpu"], \
     "the JAX package imported"
 assert kernels._lib is None and not kernels.build_info, "kernels built"
 assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
-        "xapiand_tpu_torch.ops.executor"} <= set(names), names
+        "xapiand_tpu_torch.ops.executor",
+        "xapiand_tpu_torch.utils.synth_faceted"} <= set(names), names
 print("ok", len(names))
 """
 
@@ -72,14 +73,26 @@ bs = BatchSearcher(SegmentSearcher(seg, device=torch.device("cpu")), k=10,
                    prefix_cap=128)
 res = bs.run(irs)
 assert len(res) == 8 and all(len(r["docids"]) == 10 for r in res)
+from xapiand_tpu_torch.utils import synth_faceted as sf
+c = sf.build_faceted_corpus(3000, seed=7)
+qs = sf.faceted_queries(4, seed=11)
+bs = BatchSearcher(SegmentSearcher(c.seg, device=torch.device("cpu")), k=10,
+                   sort=(("value", sf.PRICE_SLOT, True),))
+res = bs.run([q for f, q, _ in qs if f in "AB"])
+want = sf.oracle_answers(c, [x for x in qs if x[0] in "AB"])
+assert [r["count"] for r in res] == [w["count"] for w in want]
+import sys
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "xapiand_tpu")]
 print("ok")
 """
 
 
 def test_port_searches_with_the_jax_package_absent(tmp_path):
     """A package named xapiand_tpu that fails to import, ahead of the real
-    one on the path: the port imports all its modules and runs a batch
-    search, plan to results, without it."""
+    one on the path: the port imports all its modules and runs a relevance
+    and a value-sorted faceted batch search, plan to results, without
+    it."""
     pkg = tmp_path / "xapiand_tpu"
     pkg.mkdir()
     (pkg / "__init__.py").write_text(

@@ -197,10 +197,10 @@ def test_unported_options_raise():
     ps = SegmentSearcher(seg, device=CPU)
     with pytest.raises(NotImplementedError, match="K21"):
         BatchSearcher(ps, chunk_rows=4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchSearcher(ps, sort=(("value", 1, False),))
+    with pytest.raises(NotImplementedError, match="K17"):
+        BatchSearcher(ps, aggs=((("count",),), {}))
     with pytest.raises(ValueError, match="prefix_cap"):
         BatchSearcher(ps, prefix_cap=kernels.MAX_PREFIX_ROWS + 1)
     bs = BatchSearcher(ps, k=10)
-    with pytest.raises(NotImplementedError, match="K6"):
-        bs.run([Q.and_(Q.term("t1"), Q.term("t2"))])
+    with pytest.raises(NotImplementedError, match="K14"):
+        bs.run([Q.phrase(["t1", "t2"])])

@@ -10,10 +10,12 @@ package imports pointed here; ``tests/test_torch_import.py`` holds each
 copy's text equal to its original.
 
 Slice 1 covers BM25 top-k over relevance OR queries (``BatchSearcher`` with
-impact-prefix pruning and the exact re-run of uncertified queries). Its
-device kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built
-at first use; on CPU tensors every kernel wrapper runs its plain PyTorch
-version instead (``ops/kernels.py``).
+impact-prefix pruning and the exact re-run of uncertified queries); slice 2
+the predicate path of filtered, value-sorted faceted search (boolean trees,
+deletes, value filters, multi-key sorts, compaction; its corpus is
+``utils/synth_faceted.py``). The device kernels are hand-written CUDA C++
+for ``sm_90a`` (``csrc/``), built at first use; on CPU tensors every kernel
+wrapper runs its plain PyTorch version instead (``ops/kernels.py``).
 """
 
 __version__ = "0.1.0"

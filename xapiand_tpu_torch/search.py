@@ -15,14 +15,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from xapiand_tpu_torch.models.segment import DeviceSegment, Segment
+from xapiand_tpu_torch.models.segment import (DeviceSegment, Segment,
+                                              size_class)
 from xapiand_tpu_torch.models.weights import (CollectionStats, WeightScheme,
                                               get_scheme)
 from xapiand_tpu_torch.ops.executor import (ExecConfig, check_supported,
                                             execute_batch)
 from xapiand_tpu_torch.ops.kernels import MAX_PREFIX_ROWS
 
-_BATCH_KEYS = ("offsets", "lens", "tconst", "scoring")
+_BATCH_KEYS = ("offsets", "lens", "tconst", "scoring", "group_bits",
+               "fparams")
 
 
 class SegmentSearcher:
@@ -63,12 +65,16 @@ class BatchSearcher:
     """Shape-bucketed batch execution over one segment (see the JAX
     package's BatchSearcher for the bucketing rationale): plan signature,
     size-class terciles, equal-work batch widths, wraparound padding,
-    impact-prefix pruning with an exact re-run of uncertified queries.
+    impact-prefix pruning with an exact re-run of uncertified queries,
+    and ``sort=`` bound into every query (value-sorted faceted serving).
 
     Every query goes to the device: the native host scorers the JAX
     package routes small batches to are not ported yet (ROADMAP queue 1).
     The host path is exact too, so results are the same either way.
-    Docid-range chunking is not ported: ``chunk_rows`` must be 0.
+    Not ported: docid-range chunking (``chunk_rows`` must be 0, K21),
+    aggregations (``aggs``, K17) and the fullwidth path (K9): plans keep
+    the compaction layout, as the JAX package's ``XT_FULLWIDTH=0`` does,
+    which returns the same answers.
     """
 
     def __init__(self, searcher: SegmentSearcher, k: int = 10,
@@ -77,10 +83,9 @@ class BatchSearcher:
                  scheme: Optional[WeightScheme] = None,
                  sort=None, aggs=None, chunk_rows: int = 0,
                  prefix_cap: int = 0, global_tf=None, global_cf=None):
-        if sort or aggs:
+        if aggs:
             raise NotImplementedError(
-                "not ported yet: batch sorts/aggregations (ROADMAP queue 2, "
-                "K8/K17)")
+                "not ported yet: batch aggregations (ROADMAP queue 2, K17)")
         if chunk_rows != 0:
             raise NotImplementedError(
                 "not ported yet: docid-range chunking (ROADMAP queue 2, K21)")
@@ -90,6 +95,7 @@ class BatchSearcher:
                              "prefix block in one block's shared memory)")
         self.searcher = searcher
         self.k = k
+        self.sort = sort
         self.global_tf = global_tf
         self.global_cf = global_cf
         self.prefix_cap = prefix_cap
@@ -125,7 +131,8 @@ class BatchSearcher:
         irs = [resolve_special(ir, self.scheme, stats, gtf, gcf)
                for ir in irs]
         bounds = [bind(compile_ir(ir, cost_fn=gtf), seg, self.scheme, stats,
-                       k=self.k, global_tf=gtf, global_cf=gcf)
+                       k=self.k, global_tf=gtf, global_cf=gcf,
+                       sort=self.sort, keep_carry=False)
                   for ir in irs]
 
         # signature buckets, then size-class tercile sub-groups
@@ -178,6 +185,23 @@ class BatchSearcher:
         dev = self.searcher.device
         out = []
         for (cfg_g, idxs), work in zip(unified, works):
+            if cfg_g.compact_cap and cfg_g.req_groups:
+                # tighten the compaction cap from the ACTUAL conjunct lens
+                # of the group's queries (classes are pow2-quantized group
+                # maxima): eligible_q <= min over required conjuncts of its
+                # summed len, so the group max of that is a sound static
+                # cap. Each query's OWN req_groups positions are used.
+                m = 0
+                for i in idxs:
+                    lq = np.asarray(bounds[i].arrays["lens"])
+                    rgs = bounds[i].cfg.req_groups or cfg_g.req_groups
+                    mi = min(sum(int(lq[p]) if p < len(lq) else 0
+                                 for p in g)
+                             for g in rgs)
+                    m = max(m, mi)
+                cap = size_class(max(m, 128))
+                if cap < cfg_g.compact_cap:
+                    cfg_g = replace(cfg_g, compact_cap=cap)
             width = self.max_batch
             while width > self.min_batch and \
                     width * work > self.work_ratio * self.max_batch * wmin:
@@ -195,20 +219,44 @@ class BatchSearcher:
                     len(chunk), self.min_batch)
                 while len(chunk) < bs:      # wraparound pad: same work/row
                     chunk.append(chunk[0])
+                b0 = bounds[chunk[0]].arrays
                 batch = {
                     key: torch.from_numpy(np.stack([
                         np.pad(bounds[i].arrays[key],
-                               _pad_spec(bounds[i].arrays[key], T))
+                               _pad_spec(bounds[i].arrays[key],
+                                         T if key != "fparams" else
+                                         bounds[i].arrays[key].shape[0]))
                         for i in chunk])).to(dev)
-                    for key in _BATCH_KEYS
+                    for key in _BATCH_KEYS if key in b0
                 }
+                if cfg_g.sort:
+                    # [B, S, 2]: the vmapped form of each plan's [S, 2]
+                    batch["sort_targets"] = torch.from_numpy(np.stack(
+                        [bounds[i].arrays["sort_targets"]
+                         for i in chunk])).to(dev)
+                if "sort_strtabs" in b0:
+                    batch["sort_strtabs"] = {
+                        si: torch.from_numpy(np.stack(
+                            [bounds[i].arrays["sort_strtabs"][si]
+                             for i in chunk])).to(dev)
+                        for si in b0["sort_strtabs"]}
                 out.append((cfg_g, fn, batch, chunk))
         return out
 
     def _prefixify(self, cfg_g, stats):
-        """Impact-prefix pruning: terms wider than prefix_cap read only
-        their top-impact prefix. Every config that reaches here passed
-        check_supported, so it is a pure relevance OR of terms."""
+        """Impact-prefix pruning for the pure relevance OR-of-terms shape:
+        terms wider than prefix_cap read only their top-impact prefix.
+        Eligibility is the JAX package's (xapiand_tpu/search.py:490-498):
+        any predicate/sort/agg machinery needs the full row set."""
+        if (cfg_g.tree != ("G", 0) or cfg_g.n_filters or cfg_g.geo_specs
+                or cfg_g.phrases or cfg_g.sort
+                or cfg_g.collapse_slot is not None or cfg_g.with_aggs
+                or cfg_g.count_only or cfg_g.dense or cfg_g.join
+                or cfg_g.unweighted or cfg_g.syn_groups or cfg_g.max_specs
+                or cfg_g.emit_sort_keys or cfg_g.n_chunks > 1):
+            return cfg_g
+        if getattr(self.scheme, "needs_uniqterms", False):
+            return cfg_g
         cap = self.prefix_cap
         prefix = tuple(cap if c > cap else 0
                        for c in cfg_g.term_classes())
