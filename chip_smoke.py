@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its two main paths.
+"""Smoke test of the torch port on one CUDA card: its three main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -25,6 +25,17 @@ merge_docs (with group bits, deletes and the tree), compact_rows,
 filter_leaves, sort_topk, topk_rows, fullwidth_topk, agg_metrics,
 agg_buckets.
 
+Positional path - BASELINE.json config 2 (utils/synth_positional.py, the
+counterpart of scripts/config_bench.py:35-76) at its published 100k docs
+of 40 Zipf(1.07) tokens over 5,000 words, with positions: 512 2-word
+phrases and 512 AND / OR / AND_NOT booleans of three words (config_bench's
+queries2, seed 11), then 128 3-word phrases and 128 NEAR pairs at window 4
+from the same generator, through one BatchSearcher(k=10). Kernels:
+score_slices, merge_docs, phrase_leaves (K14 with the K15 lookups),
+filter_leaves (the tree over the phrase verdicts), topk_rows; every phrase
+launch group's phrase_leaves against its plain version, twice bit for
+bit; the torch.searchsorted time of the same K15 lookups beside it.
+
 For each path, in order:
 
   1. the corpus (the faceted one with its fingerprint: numpy version,
@@ -42,13 +53,15 @@ For each path, in order:
      no group in prefix mode and prefix_certify 0; the relevance path: a
      prefix group ran); the queries the run re-ran on the exact path
      (BatchSearcher.reran), and that re-run's launch groups compared too;
-  4. all 1024 results (the faceted path: of both XT_FULLWIDTH values)
-     against a float64 numpy oracle: relevance as tie
-     groups with scores within rtol 1e-5; A and B as exact docid lists;
-     counts exactly on the faceted path, and its aggregations: facet
-     counts per category code exact, price n, min and max exact (min and
-     max as float32), sums within rtol 1e-5; the shaped response
-     (merge_and_shape) of the first A query;
+  4. all 1024 results (the faceted path: of both XT_FULLWIDTH values; the
+     positional path: all 1280) against a float64 numpy oracle: relevance
+     as tie groups with scores within rtol 1e-5; A and B as exact docid
+     lists; counts exactly on the faceted and positional paths, and the
+     faceted aggregations: facet counts per category code exact, price n,
+     min and max exact (min and max as float32), sums within rtol 1e-5;
+     the shaped response (merge_and_shape) of the first A query; the
+     positional oracle applies the launch group's cand_cap and pmax, and
+     every phrase and NEAR hit is checked in the text;
   5. QPS of 20 warm runs (median and spread), host planning's share of
      them, and the device-busy share of one run from a torch.profiler
      trace; on the faceted path the same traffic with the fullwidth path
@@ -59,10 +72,15 @@ JAX package. The kernels are built first, from csrc/, one nvcc per source
 started together.
 
 Any failure raises (exit != 0). The second-to-last line is the kernel JSON
-record (launches: both paths' counted runs; ms / plain_ms: per-launch
-times summed over the distinct launch groups compared); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a
-checkout of the repo, it exits non-zero with no result.
+record (launches: the three paths' counted runs; ms / plain_ms: per-launch
+times summed over the launch groups compared; bound_ms: the least time the
+card could take for the same launches, summed likewise, each launch the
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
+H100 SXM's published rates, counted from this run's inputs, and bound_by
+the one that dominates; library_ms null: no single PyTorch call computes
+any of these functions); the last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout of the repo, it exits
+non-zero with no result.
 
     python3 chip_smoke.py
 """
@@ -80,10 +98,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N_DOCS, VOCAB, N_QUERIES, TERMS, K = 1_000_000, 200_000, 1024, 3, 10
 FACETED_DOCS, FACETED_PER_FAMILY = 1_000_000, 256
+POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
 MAX_BATCH, PREFIX_CAP = 256, 8192
 ORACLE_RTOL = 1e-5        # float32 device sums vs the float64 oracle
 KERNEL_RTOL = 1e-6        # kernel vs plain version: same float32 op order
 AGG_RTOL = 1e-5           # aggregation sums: float32, another add order
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+PEAK_OPS_PER_S = 67e12     # H100 SXM published float32 rate (no tensor core)
 SOURCES = {
     "score_slices": ("xapiand_tpu_torch/csrc/score_slices.cu",
                      "xapiand_tpu/ops/executor.py:691"),
@@ -105,12 +126,16 @@ SOURCES = {
                     "xapiand_tpu/ops/aggs.py:249"),
     "agg_buckets": ("xapiand_tpu_torch/csrc/agg_buckets.cu",
                     "xapiand_tpu/ops/aggs.py:275"),
+    "phrase_leaves": ("xapiand_tpu_torch/csrc/phrase_leaves.cu",
+                      "xapiand_tpu/ops/phrase.py:28"),
 }
 RELEVANCE_KERNELS = ("score_slices", "merge_docs", "topk_rows",
                      "prefix_certify")
 FACETED_KERNELS = ("score_slices", "merge_docs", "compact_rows",
                    "filter_leaves", "sort_topk", "topk_rows",
                    "fullwidth_topk", "agg_metrics", "agg_buckets")
+POSITIONAL_KERNELS = ("score_slices", "merge_docs", "phrase_leaves",
+                      "filter_leaves", "topk_rows")
 
 
 def log(msg):
@@ -203,24 +228,104 @@ def check_stats(name, got, want):
 
 
 class Recorder:
-    """Per-kernel max error and per-launch times summed over the launch
-    groups compared, and one log line per group."""
+    """Per-kernel max error, and per-launch times and bounds summed over
+    the launch groups compared; one log line per group."""
 
     def __init__(self):
         self.rec: dict = {}
         self.line: dict = {}
 
-    def note(self, name, err, ms, plain_ms):
+    def note(self, name, err, ms, plain_ms, work):
+        """work: (bytes, operations) that the launch must move and do."""
         r = self.rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                       "plain_ms": 0.0})
+                                       "plain_ms": 0.0, "bytes_ms": 0.0,
+                                       "ops_ms": 0.0, "bound_ms": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        self.line[name] = (round(ms, 4), round(plain_ms, 4))
+        b_ms = 1e3 * work[0] / HBM_BYTES_PER_S
+        o_ms = 1e3 * work[1] / PEAK_OPS_PER_S
+        r["bytes_ms"] += b_ms
+        r["ops_ms"] += o_ms
+        r["bound_ms"] += max(b_ms, o_ms)
+        self.line[name] = (round(ms, 4), round(plain_ms, 4),
+                           round(max(b_ms, o_ms), 4))
 
     def flush(self, what):
-        log(f"[kernels] {what}: kernel/plain ms {self.line}")
+        log(f"[kernels] {what}: kernel/plain/bound ms {self.line}")
         self.line = {}
+
+    def record(self, name, launches):
+        """The kernel's entry of the JSON line."""
+        r = self.rec[name]
+        return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1], "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                             else "operations"),
+                "library_ms": None}
+
+
+# The work each kernel must do for one launch, counted from its inputs
+# (each input byte read once, each output byte written once; data-
+# dependent loops counted as this run's data runs them): (bytes, ops).
+
+def n_true(t):
+    return int(t.sum())
+
+
+def log2c(n):
+    return max(int(n) - 1, 1).bit_length()
+
+
+def work_score_slices(lens, widths, B, R):
+    import torch
+
+    w = torch.tensor(widths, device=lens.device)
+    n = int(torch.minimum(lens, w[None, :]).sum())
+    return 12 * n + 8 * B * R + 4 * lens.numel(), 9 * n
+
+
+def work_merge_docs(ids, widths, deleted, orbits):
+    B, R = ids.shape
+    real = n_true(ids != 2**31 - 1)
+    out = 5 + (4 if orbits is not None else 0)
+    return (8 * B * R + 4 * B * len(widths) +
+            (real if deleted is not None else 0) + out * B * R + 4 * B,
+            real * sum(log2c(w) for w in widths))
+
+
+def work_rows(R_rows, B, per_row, per_query):
+    return per_row * B * R_rows + per_query * B, B * R_rows
+
+
+def work_selected(B, R, per_row, n_sel, per_sel, out_bytes):
+    """Rows read per_row bytes each, n_sel selected rows per_sel more."""
+    return per_row * B * R + per_sel * n_sel + out_bytes, B * R + n_sel
+
+
+def work_filter(ids, base, F, phbits):
+    """filter_leaves: docids, orbits, base and verdict words read per row,
+    5 key words of 17 bytes a leaf per first row, eligible written."""
+    B, C = ids.shape
+    first = base if base is not None else ids != 2**31 - 1
+    per_row = 8 + (1 if base is not None else 0) + \
+        (4 if phbits is not None else 0) + 1
+    return work_selected(B, C, per_row, n_true(first), 17 * F, 4 * B)
+
+
+# bytes of one eligible row's sort key columns, by key kind
+KEY_BYTES = {"value": 9, "score": 0, "dist": 5, "geodist": 9,
+             "strmetric": 8, "docid": 0}
+
+
+def work_sort(specs, elig, k):
+    """sort_topk / fullwidth_topk: ids, sums and flags per row, the key
+    columns per eligible row, the top k (docid, score) written."""
+    B, C = elig.shape
+    return work_selected(B, C, 9, n_true(elig),
+                         sum(KEY_BYTES[s[0]] for s in specs), 9 * B * k)
 
 
 def slices(searcher, cfg, batch, stats_d, rec):
@@ -251,7 +356,8 @@ def slices(searcher, cfg, batch, stats_d, rec):
     check_equal("score_slices ids", ids, pids)
     err = max(check_close("score_slices w", w, pw),
               check_close("score_slices tail", tail, ptail))
-    rec.note("score_slices", err, cuda_ms(k1), cuda_ms(p1))
+    rec.note("score_slices", err, cuda_ms(k1), cuda_ms(p1),
+             work_score_slices(batch["lens"], widths, *ids.shape))
     return seg, params, post, args, widths, ids, w, tail
 
 
@@ -274,7 +380,8 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
     check_equal("merge_docs owner", owner, powner)
     check_equal("merge_docs count", count, pcount)
     rec.note("merge_docs", check_close("merge_docs sums", sums, psums),
-             cuda_ms(k2), cuda_ms(p2))
+             cuda_ms(k2), cuda_ms(p2), work_merge_docs(ids, widths, None,
+                                                       None))
 
     kk = min(cfg.verify_k, R - 1) + 1 if cfg.verify_k else cfg.k
 
@@ -287,7 +394,9 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
     (d, s), (pd, ps) = k3(), p3()
     check_equal("topk_rows docids", d, pd)
     check_equal("topk_rows scores", s, ps)
-    rec.note("topk_rows", 0.0, cuda_ms(k3), cuda_ms(p3))
+    B = ids.shape[0]
+    rec.note("topk_rows", 0.0, cuda_ms(k3), cuda_ms(p3),
+             work_rows(R, B, 9, 8 * kk))
 
     if cfg.verify_k:
         classes = cfg.term_classes()
@@ -303,9 +412,14 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
         (cd, cs, cc), (pcd, pcs, pcc) = k4(), p4()
         check_equal("prefix_certify docids", cd, pcd)
         check_equal("prefix_certify certified", cc, pcc)
+        # candidates read, one posting probe of 12 bytes per candidate
+        # and term, the certified top k written
         rec.note("prefix_certify",
                  check_close("prefix_certify scores", cs, pcs),
-                 cuda_ms(k4), cuda_ms(p4))
+                 cuda_ms(k4), cuda_ms(p4),
+                 (8 * B * kk + 12 * B * (kk - 1) * cfg.T
+                  + 9 * B * min(cfg.k, kk - 1),
+                  B * (kk - 1) * sum(log2c(c) for c in classes)))
     rec.flush(f"{shape_name} B={ids.shape[0]} R={R}")
 
 
@@ -319,10 +433,13 @@ def compare_aggs(values, specs, ids, elig, rec, what):
     dev = ids.device
     line = {}
 
-    def note(name, err, k, p):
+    B, R = ids.shape
+    ne = n_true(elig)
+
+    def note(name, err, k, p, work):
         ms, pms = cuda_ms(k, reps=5), cuda_ms(p, reps=3)
         if rec is not None:
-            rec.note(name, err, ms, pms)
+            rec.note(name, err, ms, pms, work)
         line.setdefault(name, []).append((round(ms, 4), round(pms, 4)))
 
     mets = [sp for sp in specs if sp[0] in ag.METRIC_KINDS]
@@ -335,9 +452,11 @@ def compare_aggs(values, specs, ids, elig, rec, what):
             got = twice("agg_metrics", lambda: kn.agg_metrics(*args))
             want = kn._agg_metrics_plain(*args)
             check_equal("agg_metrics count", got[0], want[0])
+            M = len(cols)
             note("agg_metrics", check_stats("agg_metrics", got[1:], want[1:]),
                  lambda: kn.agg_metrics(*args),
-                 lambda: kn._agg_metrics_plain(*args))
+                 lambda: kn._agg_metrics_plain(*args),
+                 work_selected(B, R, 5, ne, 5 * M, 20 * M * B + 4 * B))
     for sp in specs:
         if sp[0] not in ("terms", "missing"):
             continue
@@ -352,8 +471,12 @@ def compare_aggs(values, specs, ids, elig, rec, what):
         err = 0.0
         if subs:
             err = check_stats(f"agg_buckets {sp}", got[1], want[1])
+        S = len(args[5])
+        n_val = sum(c is not None for c in args[5])
         note("agg_buckets", err, lambda: kn.agg_buckets(*args),
-             lambda: kn._agg_buckets_plain(*args))
+             lambda: kn._agg_buckets_plain(*args),
+             work_selected(B, R, 5, ne, 4 + 5 * n_val,
+                           4 * B * args[4] * (1 + 5 * S)))
     if rec is None:
         log(f"[kernels] {what}: kernel/plain ms {line}")
 
@@ -397,8 +520,10 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
     for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
         check_equal(f"merge_docs {nm}", a, b)
     rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
-             cuda_ms(lambda: kn._merge_docs_plain(*margs)))
+             cuda_ms(lambda: kn._merge_docs_plain(*margs)),
+             work_merge_docs(ids, widths, deleted, got[3]))
     sums, mask, _count, orbits = got
+    B = ids.shape[0]
     if cap and (cfg.n_filters or
                 (not fast and (cfg.sort or cfg.with_aggs))):
         cargs = (mask, ids, sums, orbits, cap)
@@ -408,8 +533,11 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
                                  f"exceed the cap {cap}")
         for nm, a, b in zip(("docids", "sums", "orbits", "n"), got, want):
             check_equal(f"compact_rows {nm}", a, b)
+        row_b = 12 if orbits is not None else 8
         rec.note("compact_rows", 0.0, cuda_ms(lambda: kn.compact_rows(
-            *cargs)), cuda_ms(lambda: kn._compact_rows_plain(*cargs)))
+            *cargs)), cuda_ms(lambda: kn._compact_rows_plain(*cargs)),
+            work_selected(B, R, 1, int(got[3].clamp(max=cap).sum()), row_b,
+                          B * cap * row_b + 4 * B))
         ids, sums, orbits, _n = got
         mask = None if cfg.n_filters else ids != kn.SENTINEL
     if cfg.n_filters:
@@ -422,7 +550,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("filter_leaves count", got[1], want[1])
         rec.note("filter_leaves", 0.0,
                  cuda_ms(lambda: kn.filter_leaves(*fargs)),
-                 cuda_ms(lambda: kn._filter_leaves_plain(*pargs)))
+                 cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
+                 work_filter(ids, mask, cfg.n_filters, None))
         mask = got[0]
     if cfg.with_aggs:
         compare_aggs(values, cfg.with_aggs, ids, mask, rec, shape_name)
@@ -443,7 +572,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         n_uncert = int((~got[2]).sum())
         rec.note("fullwidth_topk", 0.0,
                  cuda_ms(lambda: kn.fullwidth_topk(*fargs)),
-                 cuda_ms(lambda: kn._fullwidth_topk_plain(*pargs), reps=3))
+                 cuda_ms(lambda: kn._fullwidth_topk_plain(*pargs), reps=3),
+                 work_sort((spec,), mask, cfg.k))
     elif cfg.sort:
         sargs = (cfg.sort, ids, sums, mask, cfg.k, values,
                  batch["sort_targets"])
@@ -453,16 +583,17 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("sort_topk docids", got[0], want[0])
         check_equal("sort_topk scores", got[1], want[1])
         rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
-                 cuda_ms(lambda: kn._sort_topk_plain(*pargs)))
+                 cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
+                 work_sort(cfg.sort, mask, cfg.k))
     else:
         targs = (sums, ids, mask, cfg.k)
         got, want = kn.topk_rows(*targs), kn._topk_rows_plain(*targs)
         check_equal("topk_rows docids", got[0], want[0])
         check_equal("topk_rows scores", got[1], want[1])
         rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
-                 cuda_ms(lambda: kn._topk_rows_plain(*targs)))
+                 cuda_ms(lambda: kn._topk_rows_plain(*targs)),
+                 work_rows(ids.shape[1], B, 9, 8 * cfg.k))
     # every sort key kind, on synthetic columns over the same rows
-    B = ids.shape[0]
     col, tg, tab = sort_inputs
     vals = dict(values)
     vals[sf.SORT_TEST_SLOT] = col
@@ -941,6 +1072,253 @@ def faceted_path(dev, rec, smi) -> dict:
     return counts
 
 
+def work_phrase(ids, widths, batch, orbits, first, seg, cfg, ncand):
+    """phrase_leaves: per (query, leaf) the walked term block's docids up
+    to the last candidate kept (the walk stops at cand_cap), per kept
+    candidate its first flag and, per phrase term, posoff / poslen and
+    its positions; the verdict words written. Operations: a binary search
+    per walked row and other phrase term, and per kept candidate one per
+    position of t0 and other term. The candidates are the plain version's
+    (ops/phrase.py phrase_candidates)."""
+    import torch
+
+    from xapiand_tpu_torch.ops import phrase as ph
+    from xapiand_tpu_torch.ops.kernels import row_offsets
+
+    B, R = ids.shape
+    lens = batch["lens"]
+    ro = row_offsets(widths)
+    nbytes = 4 * B * R + 4 * B * len(cfg.phrases)
+    ops = 0
+    for p, (tidx, gidx, _win, _ex) in enumerate(cfg.phrases):
+        cand_d, _src, valid, per_term = ph.phrase_candidates(
+            ids, widths, batch["offsets"], orbits, first, seg["post_posoff"],
+            seg["post_poslen"], tidx, gidx, cfg.cand_cap, cfg.pmax)
+        rows = torch.minimum(lens[:, list(tidx)], torch.tensor(
+            [widths[t] for t in tidx], device=ids.device))
+        nw, tw = rows.min(1)
+        walked = nw.clone()
+        full = ncand[:, p] >= cfg.cand_cap
+        if bool(full.any()):
+            C = cand_d.shape[1]
+            for b in torch.nonzero(full).flatten().tolist():
+                t = tidx[int(tw[b])]
+                blk = ids[b, ro[t]:ro[t + 1]]
+                walked[b] = int(torch.searchsorted(
+                    blk, cand_d[b, C - 1:C])) + 1
+        n_walk = int(walked.sum())
+        n_cand = n_true(valid)
+        n_pos = sum(int(torch.where(f, pl, 0).sum()) for f, _po, pl in
+                    per_term)
+        nbytes += 4 * n_walk + n_cand + 8 * n_cand * len(tidx) + 4 * n_pos
+        ops += n_walk * sum(log2c(widths[t]) for t in tidx[1:]) + \
+            n_pos * log2c(cfg.pmax)
+    return nbytes, ops
+
+
+def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
+    """Each positional-path kernel against its plain version on one launch
+    group's real inputs, in execute_batch's order: score_slices,
+    merge_docs, and for a phrase plan phrase_leaves (twice, bit for bit)
+    and filter_leaves over its verdict words, then topk_rows; for a phrase
+    plan also the torch.searchsorted time of the K15 lookups (each
+    candidate's docid in each phrase term's block). -> ms of those
+    lookups (0.0 without phrases)."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.ops import phrase as ph
+    from xapiand_tpu_torch.ops.kernels import row_offsets
+
+    seg, _params, _post, _args, widths, ids, w, _tail = slices(
+        searcher, cfg, batch, stats_d, rec)
+    B, R = ids.shape
+    bits = batch["group_bits"]
+    deleted = seg["deleted"] if cfg.has_deletes else None
+    prog = kn.tree_program(cfg.tree)
+    mprog = None if cfg.phrases else prog
+    margs = (ids, w, widths, bits, deleted, mprog, bool(cfg.phrases))
+    got, want = kn.merge_docs(*margs), kn._merge_docs_plain(*margs)
+    err = check_close("merge_docs sums", got[0], want[0])
+    for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
+        check_equal(f"merge_docs {nm}", a, b)
+    rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
+             cuda_ms(lambda: kn._merge_docs_plain(*margs)),
+             work_merge_docs(ids, widths, deleted, got[3]))
+    sums, mask, _count, orbits = got
+    lookup_ms = 0.0
+    if cfg.phrases:
+        pargs = (ids, widths, batch["offsets"], batch["lens"], orbits, mask,
+                 seg["post_posoff"], seg["post_poslen"], seg["positions"],
+                 cfg.phrases, cfg.cand_cap, cfg.pmax)
+        phb, ncand = twice("phrase_leaves",
+                           lambda: ph.phrase_leaves(*pargs))
+        pphb, pncand = ph._phrase_leaves_plain(*pargs)
+        check_equal("phrase_leaves verdicts", phb, pphb)
+        check_equal("phrase_leaves candidates", ncand, pncand)
+        rec.note("phrase_leaves", 0.0,
+                 cuda_ms(lambda: ph.phrase_leaves(*pargs)),
+                 cuda_ms(lambda: ph._phrase_leaves_plain(*pargs), reps=3),
+                 work_phrase(ids, widths, batch, orbits, mask, seg, cfg,
+                             ncand))
+        # the library yardstick of the K15 lookups: torch.searchsorted of
+        # the candidates in each phrase term's block
+        ro = row_offsets(widths)
+        look = []
+        for tidx, gidx, _w, _e in cfg.phrases:
+            cand_d = ph.phrase_candidates(
+                ids, widths, batch["offsets"], orbits, mask,
+                seg["post_posoff"], seg["post_poslen"], tidx, gidx,
+                cfg.cand_cap, cfg.pmax)[0]
+            look += [(ids[:, ro[t]:ro[t + 1]].contiguous(), cand_d)
+                     for t in tidx]
+        lookup_ms = cuda_ms(lambda: [torch.searchsorted(a, x)
+                                     for a, x in look])
+        fargs = (seg["values"], (), (), ids.new_empty((B, 0, 4)), ids, mask,
+                 orbits, prog, phb)
+        got, want = kn.filter_leaves(*fargs), \
+            kn._filter_leaves_plain([], (), *fargs[3:])
+        check_equal("filter_leaves eligible", got[0], want[0])
+        check_equal("filter_leaves count", got[1], want[1])
+        rec.note("filter_leaves", 0.0,
+                 cuda_ms(lambda: kn.filter_leaves(*fargs)),
+                 cuda_ms(lambda: kn._filter_leaves_plain([], (),
+                                                         *fargs[3:])),
+                 work_filter(ids, mask, 0, phb))
+        mask = got[0]
+    targs = (sums, ids, mask, cfg.k)
+    got, want = kn.topk_rows(*targs), kn._topk_rows_plain(*targs)
+    check_equal("topk_rows docids", got[0], want[0])
+    check_equal("topk_rows scores", got[1], want[1])
+    rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
+             cuda_ms(lambda: kn._topk_rows_plain(*targs)),
+             work_rows(R, B, 9, 8 * cfg.k))
+    torch.cuda.synchronize()
+    rec.flush(f"{shape_name} B={B} R={R}" + (
+        f" cand_cap={cfg.cand_cap} pmax={cfg.pmax} K15 lookups "
+        f"torch.searchsorted {round(lookup_ms, 4)} ms" if cfg.phrases
+        else ""))
+    return lookup_ms
+
+
+def positional_path(dev, rec, smi) -> dict:
+    """Slice 4: config 2, phrase + boolean search over 100k positional
+    docs."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch.models.weights import CollectionStats
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
+    from xapiand_tpu_torch.utils import synth_positional as sp
+
+    t0 = time.time()
+    corpus = sp.build_corpus2(POSITIONAL_DOCS, seed=7)
+    seg = corpus.seg
+    qs = sp.queries2(corpus, n_each=POSITIONAL_EACH,
+                     n_three=POSITIONAL_THREE, seed=11)
+    irs = [q for _f, q, _w in qs]
+    log(f"[corpus] positional: {POSITIONAL_DOCS} docs, fingerprint "
+        f"{sp.fingerprint(corpus)}, {len(qs)} queries, "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    searcher = SegmentSearcher(seg, device=dev)
+    bs = BatchSearcher(searcher, k=K)
+    stats = CollectionStats(doc_count=seg.doc_count,
+                            avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+    stats_d = {"N": float(stats.doc_count),
+               "avg_doclen": float(stats.avg_doclen)}
+    planned = bs.plan(irs, stats=stats)
+    torch.cuda.synchronize()
+    log(f"[plan] positional: upload + plan {time.time() - t0:.1f} s; "
+        f"launches (tree, classes, cand_cap, pmax, B): " + str(
+            [(c.tree, list(c.classes), c.cand_cap, c.pmax,
+              int(b["offsets"].shape[0])) for c, _f, b, _ch in planned]))
+    if any(c.prefix for c, *_ in planned):
+        raise AssertionError("a positional group in prefix mode")
+    caps, pmaxes = [0] * len(qs), [0] * len(qs)
+    for cfg, _fn, _batch, chunk in planned:
+        for qi in chunk:
+            caps[qi], pmaxes[qi] = cfg.cand_cap, cfg.pmax
+
+    # every phrase launch group, and each other group shape once
+    seen: set = set()
+    lookup_ms = 0.0
+    for cfg, _fn, batch, _chunk in planned:
+        key = (cfg.tree, cfg.classes, int(batch["offsets"].shape[0]))
+        if cfg.phrases or key not in seen:
+            seen.add(key)
+            lookup_ms += compare_positional(searcher, cfg, batch, stats_d,
+                                            rec, f"positional {key}")
+    log(f"[kernels] positional K15 lookups over every phrase group: "
+        f"torch.searchsorted {lookup_ms} ms, phrase_leaves "
+        f"{rec.rec['phrase_leaves']['ms']} ms (the whole phrase step)")
+
+    # the path, counted
+    kn.reset_launches()
+    results = bs.run(irs, stats=stats)
+    torch.cuda.synchronize()
+    counts = dict(kn.launches)
+    log(f"[main] positional launches {counts}")
+    if not all(counts[n] for n in POSITIONAL_KERNELS) or \
+            counts["prefix_certify"] or counts["compact_rows"]:
+        raise AssertionError(f"positional launches wrong: {counts}")
+
+    # parity with the float64 oracle, and the phrase hits in the text
+    t0 = time.time()
+    want = sp.oracle_answers(corpus, qs, caps, pmaxes, K, ORACLE_RTOL)
+    bad, capped = [], 0
+    for qi, ((fam, _q, ws), r, w) in enumerate(zip(qs, results, want)):
+        fin = np.isfinite(r["scores"])
+        ok = r["count"] == w["count"] and \
+            (r["docids"][~fin] == kn.SENTINEL).all() and \
+            tie_group_match(r["docids"], r["scores"], w["ranked"], K)
+        for d in r["docids"][fin].tolist() if fam != "B" else ():
+            toks = [sp.word(t) for t in corpus.tokens[d]]
+            if fam == "N":
+                pa = [i for i, t in enumerate(toks) if t == ws[0]]
+                pb = [i for i, t in enumerate(toks) if t == ws[1]]
+                ok = ok and any(abs(a - b) < sp.NEAR_WINDOW
+                                for a in pa for b in pb)
+            else:
+                n = len(ws)
+                ok = ok and any(tuple(toks[j:j + n]) == ws
+                                for j in range(len(toks) - n + 1))
+        if fam != "B":
+            m = np.ones(seg.num_docs, bool)
+            for t in ws:
+                ti = seg.terms[t]
+                hit = np.zeros(seg.num_docs, bool)
+                hit[seg.post_docids[ti.offset:ti.offset + ti.length]] = True
+                m &= hit
+            capped += int(m.sum() > caps[qi])
+        if not ok:
+            bad.append(qi)
+    per_fam = {f: sum(1 for qi, (ff, *_x) in enumerate(qs)
+                      if ff == f and qi not in bad)
+               for f in ("P2", "B", "P3", "N")}
+    log(f"[parity] positional: {len(qs) - len(bad)}/{len(qs)} queries "
+        f"match the float64 oracle (counts exact, tie groups at rtol "
+        f"{ORACLE_RTOL}, cand_cap and pmax of each launch group; phrase "
+        f"and NEAR hits found in the text) per family {per_fam}; "
+        f"{capped} phrase/NEAR queries with more candidates than their "
+        f"cand_cap; counts min/median/max {min(w['count'] for w in want)}/"
+        f"{sorted(w['count'] for w in want)[len(want) // 2]}/"
+        f"{max(w['count'] for w in want)} ({time.time() - t0:.1f} s)")
+    if bad:
+        qi = bad[0]
+        r = results[qi]
+        raise AssertionError(
+            f"positional: {len(bad)} queries differ; first {qi} {qs[qi][0]} "
+            f"{qs[qi][2]}: got count {r['count']} "
+            f"{list(zip(r['docids'].tolist(), r['scores'].tolist()))} want "
+            f"count {want[qi]['count']} {want[qi]['ranked'][:K]}")
+    if not capped:
+        raise AssertionError("no phrase query hit its cand_cap")
+    timed_runs([(bs, irs)], stats, len(qs), smi, "positional")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -984,17 +1362,18 @@ def main() -> int:
     log(f"[time] relevance path {time.time() - t0:.1f} s")
     t0 = time.time()
     fac = faceted_path(dev, rec, smi)
+    torch.cuda.empty_cache()
     log(f"[time] faceted path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    pos = positional_path(dev, rec, smi)
+    log(f"[time] positional path {time.time() - t0:.1f} s")
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1],
-         "launches": rel.get(name, 0) + fac.get(name, 0),
-         "max_abs_err": rec.rec[name]["max_abs_err"],
-         "ms": rec.rec[name]["ms"], "plain_ms": rec.rec[name]["plain_ms"]}
+        rec.record(name, rel.get(name, 0) + fac.get(name, 0) +
+                   pos.get(name, 0))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

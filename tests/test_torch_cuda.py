@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here but the last needs a CUDA device and skips without one.
+Every test here but the two corpus pins needs a CUDA device and skips
+without one.
 The file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Inputs are the real launch groups of two small synthetic corpora
+Inputs are the real launch groups of three small synthetic corpora
 (BatchSearcher.plan): the relevance corpus in exact and impact-prefix
-mode, and the faceted corpus (utils/synth_faceted.py) with its four query
+mode, the faceted corpus (utils/synth_faceted.py) with its four query
 families and config 3's aggregations, plus synthetic columns for every
-sort key kind. Tolerances: the kernels evaluate the same float32
+sort key kind, and config 2's positional corpus (utils/synth_positional.py)
+with its phrase, NEAR and boolean traffic. Phrase verdicts and candidate
+counts must be equal. Tolerances: the kernels evaluate the same float32
 expressions in the same order as the plain versions (nvcc -fmad=false),
 so docids, masks, bits, packed rows, counts and certificates must be equal
 and floats agree to rtol 1e-6; the aggregation sums (s, s2) add in
@@ -26,11 +29,12 @@ import torch
 
 from xapiand_tpu_torch.aggregations import compile_for_segment
 from xapiand_tpu_torch.models.segment import device_segment_from_numpy
-from xapiand_tpu_torch.ops import aggs, kernels
+from xapiand_tpu_torch.ops import aggs, kernels, phrase
 from xapiand_tpu_torch.ops.executor import upper_tree
 from xapiand_tpu_torch.query.ir import Q
 from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
 from xapiand_tpu_torch.utils import synth_faceted as sf
+from xapiand_tpu_torch.utils import synth_positional as sp
 from xapiand_tpu_torch.utils.synth import (build_synthetic_segment,
                                            sample_queries)
 
@@ -341,6 +345,82 @@ def test_agg_and_fullwidth_kernels_match_plain_versions(faceted):
             n += 1
     assert n >= 4
     torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def positional(cuda):
+    corpus = sp.build_corpus2(20000, seed=7)
+    qs = sp.queries2(corpus, n_each=64, n_three=32, seed=11)
+    irs = [q for _f, q, _w in qs]
+    # two 3-word phrases of the two commonest words: more candidates than
+    # the cap, which the kernel must cut where the plain version does
+    irs += [Q.phrase(("w0", "w1", "w0")), Q.phrase(("w1", "w0", "w0")),
+            Q.and_not(Q.phrase(("w0", "w1")), Q.or_terms(["w2"]))]
+    return corpus, SegmentSearcher(corpus.seg, device=cuda), irs
+
+
+def test_phrase_kernel_matches_plain_version(positional):
+    """phrase_leaves on every phrase launch group of config 2's traffic
+    (and of the cap-hitting phrases) against its plain version: verdict
+    words and candidate counts equal, bit for bit twice; then the tree in
+    filter_leaves over them."""
+    corpus, searcher, irs = positional
+    seg = searcher.device_segment.arrays_pytree()
+    n = hit_cap = 0
+    for cfg, _fn, batch, _chunk in BatchSearcher(searcher, k=10).plan(irs):
+        if not cfg.phrases:
+            continue
+        post, imp, widths, prefix, params = _inputs(searcher, cfg, batch)
+        ids, w, _ = kernels.score_slices(
+            post, None, batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, prefix, params)
+        sums, first, _c, orbits = kernels.merge_docs(
+            ids, w, widths, batch["group_bits"], None, None, True)
+        args = (ids, widths, batch["offsets"], batch["lens"], orbits, first,
+                seg["post_posoff"], seg["post_poslen"], seg["positions"],
+                cfg.phrases, cfg.cand_cap, cfg.pmax)
+        got = _twice(lambda: phrase.phrase_leaves(*args))
+        want = phrase._phrase_leaves_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        hit_cap += int((got[1] == cfg.cand_cap).sum())
+        B = ids.shape[0]
+        fargs = (seg["values"], (), (), ids.new_empty((B, 0, 4)), ids, first,
+                 orbits, kernels.tree_program(cfg.tree), got[0])
+        el = kernels.filter_leaves(*fargs)
+        pel = kernels._filter_leaves_plain([], (), *fargs[3:])
+        assert torch.equal(el[0], pel[0]) and torch.equal(el[1], pel[1])
+        n += 1
+    assert n >= 3 and hit_cap > 0
+    torch.cuda.synchronize()
+
+
+def test_phrase_search_cuda_equals_cpu(positional):
+    corpus, searcher, irs = positional
+    cpu = SegmentSearcher(corpus.seg, device=torch.device("cpu"))
+    kernels.reset_launches()
+    got = BatchSearcher(searcher, k=10).run(irs)
+    assert kernels.launches["phrase_leaves"] > 0
+    want = BatchSearcher(cpu, k=10).run(irs)
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g["docids"], e["docids"])
+        np.testing.assert_allclose(g["scores"], e["scores"], rtol=1e-6)
+        assert g["count"] == e["count"]
+
+
+def test_positional_corpus_is_pinned():
+    """Config 2's corpus and queries come out the same wherever the file
+    runs (Python's random, draw for draw as scripts/config_bench.py).
+    Needs no card."""
+    c = sp.build_corpus2(20000, seed=7)
+    assert sp.fingerprint(c) == {"sha256": "bc07b7cc47c245f7",
+                                 "postings": 597844, "positions": 800000,
+                                 "terms": 5000}
+    qs = sp.queries2(c, n_each=8, n_three=4, seed=11)
+    assert [w for _f, _q, w in qs][::4] == [
+        ("w17", "w124"), ("w1391", "w393"), ("not", "w1308", "w4172",
+                                             "w4723"),
+        ("or", "w2483", "w789", "w2793"), ("w43", "w117", "w82"),
+        ("w43", "w82")]
 
 
 def test_faceted_corpus_is_pinned():

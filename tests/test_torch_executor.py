@@ -328,7 +328,9 @@ OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
     ("collapse_slot", {"collapse_slot": 1}, "K10"),
     ("syn_groups", {"syn_groups": (1,)}, "K13"),
     ("max_specs", {"max_specs": ((1, 2),)}, "K13"),
-    ("phrases", {"phrases": (((0, 1), (0, 1), 0, True),)}, "K14"),
+    # phrases are ported (K14): the case carries a cap beyond the kernel's
+    ("phrases", {"phrases": (((0, 1), (0, 1), 0, True),),
+                 "cand_cap": 8192}, "K14"),
     ("geo_specs", {"geo_specs": ((1, 16, 16),)}, "K16"),
     ("with_aggs", {"with_aggs": (("histogram", 1, 64, ()),)}, "K17c"),
     ("emit_sort_keys", {"emit_sort_keys": True}, "K19"),

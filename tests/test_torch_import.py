@@ -27,7 +27,11 @@ assert kernels._lib is None and not kernels.build_info, "kernels built"
 assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
         "xapiand_tpu_torch.ops.executor", "xapiand_tpu_torch.ops.aggs",
         "xapiand_tpu_torch.aggregations",
-        "xapiand_tpu_torch.utils.synth_faceted"} <= set(names), names
+        "xapiand_tpu_torch.utils.synth_faceted",
+        "xapiand_tpu_torch.utils.synth_positional",
+        "xapiand_tpu_torch.ops.phrase",
+        "xapiand_tpu_torch.utils.dtutils",
+        "xapiand_tpu_torch.utils.iputils"} <= set(names), names
 print("ok", len(names))
 """
 
@@ -88,6 +92,12 @@ assert [r["count"] for r in res] == [w["count"] for w in want]
 shaped = merge_and_shape(names, metas, [res[0]["aggs"]],
                          [{0: metas[0]["cat_names"]}])
 assert shaped["price_stats"]["_count"] == want[0]["count"]
+from xapiand_tpu_torch.utils import synth_positional as sp
+pc = sp.build_corpus2(2000, seed=7)
+pq = sp.queries2(pc, n_each=8, n_three=4)
+res = BatchSearcher(SegmentSearcher(pc.seg, device=torch.device("cpu")),
+                    k=10).run([q for _f, q, _w in pq])
+assert sum(r["count"] for r in res[:8]) > 0
 import sys
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]
@@ -99,8 +109,8 @@ def test_port_searches_with_the_jax_package_absent(tmp_path):
     """A package named xapiand_tpu that fails to import, ahead of the real
     one on the path: the port imports all its modules and runs a relevance
     and a value-sorted faceted batch search with config 3's aggregations
-    (compile_for_segment to merge_and_shape), plan to results, without
-    it."""
+    (compile_for_segment to merge_and_shape), and config 2's phrase and
+    boolean batch, plan to results, without it."""
     pkg = tmp_path / "xapiand_tpu"
     pkg.mkdir()
     (pkg / "__init__.py").write_text(
@@ -120,6 +130,8 @@ HOST_COPIES = [
     ("utils/serialise.py", None),
     ("utils/strmetrics.py", None),
     ("utils/phonetic.py", None),
+    ("utils/dtutils.py", None),
+    ("utils/iputils.py", None),
     ("models/segment.py", "class DeviceSegment"),
 ]
 

@@ -202,5 +202,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="prefix_cap"):
         BatchSearcher(ps, prefix_cap=kernels.MAX_PREFIX_ROWS + 1)
     bs = BatchSearcher(ps, k=10)
+    # phrases are ported (K14): a phrase of more terms than the kernel's
+    # per-thread table holds is not
     with pytest.raises(NotImplementedError, match="K14"):
-        bs.run([Q.phrase(["t1", "t2"])])
+        bs.run([Q.phrase([f"t{i}" for i in range(kernels.MAX_PHRASE_TERMS
+                                                 + 1)])])

@@ -5,7 +5,8 @@ layout module for module and imports ``torch``, never ``jax`` and nothing of
 the JAX package. The jax-free host modules the slice needs (the host
 ``Segment`` in ``models/segment.py``, ``query/ir.py``, ``query/plan.py``,
 ``utils/synth.py``, ``utils/serialise.py``, ``utils/strmetrics.py``,
-``utils/phonetic.py``) are copies of the JAX package's files with their
+``utils/phonetic.py``, ``utils/dtutils.py``, ``utils/iputils.py``,
+``aggregations.py``) are copies of the JAX package's files with their
 package imports pointed here; ``tests/test_torch_import.py`` holds each
 copy's text equal to its original.
 
@@ -13,9 +14,12 @@ Slice 1 covers BM25 top-k over relevance OR queries (``BatchSearcher`` with
 impact-prefix pruning and the exact re-run of uncertified queries); slice 2
 the predicate path of filtered, value-sorted faceted search (boolean trees,
 deletes, value filters, multi-key sorts, compaction; its corpus is
-``utils/synth_faceted.py``). The device kernels are hand-written CUDA C++
-for ``sm_90a`` (``csrc/``), built at first use; on CPU tensors every kernel
-wrapper runs its plain PyTorch version instead (``ops/kernels.py``).
+``utils/synth_faceted.py``); slice 3 config 3 in full (aggregations, the
+fullwidth path); slice 4 config 2 in full (phrase and NEAR leaves, its
+corpus ``utils/synth_positional.py``). The device kernels are hand-written
+CUDA C++ for ``sm_90a`` (``csrc/``), built at first use; on CPU tensors
+every kernel wrapper runs its plain PyTorch version instead
+(``ops/kernels.py``).
 """
 
 __version__ = "0.1.0"

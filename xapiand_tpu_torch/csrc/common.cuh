@@ -32,7 +32,11 @@ __device__ __forceinline__ float bm25_sumpart(float wdf, float doclen,
     return tconst * (wdf / fmaxf(denom, 1e-9f));
 }
 
-// leftmost i in [0, n) with a[i] >= x (a ascending)
+// leftmost i in [0, n) with a[i] >= x (a ascending): K15, xapiand_tpu/ops/
+// executor.py lower_bound 192-205 and lower_bound_sorted 208-224. The TPU
+// sort-joined an ascending query vector because its gathers serialise; on
+// the H100 each probe is one L2-resident load, so a plain binary search
+// per query element computes the same index.
 __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int x) {
     int lo = 0, hi = n;
     while (lo < hi) {
@@ -47,7 +51,8 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int x) {
 // instructions, op | arg << 8 (ops/kernels.py tree_program). It runs per
 // row on a stack of bits held in one register (depth <= 32, checked on the
 // host): G pushes bit `arg` of the row's OR of group bits, F bit `arg` of
-// the row's filter results.
+// the row's filter results, PH bit `arg` of the row's phrase verdicts
+// (phrase_leaves.cu).
 #define XT_OP_G 0
 #define XT_OP_F 1
 #define XT_OP_ALL 2
@@ -56,9 +61,11 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int x) {
 #define XT_OP_OR 5
 #define XT_OP_XOR 6
 #define XT_OP_ANDNOT 7
+#define XT_OP_PH 8
 
 __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
-                                         unsigned orbits, unsigned fbits) {
+                                         unsigned orbits, unsigned fbits,
+                                         unsigned phbits) {
     unsigned st = 0;
     for (int i = 0; i < n; ++i) {
         const int ins = __ldg(prog + i);
@@ -67,6 +74,8 @@ __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
             st = (st << 1) | ((orbits >> arg) & 1u);
         } else if (op == XT_OP_F) {
             st = (st << 1) | ((fbits >> arg) & 1u);
+        } else if (op == XT_OP_PH) {
+            st = (st << 1) | ((phbits >> arg) & 1u);
         } else if (op == XT_OP_ALL) {
             st = (st << 1) | 1u;
         } else if (op == XT_OP_NONE) {

@@ -10,14 +10,17 @@ step for step as the JAX ``execute`` (825-932) runs its predicate half:
      across the term blocks (the TPU's global docid sort + run merge is
      not needed here: gathers do not serialise on the H100), one owner
      row per doc, and the eligible mask owner & not deleted & tree;
-  3. with value filters and a compaction cap below the row width: the
-     mask is the upper tree (filter leaves ALL or NONE by polarity),
-     compact_rows packs those rows to the cap, and filter_leaves applies
-     the leaves and the full tree there; with filters and no compaction,
-     filter_leaves runs over every owner row; without filters the full
-     tree ran in merge_docs, and a sorted or aggregating plan with a cap
-     packs its eligible rows with compact_rows (execute 893-911) - unless
-     the plan is on the fullwidth path (below);
+  3. with value filters and a compaction cap below the row width (and no
+     phrase, execute 836-837): the mask is the upper tree (filter leaves
+     ALL or NONE by polarity), compact_rows packs those rows to the cap,
+     and filter_leaves applies the leaves and the full tree there; with
+     filters or phrases and no such compaction, phrase_leaves (K14, ops/
+     phrase.py) writes each owner row's phrase verdicts and filter_leaves
+     runs the leaves and the full tree over every owner row (execute
+     858-876); otherwise the full tree ran in merge_docs; then a sorted or
+     aggregating plan with a cap that did not precompact packs its
+     eligible rows with compact_rows (execute 893-911) - unless the plan
+     is on the fullwidth path (below);
   4. aggregations (``ops/aggs.py``: agg_metrics, agg_buckets) over the
      same rows the ordering reads (execute 915-919);
   5. order: relevance -> topk_rows, exact top-k by (score desc, docid
@@ -52,7 +55,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from xapiand_tpu_torch.models.weights import BM25, CollectionStats
-from xapiand_tpu_torch.ops import aggs, kernels
+from xapiand_tpu_torch.ops import aggs, kernels, phrase
 
 SENTINEL = kernels.SENTINEL
 
@@ -119,7 +122,6 @@ def check_supported(cfg: ExecConfig, scheme):
         (cfg.collapse_slot is not None, "collapse (ROADMAP queue 2, K10)"),
         (cfg.syn_groups or cfg.max_specs,
          "OP_SYNONYM / OP_MAX (ROADMAP queue 2, K13)"),
-        (cfg.phrases or cfg.phrase_carry, "phrases (ROADMAP queue 2, K14)"),
         (cfg.geo_specs, "geo filters (ROADMAP queue 2, K16)"),
         (any(s[0] not in SORT_KINDS for s in cfg.sort),
          f"sort kinds other than {SORT_KINDS} (ROADMAP queue 2, K8)"),
@@ -137,6 +139,8 @@ def check_supported(cfg: ExecConfig, scheme):
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
+    if cfg.phrases:
+        phrase.check_phrases(cfg.phrases, cfg.cand_cap, cfg.pmax)
     aggs.check_aggs(cfg.with_aggs)
 
 
@@ -191,7 +195,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     mode); batch: {offsets i32[B,T], lens i32[B,T], tconst f32[B,T],
     scoring f32[B,T], group_bits i32[B,T], fparams i32[B,F,4] with
     filters, sort_targets f32[B,S,2] and sort_strtabs {si: f32[B,nb]} with
-    a sort} on the same device; stats: {"N", "avg_doclen", ...} numbers."""
+    a sort} on the same device; stats: {"N", "avg_doclen", ...} numbers.
+    cfg.phrase_carry is admitted and changes nothing (ops/phrase.py)."""
     check_supported(cfg, scheme)
     if "sort_cat_remap" in batch:
         raise NotImplementedError("not ported yet: mesh category remaps "
@@ -218,14 +223,19 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     values = seg["values"]
     # the tree over group bits only matters beyond a single group leaf
     # (executor.py:661-663): ("G", 0) holds on every real row
-    needs_bits = cfg.tree != ("G", 0) or cfg.n_filters
+    needs_bits = cfg.tree != ("G", 0) or cfg.n_filters or cfg.phrases
     bits = batch["group_bits"] if needs_bits else None
     deleted = seg["deleted"] if cfg.has_deletes else None
     cap = cfg.compact_cap if 0 < cfg.compact_cap < R else 0
-    if cfg.n_filters:
+    # phrase leaves read every owner row: no precompaction (execute
+    # 836-837), whatever the plan's cap
+    precompact = bool(cap and cfg.n_filters and not cfg.phrases)
+    if cfg.n_filters or cfg.phrases:
         prog = kernels.tree_program(cfg.tree)
-        slots, fparams = cfg.filter_slots, batch["fparams"]
-        if cap:
+        slots = cfg.filter_slots
+        fparams = batch["fparams"] if cfg.n_filters else \
+            offsets.new_empty((offsets.shape[0], 0, 4))
+        if precompact:
             # pack the upper-tree rows, then the leaves at cap width
             # (execute 836-857)
             sums, mask, _, orbits = kernels.merge_docs(
@@ -237,20 +247,27 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
         else:
             sums, mask, _, orbits = kernels.merge_docs(
                 ids, w, widths, bits, deleted, None, want_orbits=True)
+        phbits = None
+        if cfg.phrases:
+            # the phrase step: after the merge (owner rows, deletes,
+            # orbits), before the tree and the ordering (execute 869-876)
+            phbits, _ = phrase.phrase_leaves(
+                ids, widths, offsets, lens, orbits, mask, seg["post_posoff"],
+                seg["post_poslen"], seg["positions"], cfg.phrases,
+                cfg.cand_cap, cfg.pmax)
         eligible, count = kernels.filter_leaves(
-            values, slots, cfg.filter_vmax, fparams, ids, mask, orbits, prog)
-        fast = fullwidth_fast(cfg, values, ids.shape[1])
+            values, slots, cfg.filter_vmax, fparams, ids, mask, orbits, prog,
+            phbits)
     else:
         prog = kernels.tree_program(cfg.tree) if needs_bits else None
         sums, eligible, count, _ = kernels.merge_docs(ids, w, widths, bits,
                                                       deleted, prog)
-        fast = fullwidth_fast(cfg, values, R)
-        if cap and not fast and (cfg.sort or cfg.with_aggs):
-            # pack the eligible rows before the sort-key and agg-field
-            # gathers (execute 893-911)
-            ids, sums, _, _ = kernels.compact_rows(eligible, ids, sums,
-                                                   None, cap)
-            eligible = ids != SENTINEL
+    fast = fullwidth_fast(cfg, values, ids.shape[1])
+    if cap and not precompact and not fast and (cfg.sort or cfg.with_aggs):
+        # pack the eligible rows before the sort-key and agg-field
+        # gathers (execute 893-911)
+        ids, sums, _, _ = kernels.compact_rows(eligible, ids, sums, None, cap)
+        eligible = ids != SENTINEL
     out = {"count": count}
     if cfg.with_aggs:
         out["aggs"] = aggs.compute_aggs(values, cfg.with_aggs, ids,

@@ -1,7 +1,7 @@
 """The port's device kernels: ctypes-bound CUDA launchers, their plain
 PyTorch versions, and launch counters.
 
-Ten kernels carry batch search (sources in ``../csrc``; each file's
+Eleven kernels carry batch search (sources in ``../csrc``; each file's
 header names the TPU function it replaces, what bounds it on the H100 and
 what its design does about that):
 
@@ -20,10 +20,13 @@ what its design does about that):
                          max of value columns
   agg_buckets     K17a   terms / missing bucket counts with per-bucket
                          metric sub-aggregations
+  phrase_leaves   K14    PHRASE / NEAR verdicts of the first cand_cap
+                  +K15   candidates of each phrase leaf, found by binary
+                         search (wrapper and plain version: ops/phrase.py)
 
 The boolean tree (K6) is compiled on the host into a short postfix
 program (``tree_program``) that merge_docs and filter_leaves evaluate per
-row.
+row; filter_leaves also reads each row's word of phrase verdicts.
 
 Dispatch: a wrapper given CUDA tensors launches its kernel (on the current
 stream) or raises; given CPU tensors it runs the plain version. Nothing
@@ -65,6 +68,10 @@ MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
 MAX_AGG_METRICS = 8       # agg_metrics per-thread partials per launch
 MAX_AGG_BUCKETS = 4096    # agg_buckets shared-memory histogram
 SPLIT_BLOCKS = 528        # split-row kernels: B x G ~ 4 blocks an SM
+MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
+MAX_PHRASE_TERMS = 16     # phrase_leaves: per-thread position-list table
+MAX_CAND_CAP = 4096       # query/plan.py DEFAULT_CAND_CAP
+MAX_PMAX = 128            # query/plan.py DEFAULT_PMAX (the positions guard)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -72,14 +79,14 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("common.cuh", "score_slices.cu", "merge_docs.cu", "topk_rows.cu",
            "prefix_certify.cu", "compact_rows.cu", "filter_leaves.cu",
            "sort_topk.cu", "fullwidth_topk.cu", "agg_metrics.cu",
-           "agg_buckets.cu")
+           "agg_buckets.cu", "phrase_leaves.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 launches = {"score_slices": 0, "merge_docs": 0, "topk_rows": 0,
             "prefix_certify": 0, "compact_rows": 0, "filter_leaves": 0,
             "sort_topk": 0, "fullwidth_topk": 0, "agg_metrics": 0,
-            "agg_buckets": 0}
+            "agg_buckets": 0, "phrase_leaves": 0}
 build_info: dict = {}
 
 _lib = None
@@ -177,7 +184,7 @@ _SIGNATURES = {
                           _P],
     "xt_compact_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "xt_filter_leaves": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
-                         _P],
+                         _P, _P],
     "xt_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
     "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
@@ -185,6 +192,8 @@ _SIGNATURES = {
     "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _LL, _I, _I, _P, _P,
                        _P, _P, _P],
+    "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -260,7 +269,9 @@ def absent_column(device) -> dict:
 # K6: the boolean tree as a postfix program
 # --------------------------------------------------------------------------
 
-OP_G, OP_F, OP_ALL, OP_NONE, OP_AND, OP_OR, OP_XOR, OP_ANDNOT = range(8)
+OP_G, OP_F, OP_ALL, OP_NONE, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_PH = \
+    range(9)
+_LEAF_OPS = {"G": OP_G, "F": OP_F, "PH": OP_PH}
 
 
 def tree_program(tree: tuple) -> tuple:
@@ -274,8 +285,8 @@ def tree_program(tree: tuple) -> tuple:
         op = node[0]
         if depth > MAX_TREE_DEPTH:
             raise ValueError(f"boolean tree deeper than {MAX_TREE_DEPTH}")
-        if op in ("G", "F"):
-            out.append((OP_G if op == "G" else OP_F) | int(node[1]) << 8)
+        if op in _LEAF_OPS:
+            out.append(_LEAF_OPS[op] | int(node[1]) << 8)
         elif op in ("ALL", "NONE"):
             out.append(OP_ALL if op == "ALL" else OP_NONE)
         elif op in ("AND", "FILTER", "OR"):
@@ -296,9 +307,10 @@ def tree_program(tree: tuple) -> tuple:
     return tuple(out)
 
 
-def _eval_program_plain(prog, orbits, fres, shape, device):
+def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None):
     """The program on bool tensors: orbits i32 (None when the program has
-    no G leaf), fres a list of bool tensors, one per F leaf."""
+    no G leaf), fres a list of bool tensors, one per F leaf, phbits i32
+    (None when the program has no PH leaf): bit i is phrase leaf i."""
     st: list = []
     for ins in prog:
         op, arg = ins & 0xff, ins >> 8
@@ -306,6 +318,8 @@ def _eval_program_plain(prog, orbits, fres, shape, device):
             st.append((orbits & (1 << arg)) != 0)
         elif op == OP_F:
             st.append(fres[arg])
+        elif op == OP_PH:
+            st.append((phbits & (1 << arg)) != 0)
         elif op in (OP_ALL, OP_NONE):
             st.append(torch.full(shape, op == OP_ALL, dtype=torch.bool,
                                  device=device))
@@ -445,6 +459,9 @@ def merge_docs(ids, w, widths, bits=None, deleted=None, prog=None,
         _check("merge_docs.bits", bits, torch.int32, (B, T))
     elif prog is not None and any(i & 0xff == OP_G for i in prog):
         raise ValueError("merge_docs: a tree with G leaves needs bits")
+    if prog is not None and any(i & 0xff in (OP_F, OP_PH) for i in prog):
+        raise ValueError("merge_docs: F and PH leaves are filter_leaves' "
+                         "(merge_docs runs the upper tree or none)")
     if want_orbits and bits is None:
         raise ValueError("merge_docs: orbits need bits")
     if deleted is not None:
@@ -692,14 +709,16 @@ _FILTER_CH = ("hi", "lo", "max_hi", "max_lo", "present", "mv_hi", "mv_lo",
 
 
 def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
-                  prog):
+                  prog, phbits=None):
     """Value-range filter leaves per row, then the boolean tree.
 
     values: the segment's value columns (arrays_pytree()["values"]); slots
     and vmax: per filter leaf (ExecConfig filter_slots / filter_vmax);
-    fparams i32[B,F,4] (lo hi, lo lo, hi hi, hi lo per leaf); docids
-    i32[B,C]; base bool[B,C] (owner & not deleted) or None (docid !=
-    SENTINEL: packed rows); orbits i32[B,C]; prog a tree_program.
+    fparams i32[B,F,4] (lo hi, lo lo, hi hi, hi lo per leaf; F may be 0);
+    docids i32[B,C]; base bool[B,C] (owner & not deleted) or None (docid
+    != SENTINEL: packed rows); orbits i32[B,C]; prog a tree_program;
+    phbits i32[B,C] (phrase_leaves' verdict words, None without PH
+    leaves).
     -> eligible bool[B,C], count i32[B]."""
     B, C = docids.shape
     F = len(slots)
@@ -713,6 +732,11 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
     if base is not None:
         _check("filter_leaves.base", base, torch.bool, (B, C))
         opt.append(base)
+    if phbits is not None:
+        _check("filter_leaves.phbits", phbits, torch.int32, (B, C))
+        opt.append(phbits)
+    elif any(i & 0xff == OP_PH for i in prog):
+        raise ValueError("filter_leaves: a tree with PH leaves needs phbits")
     cols = [values.get(s) for s in slots]
     for col in cols:
         for ch in _FILTER_CH:
@@ -722,7 +746,7 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
                 opt.append(col[ch])
     if not _on_cuda("filter_leaves", docids, orbits, fparams, *opt):
         return _filter_leaves_plain(cols, vmax, fparams, docids, base,
-                                    orbits, prog)
+                                    orbits, prog, phbits)
     dev = docids.device
     table = []
     for col, vm in zip(cols, vmax):
@@ -737,7 +761,7 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
     _launch("filter_leaves", "xt_filter_leaves", docids.data_ptr(),
             _ptr(base), orbits.data_ptr(), fparams.data_ptr(),
             _ptr(_ints(tuple(table), dev, torch.int64) if table else None),
-            B, F, C, _ints(prog, dev).data_ptr(), len(prog),
+            B, F, C, _ints(prog, dev).data_ptr(), len(prog), _ptr(phbits),
             eligible.data_ptr(), count.data_ptr(), _stream())
     return eligible, count
 
@@ -750,7 +774,8 @@ def _lex_le(ah, al, bh, bl):
     return (ah < bh) | ((ah == bh) & (al <= bl))
 
 
-def _filter_leaves_plain(cols, vmax, fparams, docids, base, orbits, prog):
+def _filter_leaves_plain(cols, vmax, fparams, docids, base, orbits, prog,
+                         phbits=None):
     first = base if base is not None else docids != SENTINEL
     fres = []
     for i, (col, vm) in enumerate(zip(cols, vmax)):
@@ -774,7 +799,7 @@ def _filter_leaves_plain(cols, vmax, fparams, docids, base, orbits, prog):
             ok = ok & ((cnt == 0) | inr.any(-1))
         fres.append(ok)
     eligible = first & _eval_program_plain(prog, orbits, fres, docids.shape,
-                                           docids.device)
+                                           docids.device, phbits)
     return eligible, eligible.sum(1, dtype=torch.int32)
 
 

@@ -188,6 +188,11 @@ class BatchSearcher:
         if self.prefix_cap > 0 and self.k <= 64:
             unified = [(self._prefixify(cfg_u, stats), idxs)
                        for cfg_u, idxs in unified]
+        if os.environ.get("XT_PHRASE_CARRY", "0") == "1":
+            # read as the JAX package reads it (xapiand_tpu/search.py:
+            # 272-276); the port's phrase step runs one path either way
+            unified = [(replace(c, phrase_carry=True) if c.phrases else c,
+                        i) for c, i in unified]
         works = [max(sum(p or c for p, c in
                          zip(cfg.prefix or (0,) * cfg.T, cfg.classes)), 1)
                  if cfg.classes else 1
