@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its three main paths.
+"""Smoke test of the torch port on one CUDA card: its four main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -36,6 +36,20 @@ filter_leaves (the tree over the phrase verdicts), topk_rows; every phrase
 launch group's phrase_leaves against its plain version, twice bit for
 bit; the torch.searchsorted time of the same K15 lookups beside it.
 
+Geo path - BASELINE.json config 4 (utils/synth_geo.py, the counterpart of
+scripts/config_bench.py:244-344) at its published 1M geotagged docs (12
+Zipf(1.07) tokens over 2,000 words, a point in lon [-120, -70] x lat [25,
+48], a 2024 timestamp; the native library's HTM covers, which must load):
+1024 queries "circle AND 3-month window" (config_bench's queries4, seed 11;
+P) and 256 "circle AND 1-3 days" (seed 12; T, whose hour cover is the
+cheaper leg), through one BatchSearcher(k=10): one IR signature, so T
+shares launch groups with P and runs under their first member's tree. Kernels: score_slices, merge_docs,
+geo_leaves (K16, with rank_count's counts as binary searches, K15),
+filter_leaves (the tree over the geo verdicts), sort_topk (the docid order
+of an unweighted plan), compact_rows where a group precompacts; geo_leaves
+against its plain version at every launch group, twice bit for bit; the
+torch.searchsorted time of its two counts beside it.
+
 For each path, in order:
 
   1. the corpus (the faceted one with its fingerprint: numpy version,
@@ -54,14 +68,17 @@ For each path, in order:
      prefix group ran); the queries the run re-ran on the exact path
      (BatchSearcher.reran), and that re-run's launch groups compared too;
   4. all 1024 results (the faceted path: of both XT_FULLWIDTH values; the
-     positional path: all 1280) against a float64 numpy oracle: relevance
+     positional and geo paths: all 1280) against a numpy oracle: relevance
      as tie groups with scores within rtol 1e-5; A and B as exact docid
      lists; counts exactly on the faceted and positional paths, and the
      faceted aggregations: facet counts per category code exact, price n,
      min and max exact (min and max as float32), sums within rtol 1e-5;
      the shaped response (merge_and_shape) of the first A query; the
      positional oracle applies the launch group's cand_cap and pmax, and
-     every phrase and NEAR hit is checked in the text;
+     every phrase and NEAR hit is checked in the text; the geo oracle
+     tests each doc's first RMAX ranges against the cover and the window
+     on the keys (counts and the first 10 docids exact), and holds
+     config_bench's haversine bounds on every answer;
   5. QPS of 20 warm runs (median and spread), host planning's share of
      them, and the device-busy share of one run from a torch.profiler
      trace; on the faceted path the same traffic with the fullwidth path
@@ -77,8 +94,10 @@ times summed over the launch groups compared; bound_ms: the least time the
 card could take for the same launches, summed likewise, each launch the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
 H100 SXM's published rates, counted from this run's inputs, and bound_by
-the one that dominates; library_ms null: no single PyTorch call computes
-any of these functions); the last line is {"ok": true, "device": {...}}.
+the one that dominates; library_ms: for geo_leaves the torch.searchsorted
+calls of its two counts, null elsewhere: no single PyTorch call computes
+any of the other functions); the last line is {"ok": true, "device":
+{...}}.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
@@ -99,6 +118,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_DOCS, VOCAB, N_QUERIES, TERMS, K = 1_000_000, 200_000, 1024, 3, 10
 FACETED_DOCS, FACETED_PER_FAMILY = 1_000_000, 256
 POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
+GEO_DOCS, GEO_P, GEO_T = 1_000_000, 1024, 256
 MAX_BATCH, PREFIX_CAP = 256, 8192
 ORACLE_RTOL = 1e-5        # float32 device sums vs the float64 oracle
 KERNEL_RTOL = 1e-6        # kernel vs plain version: same float32 op order
@@ -128,6 +148,8 @@ SOURCES = {
                     "xapiand_tpu/ops/aggs.py:275"),
     "phrase_leaves": ("xapiand_tpu_torch/csrc/phrase_leaves.cu",
                       "xapiand_tpu/ops/phrase.py:28"),
+    "geo_leaves": ("xapiand_tpu_torch/csrc/geo_leaves.cu",
+                   "xapiand_tpu/ops/executor.py:367"),
 }
 RELEVANCE_KERNELS = ("score_slices", "merge_docs", "topk_rows",
                      "prefix_certify")
@@ -136,6 +158,8 @@ FACETED_KERNELS = ("score_slices", "merge_docs", "compact_rows",
                    "fullwidth_topk", "agg_metrics", "agg_buckets")
 POSITIONAL_KERNELS = ("score_slices", "merge_docs", "phrase_leaves",
                       "filter_leaves", "topk_rows")
+GEO_KERNELS = ("score_slices", "merge_docs", "geo_leaves", "filter_leaves",
+               "sort_topk")
 
 
 def log(msg):
@@ -235,11 +259,15 @@ class Recorder:
         self.rec: dict = {}
         self.line: dict = {}
 
-    def note(self, name, err, ms, plain_ms, work):
-        """work: (bytes, operations) that the launch must move and do."""
+    def note(self, name, err, ms, plain_ms, work, library_ms=None):
+        """work: (bytes, operations) that the launch must move and do;
+        library_ms: one PyTorch call's time for the same function."""
         r = self.rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                        "plain_ms": 0.0, "bytes_ms": 0.0,
-                                       "ops_ms": 0.0, "bound_ms": 0.0})
+                                       "ops_ms": 0.0, "bound_ms": 0.0,
+                                       "library_ms": None})
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
@@ -249,10 +277,12 @@ class Recorder:
         r["ops_ms"] += o_ms
         r["bound_ms"] += max(b_ms, o_ms)
         self.line[name] = (round(ms, 4), round(plain_ms, 4),
-                           round(max(b_ms, o_ms), 4))
+                           round(max(b_ms, o_ms), 4)) + (
+            (round(library_ms, 4),) if library_ms is not None else ())
 
     def flush(self, what):
-        log(f"[kernels] {what}: kernel/plain/bound ms {self.line}")
+        log(f"[kernels] {what}: kernel/plain/bound(/library) ms "
+            f"{self.line}")
         self.line = {}
 
     def record(self, name, launches):
@@ -264,7 +294,7 @@ class Recorder:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
                              else "operations"),
-                "library_ms": None}
+                "library_ms": r["library_ms"]}
 
 
 # The work each kernel must do for one launch, counted from its inputs
@@ -1319,6 +1349,258 @@ def positional_path(dev, rec, smi) -> dict:
     return counts
 
 
+def work_geo(ids, base, cols, specs, queries):
+    """geo_leaves: docids (and base) read and the verdict words written per
+    row; per live row and leaf its span (doc_off, doc_len) and its first
+    min(doc_len, RMAX) ranges, 8 bytes each; each query's cover once per
+    leaf. Operations: two binary searches over the cover per range."""
+    import torch
+
+    B, C = ids.shape
+    live = base if base is not None else ids != 2**31 - 1
+    nbytes = 8 * B * C + (B * C if base is not None else 0)
+    ops = 0
+    for col, (_slot, QR, RMAX), _q in zip(cols, specs, queries):
+        d = ids[live].clamp(max=col["doc_off"].shape[0] - 1).long()
+        nr = int(torch.clamp(col["doc_len"][d], max=RMAX).sum())
+        nbytes += 8 * int(d.numel()) + 8 * nr + 8 * B * QR
+        ops += 2 * nr * log2c(QR)
+    return nbytes, ops
+
+
+def searchsorted_ms(cols, specs, queries, ids):
+    """The library yardstick of K15 inside K16: torch.searchsorted of the
+    same two counts over every row's first RMAX ranges (#qs <= re, #qe <
+    rs), the ranges gathered beforehand."""
+    import torch
+
+    B = ids.shape[0]
+    ins = []
+    for col, (_slot, _QR, RMAX), q in zip(cols, specs, queries):
+        d = ids.clamp(max=col["doc_off"].shape[0] - 1).long()
+        j = torch.arange(RMAX, device=ids.device)
+        ridx = (col["doc_off"][d].long()[..., None] + j).clamp(
+            max=col["flat_start"].shape[0] - 1)
+        ins.append((q[..., 0].contiguous(), q[..., 1].contiguous(),
+                    col["flat_start"][ridx].reshape(B, -1),
+                    col["flat_end"][ridx].reshape(B, -1)))
+    return cuda_ms(lambda: [(torch.searchsorted(qs, re, right=True),
+                             torch.searchsorted(qe, rs))
+                            for qs, qe, rs, re in ins], reps=5)
+
+
+def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
+    """geo_leaves against its plain version on one launch group's real
+    rows (execute_batch's: score_slices, merge_docs and, with a cap below
+    the row width, the upper-tree compaction), twice bit for bit. With
+    full, also every other kernel of the group against its plain version
+    in execute_batch's order (filter_leaves over the geo verdicts, then
+    sort_topk on the docid key) with the times of both, geo_leaves' bound
+    and the torch.searchsorted time of its two counts. -> the group's
+    precompaction cap (0: none)."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.ops.executor import upper_tree
+
+    if full:
+        seg, _pr, _post, _args, widths, ids, w, _tail = slices(
+            searcher, cfg, batch, stats_d, rec)
+    else:
+        from xapiand_tpu_torch.models.weights import CollectionStats
+
+        seg = searcher.device_segment.arrays_pytree()
+        widths = cfg.term_classes()
+        ids, w, _tail = kn.score_slices(
+            (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]), None,
+            batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, (0,) * cfg.T,
+            searcher.scheme.kernel_params(CollectionStats(
+                doc_count=stats_d["N"], avg_doclen=stats_d["avg_doclen"])))
+    B, R = ids.shape
+    deleted = seg["deleted"] if cfg.has_deletes else None
+    cap = cfg.compact_cap if 0 < cfg.compact_cap < R else 0
+    prog = kn.tree_program(cfg.tree)
+    mprog = kn.tree_program(upper_tree(cfg.tree)) if cap else None
+    margs = (ids, w, widths, batch["group_bits"], deleted, mprog, True)
+    got = kn.merge_docs(*margs)
+    if full:
+        want = kn._merge_docs_plain(*margs)
+        err = check_close("merge_docs sums", got[0], want[0])
+        for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
+            check_equal(f"merge_docs {nm}", a, b)
+        rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
+                 cuda_ms(lambda: kn._merge_docs_plain(*margs)),
+                 work_merge_docs(ids, widths, deleted, got[3]))
+    sums, mask, _count, orbits = got
+    if cap:
+        cargs = (mask, ids, sums, orbits, cap)
+        got = kn.compact_rows(*cargs)
+        if int(got[3].max()) > cap:
+            raise AssertionError(f"compact_rows: {int(got[3].max())} rows "
+                                 f"exceed the cap {cap}")
+        if full:
+            want = kn._compact_rows_plain(*cargs)
+            for nm, a, b in zip(("docids", "sums", "orbits", "n"), got,
+                                want):
+                check_equal(f"compact_rows {nm}", a, b)
+            rec.note("compact_rows", 0.0, cuda_ms(lambda: kn.compact_rows(
+                *cargs)), cuda_ms(lambda: kn._compact_rows_plain(*cargs)),
+                work_selected(B, R, 1, int(got[3].clamp(max=cap).sum()), 12,
+                              B * cap * 12 + 4 * B))
+        ids, sums, orbits, _n = got
+        mask = None
+    cols = [seg["geo"][s] for s, _qr, _rm in cfg.geo_specs]
+    gargs = (cols, cfg.geo_specs, batch["geo_queries"], ids, mask)
+    geobits = twice("geo_leaves", lambda: kn.geo_leaves(*gargs))
+    check_equal("geo_leaves verdicts", geobits, kn._geo_leaves_plain(*gargs))
+    if not full:
+        return cap
+    rec.note("geo_leaves", 0.0, cuda_ms(lambda: kn.geo_leaves(*gargs)),
+             cuda_ms(lambda: kn._geo_leaves_plain(*gargs), reps=3),
+             work_geo(ids, mask, *gargs[:3]),
+             searchsorted_ms(*gargs[:4]))
+    values = seg["values"]
+    fparams = batch["fparams"] if cfg.n_filters else \
+        ids.new_empty((B, 0, 4))
+    fargs = (values, cfg.filter_slots, cfg.filter_vmax, fparams, ids, mask,
+             orbits, prog, None, geobits)
+    pargs = ([values.get(sl) for sl in cfg.filter_slots],
+             tuple(cfg.filter_vmax)) + fargs[3:]
+    got, want = kn.filter_leaves(*fargs), kn._filter_leaves_plain(*pargs)
+    check_equal("filter_leaves eligible", got[0], want[0])
+    check_equal("filter_leaves count", got[1], want[1])
+    F = cfg.n_filters
+    nbytes, ops = work_filter(ids, mask, F, None)
+    rec.note("filter_leaves", 0.0, cuda_ms(lambda: kn.filter_leaves(*fargs)),
+             cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
+             (nbytes + 4 * ids.numel(), ops))
+    elig = got[0]
+    spec = (("docid", None, False),)
+    sargs = (spec, ids, sums, elig, cfg.k, values)
+    pargs = (spec, [None], ids, sums, elig, cfg.k, None, {})
+    got, want = kn.sort_topk(*sargs), kn._sort_topk_plain(*pargs)
+    check_equal("sort_topk docids", got[0], want[0])
+    check_equal("sort_topk scores", got[1], want[1])
+    rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
+             cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
+             work_sort(spec, elig, cfg.k))
+    torch.cuda.synchronize()
+    rec.flush(f"{shape_name} B={B} R={R} cap={cap} geo_specs "
+              f"{cfg.geo_specs}")
+    return cap
+
+
+def geo_path(dev, rec, smi) -> dict:
+    """Slice 5: config 4, circle AND datetime window over 1M geotagged
+    docs."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch import native
+    from xapiand_tpu_torch.models.weights import CollectionStats
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
+    from xapiand_tpu_torch.utils import synth_geo as sg
+
+    if native.lib is None:
+        raise AssertionError(f"the native library did not load: "
+                             f"{native.build_info}")
+    log(f"[build] native library {native.build_info}")
+    corpus = sg.build_corpus4(GEO_DOCS, seed=7)
+    seg = corpus.seg
+    t0 = time.time()
+    qs = sg.queries4(GEO_P, GEO_T)
+    irs = [q for _f, q, _p in qs]
+    log(f"[corpus] geo: {GEO_DOCS} docs in {corpus.build_s:.1f} s, "
+        f"fingerprint {sg.fingerprint(corpus)}; {len(qs)} queries (P "
+        f"{GEO_P}, T {GEO_T}) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    searcher = SegmentSearcher(seg, device=dev)
+    bs = BatchSearcher(searcher, k=K)
+    stats = CollectionStats(doc_count=seg.doc_count,
+                            avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+    stats_d = {"N": float(stats.doc_count),
+               "avg_doclen": float(stats.avg_doclen)}
+    planned = bs.plan(irs, stats=stats)
+    torch.cuda.synchronize()
+    fam_of = [f for f, _q, _p in qs]
+    log(f"[plan] geo: upload + plan {time.time() - t0:.1f} s; "
+        f"{len(planned)} launches (tree, T, R, geo_specs (slot, QR, RMAX), "
+        f"compact_cap, B, families): " + str(
+            [(c.tree, c.T, sum(c.classes), c.geo_specs, c.compact_cap,
+              int(b["offsets"].shape[0]),
+              "".join(sorted({fam_of[qi] for qi in ch})))
+             for c, _f, b, ch in planned]))
+    if any(c.prefix or not c.unweighted for c, *_x in planned):
+        raise AssertionError("a geo group in prefix mode or weighted")
+    rmax = {c.geo_specs[0][2] for c, *_x in planned}
+    if len(rmax) != 1:
+        raise AssertionError(f"geo groups with several RMAX {rmax}")
+    rmax = rmax.pop()
+
+    # geo_leaves at every launch group; every kernel at each group shape
+    seen: set = set()
+    caps = []
+    t0 = time.time()
+    for cfg, _fn, batch, _chunk in planned:
+        key = (cfg.tree, cfg.classes, cfg.geo_specs, cfg.compact_cap,
+               int(batch["offsets"].shape[0]))
+        caps.append(compare_geo(searcher, cfg, batch, stats_d, rec,
+                                f"geo {key[0]} R={sum(key[1])}",
+                                key not in seen))
+        seen.add(key)
+    torch.cuda.synchronize()
+    log(f"[kernels] geo: geo_leaves equal to its plain version at all "
+        f"{len(planned)} launch groups, twice bit for bit ({len(seen)} "
+        f"group shapes compared in full; {time.time() - t0:.1f} s); "
+        f"precompaction caps {sorted(set(caps))}, "
+        f"{sum(1 for c in caps if c)} groups precompacted")
+
+    # the path, counted
+    kn.reset_launches()
+    results = bs.run(irs, stats=stats)
+    torch.cuda.synchronize()
+    counts = dict(kn.launches)
+    log(f"[main] geo launches {counts}")
+    if not all(counts[n] for n in GEO_KERNELS) or \
+            counts["prefix_certify"] or counts["topk_rows"]:
+        raise AssertionError(f"geo launches wrong: {counts}")
+
+    # parity with the oracle, and config_bench's haversine bounds
+    t0 = time.time()
+    want = sg.oracle_answers(corpus, qs, rmax, K)
+    bad = []
+    for qi, (r, w) in enumerate(zip(results, want)):
+        real = r["docids"] != kn.SENTINEL
+        ok = r["count"] == w["count"] and w["bounds_ok"] and \
+            r["docids"][real].tolist() == w["docids"] and \
+            (r["scores"][real] == 0.0).all() and \
+            np.isneginf(r["scores"][~real]).all()
+        if not ok:
+            bad.append(qi)
+    per_fam = {f: sum(1 for qi, ff in enumerate(fam_of)
+                      if ff == f and qi not in bad) for f in "PT"}
+    cnt = sorted(w["count"] for w in want)
+    log(f"[parity] geo: {len(qs) - len(bad)}/{len(qs)} queries match the "
+        f"oracle (counts and the first {K} docids exact; config_bench's "
+        f"haversine bounds: every doc inside the circle matches, none "
+        f"beyond radius + 15 km) per family {per_fam}; counts "
+        f"min/median/max {cnt[0]}/{cnt[len(cnt) // 2]}/{cnt[-1]}, "
+        f"{sum(w['count'] - w['inside'] for w in want)} matches in "
+        f"boundary trixels outside the circles; RMAX {rmax} "
+        f"({time.time() - t0:.1f} s)")
+    if bad:
+        qi = bad[0]
+        r = results[qi]
+        raise AssertionError(
+            f"geo: {len(bad)} queries differ; first {qi} {qs[qi][0]} "
+            f"{qs[qi][2]}: got count {r['count']} {r['docids'].tolist()} "
+            f"want {want[qi]}")
+    timed_runs([(bs, irs)], stats, len(qs), smi, "geo")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1366,14 +1648,17 @@ def main() -> int:
     log(f"[time] faceted path {time.time() - t0:.1f} s")
     t0 = time.time()
     pos = positional_path(dev, rec, smi)
+    torch.cuda.empty_cache()
     log(f"[time] positional path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    geo = geo_path(dev, rec, smi)
+    log(f"[time] geo path {time.time() - t0:.1f} s")
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")
 
     print(json.dumps({"kernels": [
-        rec.record(name, rel.get(name, 0) + fac.get(name, 0) +
-                   pos.get(name, 0))
+        rec.record(name, sum(c.get(name, 0) for c in (rel, fac, pos, geo)))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

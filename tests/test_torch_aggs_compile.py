@@ -1,10 +1,12 @@
 """The port's aggregations.compile_for_segment against the JAX package's
 for the kinds whose host modules the port copies (utils/dtutils.py,
-utils/iputils.py): _date_range, _ip_range and _geo_ip compile to the same
-(names, specs, arrays, metas), and BatchSearcher refuses them by name
-(their device aggregations are K17c). The three kinds whose host modules
-the port has not copied yet fail on the missing module, strictly, until
-the slice that copies them turns each into a pass.
+utils/iputils.py, geo/ and native/): _date_range, _ip_range, _geo_ip,
+_geo_distance with an origin and _geo_trixels compile to the same (names,
+specs, arrays, metas), and BatchSearcher refuses them by name (their
+device aggregations are K17c). The kind whose host modules the port has
+not copied yet (_filter: query/dsl.py and the analysis chain) fails on the
+missing module, strictly, until the slice that copies them turns it into
+a pass.
 
 The segment is a JAX ``Database`` commit with a date, an IP and a numeric
 field, carried into the port's Segment as tests/test_torch_predicate.py
@@ -63,6 +65,10 @@ COMPILED = {
         {"_key": "dc", "_cidrs": ["10.0.0.0/8", "8.0.0.0/24"]},
         {"_key": "office", "_cidr": "192.0.0.0/16"}]},
         "_aggs": {"m": {"_max": {"_field": "n"}}}}},
+    "geo_distance": {"d": {"_geo_distance": {
+        "_field": "n", "_origin": "POINT(-74.0 40.7)",
+        "_ranges": [{"_to": 1000.0}]}}},
+    "geo_trixels": {"t": {"_geo_trixels": {"_field": "n", "_level": 5}}},
 }
 
 
@@ -91,20 +97,15 @@ def test_repaired_kinds_compile_as_jax(world, kind):
     got = pagg.compile_for_segment(schema, pseg, COMPILED[kind])
     _assert_same(got, want)
     assert got[1][0][0] == {"date_range": "range", "ip_range": "key_range",
-                            "geo_ip": "geo_ip"}[kind]
+                            "geo_ip": "geo_ip",
+                            "geo_distance": "geodist_range",
+                            "geo_trixels": "geo_trixels"}[kind]
     ps = SegmentSearcher(pseg, device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.*K17c"):
         BatchSearcher(ps, aggs=got[1:3])
 
 
 STILL_BROKEN = {
-    "geo_distance": ({"d": {"_geo_distance": {
-        "_field": "n", "_origin": "POINT(-74.0 40.7)",
-        "_ranges": [{"_to": 1000.0}]}}},
-        "needs the geo/ host modules: config 4's slice, ROADMAP queue 3"),
-    "geo_trixels": ({"t": {"_geo_trixels": {"_field": "n", "_level": 5}}},
-                    "needs geo/htm.py and native/: config 4's slice, "
-                    "ROADMAP queue 3"),
     "filter": ({"f": {"_filter": {"_term": {"body": "w1"}}}},
                "needs query/dsl.py and the analysis chain: Database, "
                "ROADMAP queue 1 item 12 and queue 3"),

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here but the two corpus pins needs a CUDA device and skips
+Every test here but the three corpus pins needs a CUDA device and skips
 without one.
 The file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
@@ -11,9 +11,10 @@ Inputs are the real launch groups of three small synthetic corpora
 (BatchSearcher.plan): the relevance corpus in exact and impact-prefix
 mode, the faceted corpus (utils/synth_faceted.py) with its four query
 families and config 3's aggregations, plus synthetic columns for every
-sort key kind, and config 2's positional corpus (utils/synth_positional.py)
-with its phrase, NEAR and boolean traffic. Phrase verdicts and candidate
-counts must be equal. Tolerances: the kernels evaluate the same float32
+sort key kind, config 2's positional corpus (utils/synth_positional.py)
+with its phrase, NEAR and boolean traffic, and config 4's geotagged corpus
+(utils/synth_geo.py) with its circle AND window traffic. Phrase and geo
+verdicts and candidate counts must be equal. Tolerances: the kernels evaluate the same float32
 expressions in the same order as the plain versions (nvcc -fmad=false),
 so docids, masks, bits, packed rows, counts and certificates must be equal
 and floats agree to rtol 1e-6; the aggregation sums (s, s2) add in
@@ -34,6 +35,7 @@ from xapiand_tpu_torch.ops.executor import upper_tree
 from xapiand_tpu_torch.query.ir import Q
 from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
 from xapiand_tpu_torch.utils import synth_faceted as sf
+from xapiand_tpu_torch.utils import synth_geo as sg
 from xapiand_tpu_torch.utils import synth_positional as sp
 from xapiand_tpu_torch.utils.synth import (build_synthetic_segment,
                                            sample_queries)
@@ -437,3 +439,96 @@ def test_faceted_corpus_is_pinned():
     assert [p for _f, _q, p in qs][::8] == [
         {"cat": 2, "w": 190}, {"cat": 13, "w": 71, "p": 75},
         {"w": 6, "s": 37}, {"a": 62, "b": 148, "cat": 1}]
+
+
+@pytest.fixture(scope="module")
+def geo(cuda):
+    corpus = sg.build_corpus4(20000, seed=7)
+    qs = sg.queries4(64, 32)
+    irs = [q for _f, q, _p in qs]
+    # two leaves a query, one negated, and an empty cover
+    c0, c1 = irs[0].children[0], irs[1].children[0]
+    irs += [Q.and_(Q.or_(c0, c1), irs[2].children[1]),
+            Q.and_not(irs[3].children[1], c0),
+            Q.and_(Q.geo(sg.LOC_SLOT, ()), irs[4].children[1])]
+    return corpus, SegmentSearcher(corpus.seg, device=cuda), irs
+
+
+def test_geo_kernel_matches_plain_version(geo):
+    """geo_leaves on every launch group of config 4's traffic against its
+    plain version, over the rows execute_batch gives it (packed rows where
+    a group precompacts): verdict words equal, bit for bit twice; then the
+    tree in filter_leaves over them."""
+    corpus, searcher, irs = geo
+    seg = searcher.device_segment.arrays_pytree()
+    n = n_true = 0
+    for cfg, _fn, batch, _chunk in BatchSearcher(searcher, k=10).plan(irs):
+        post, _imp, widths, prefix, params = _inputs(searcher, cfg, batch)
+        ids, w, _ = kernels.score_slices(
+            post, None, batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, prefix, params)
+        cap = cfg.compact_cap if 0 < cfg.compact_cap < ids.shape[1] else 0
+        mprog = kernels.tree_program(upper_tree(cfg.tree)) if cap else None
+        sums, first, _c, orbits = kernels.merge_docs(
+            ids, w, widths, batch["group_bits"], None, mprog, True)
+        if cap:
+            ids, sums, orbits, _n = kernels.compact_rows(first, ids, sums,
+                                                         orbits, cap)
+            first = None
+        args = ([seg["geo"][s] for s, _qr, _rm in cfg.geo_specs],
+                cfg.geo_specs, batch["geo_queries"], ids, first)
+        got = _twice(lambda: kernels.geo_leaves(*args))
+        assert torch.equal(got, kernels._geo_leaves_plain(*args))
+        n_true += int((got != 0).sum())
+        B = ids.shape[0]
+        fp = batch["fparams"] if cfg.n_filters else ids.new_empty((B, 0, 4))
+        fargs = (seg["values"], cfg.filter_slots, cfg.filter_vmax, fp, ids,
+                 first, orbits, kernels.tree_program(cfg.tree), None, got)
+        el = kernels.filter_leaves(*fargs)
+        pel = kernels._filter_leaves_plain(
+            [seg["values"].get(s) for s in cfg.filter_slots],
+            tuple(cfg.filter_vmax), *fargs[3:])
+        assert torch.equal(el[0], pel[0]) and torch.equal(el[1], pel[1])
+        n += 1
+    assert n >= 2 and n_true > 0
+    torch.cuda.synchronize()
+
+
+def test_geo_search_cuda_equals_cpu(geo):
+    corpus, searcher, irs = geo
+    cpu = SegmentSearcher(corpus.seg, device=torch.device("cpu"))
+    kernels.reset_launches()
+    got = BatchSearcher(searcher, k=10).run(irs)
+    assert kernels.launches["geo_leaves"] > 0
+    want = BatchSearcher(cpu, k=10).run(irs)
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g["docids"], e["docids"])
+        np.testing.assert_array_equal(g["scores"], e["scores"])
+        assert g["count"] == e["count"]
+    assert sum(g["count"] for g in got) > 0
+
+
+def test_geo_corpus_is_pinned():
+    """Config 4's corpus and queries come out the same wherever the file
+    runs (Python's random, draw for draw as scripts/config_bench.py, and
+    the native HTM cover). Needs no card."""
+    c = sg.build_corpus4(20000, seed=7)
+    assert sg.fingerprint(c) == {"sha256": "d1213921c5975743",
+                                 "postings": 1516275, "terms": 1099915,
+                                 "geo_ranges": 44043, "max_doc_ranges": 6}
+    qs = sg.queries4(4, 2)
+    assert [(f, round(p["radius"], 3), p["lo"], p["hi"],
+             len(q.children[0].geo_ranges), len(q.children[0].cover_terms))
+            for f, q, p in qs] == [
+        ("P", 377263.175, "2024-08-01T00:00:00", "2024-11-01T00:00:00", 452,
+         17),
+        ("P", 156970.609, "2024-09-01T00:00:00", "2024-12-01T00:00:00", 166,
+         4),
+        ("P", 155852.106, "2024-08-01T00:00:00", "2024-11-01T00:00:00", 188,
+         3),
+        ("P", 342893.36, "2024-01-01T00:00:00", "2024-04-01T00:00:00", 436,
+         14),
+        ("T", 299923.141, "2024-03-13T00:00:00", "2024-03-14T00:00:00", 355,
+         16),
+        ("T", 293022.625, "2024-08-23T00:00:00", "2024-08-26T00:00:00", 309,
+         6)]

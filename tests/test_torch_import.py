@@ -24,6 +24,8 @@ assert "jax" not in sys.modules, "jax imported"
 assert not [m for m in sys.modules if m.split(".")[0] == "xapiand_tpu"], \
     "the JAX package imported"
 assert kernels._lib is None and not kernels.build_info, "kernels built"
+from xapiand_tpu_torch import native
+assert not native._state and not native.build_info, "native library built"
 assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
         "xapiand_tpu_torch.ops.executor", "xapiand_tpu_torch.ops.aggs",
         "xapiand_tpu_torch.aggregations",
@@ -31,7 +33,12 @@ assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
         "xapiand_tpu_torch.utils.synth_positional",
         "xapiand_tpu_torch.ops.phrase",
         "xapiand_tpu_torch.utils.dtutils",
-        "xapiand_tpu_torch.utils.iputils"} <= set(names), names
+        "xapiand_tpu_torch.utils.iputils",
+        "xapiand_tpu_torch.utils.synth_geo", "xapiand_tpu_torch.native",
+        "xapiand_tpu_torch.analysis.accuracy",
+        "xapiand_tpu_torch.geo.cartesian", "xapiand_tpu_torch.geo.datum",
+        "xapiand_tpu_torch.geo.ewkt", "xapiand_tpu_torch.geo.geospatial",
+        "xapiand_tpu_torch.geo.htm"} <= set(names), names
 print("ok", len(names))
 """
 
@@ -98,6 +105,15 @@ pq = sp.queries2(pc, n_each=8, n_three=4)
 res = BatchSearcher(SegmentSearcher(pc.seg, device=torch.device("cpu")),
                     k=10).run([q for _f, q, _w in pq])
 assert sum(r["count"] for r in res[:8]) > 0
+from xapiand_tpu_torch.utils import synth_geo as sg
+gc = sg.build_corpus4(1500, seed=7)
+gq = sg.queries4(6, 3)
+gb = BatchSearcher(SegmentSearcher(gc.seg, device=torch.device("cpu")), k=10)
+rmax = gb.plan([q for _f, q, _p in gq])[0][0].geo_specs[0][2]
+res = gb.run([q for _f, q, _p in gq])
+want = sg.oracle_answers(gc, gq, rmax)
+assert [r["count"] for r in res] == [w["count"] for w in want]
+assert sum(w["count"] for w in want) > 0
 import sys
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]
@@ -109,8 +125,9 @@ def test_port_searches_with_the_jax_package_absent(tmp_path):
     """A package named xapiand_tpu that fails to import, ahead of the real
     one on the path: the port imports all its modules and runs a relevance
     and a value-sorted faceted batch search with config 3's aggregations
-    (compile_for_segment to merge_and_shape), and config 2's phrase and
-    boolean batch, plan to results, without it."""
+    (compile_for_segment to merge_and_shape), config 2's phrase and
+    boolean batch, and config 4's circle AND window batch, plan to
+    results, without it."""
     pkg = tmp_path / "xapiand_tpu"
     pkg.mkdir()
     (pkg / "__init__.py").write_text(
@@ -133,6 +150,15 @@ HOST_COPIES = [
     ("utils/dtutils.py", None),
     ("utils/iputils.py", None),
     ("models/segment.py", "class DeviceSegment"),
+    ("geo/__init__.py", None),
+    ("geo/cartesian.py", None),
+    ("geo/htm.py", None),
+    ("geo/ewkt.py", None),
+    ("geo/datum.py", None),
+    ("geo/geospatial.py", None),
+    ("analysis/accuracy.py", None),
+    ("native/native.cpp", None),
+    ("native/__init__.py", "def _build"),
 ]
 
 
@@ -140,8 +166,11 @@ HOST_COPIES = [
                          ids=[c[0] for c in HOST_COPIES])
 def test_host_copy_equals_the_jax_file(path, until):
     """Each copied host module is its JAX original with the package's
-    imports pointed at the port, and nothing else changed (models/segment.py
-    continues past the copied host Segment with the torch device mirror)."""
+    imports pointed at the port (``from xapiand_tpu.x`` and ``from
+    xapiand_tpu import x``) and its citations of the reference's sources
+    relative to that tree, and nothing else changed (models/segment.py
+    continues past the copied host Segment with the torch device mirror,
+    native/__init__.py past the copied bindings with its own loader)."""
     def text(pkg):
         with open(os.path.join(ROOT, pkg, path)) as f:
             return f.read()
@@ -149,8 +178,11 @@ def test_host_copy_equals_the_jax_file(path, until):
     ref = text("xapiand_tpu")
     if until is not None:
         ref = ref[:ref.index(until)]
-    want = re.sub(r"^(\s*)from xapiand_tpu\.", r"\1from xapiand_tpu_torch.",
-                  ref, flags=re.M)
+    want = re.sub(r"^(\s*)from xapiand_tpu(\.| import )",
+                  r"\1from xapiand_tpu_torch\2", ref, flags=re.M)
+    # a citation of the reference's sources by a local checkout path is
+    # written relative to its tree, as the package's other citations are
+    want = re.sub(r"\(/[\w/]*?/reference/src/", "(src/", want)
     got = text("xapiand_tpu_torch")
     assert got.startswith(want) if until else got == want
     assert not re.search(r"^\s*(from|import) (jax|xapiand_tpu)\b", got,

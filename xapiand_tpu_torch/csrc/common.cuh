@@ -46,13 +46,27 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int x) {
     return lo;
 }
 
+// the number of elements <= x in a[0, n) (a ascending): K15 rank_count
+// with count_equal (executor.py 227-246), as lower_bound_i32 gives the
+// count of elements < x. The TPU counted by a sort-join for the same
+// reason as above.
+__device__ __forceinline__ int upper_bound_i32(const int* a, int n, int x) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (a[mid] <= x) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
 // K6: the static boolean tree (xapiand_tpu/ops/executor.py _eval_tree
 // 249-282) compiled on the host into a postfix program of int32
 // instructions, op | arg << 8 (ops/kernels.py tree_program). It runs per
 // row on a stack of bits held in one register (depth <= 32, checked on the
 // host): G pushes bit `arg` of the row's OR of group bits, F bit `arg` of
 // the row's filter results, PH bit `arg` of the row's phrase verdicts
-// (phrase_leaves.cu).
+// (phrase_leaves.cu), GEO bit `arg` of the row's geo verdicts
+// (geo_leaves.cu).
 #define XT_OP_G 0
 #define XT_OP_F 1
 #define XT_OP_ALL 2
@@ -62,10 +76,11 @@ __device__ __forceinline__ int lower_bound_i32(const int* a, int n, int x) {
 #define XT_OP_XOR 6
 #define XT_OP_ANDNOT 7
 #define XT_OP_PH 8
+#define XT_OP_GEO 9
 
 __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
                                          unsigned orbits, unsigned fbits,
-                                         unsigned phbits) {
+                                         unsigned phbits, unsigned geobits) {
     unsigned st = 0;
     for (int i = 0; i < n; ++i) {
         const int ins = __ldg(prog + i);
@@ -76,6 +91,8 @@ __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
             st = (st << 1) | ((fbits >> arg) & 1u);
         } else if (op == XT_OP_PH) {
             st = (st << 1) | ((phbits >> arg) & 1u);
+        } else if (op == XT_OP_GEO) {
+            st = (st << 1) | ((geobits >> arg) & 1u);
         } else if (op == XT_OP_ALL) {
             st = (st << 1) | 1u;
         } else if (op == XT_OP_NONE) {

@@ -20,9 +20,11 @@
 // leaf results form a bit mask; the tree program (common.cuh eval_tree)
 // runs over the row's group bits, that mask and, for a plan with phrases,
 // the row's word of phrase verdicts (phrase_leaves.cu, one bit per PH
-// leaf). A phrase plan has no precompaction (execute 836-837), so here its
-// rows are every owner row and F may be 0: this kernel is where the tree
-// of a phrase plan runs, as execute() runs it after every leaf at 875.
+// leaf) and, for a plan with geo leaves, its word of geo verdicts
+// (geo_leaves.cu, one bit per GEO leaf). A phrase plan has no
+// precompaction (execute 836-837), so here its rows are every owner row
+// and F may be 0: this kernel is where the tree of a phrase or a geo plan
+// runs, as execute() runs it after every leaf at 875.
 //
 // Column table, int64 per filter: hi, lo, max_hi, max_lo, present, mv_hi,
 // mv_lo, mv_off, mv_len (device pointers, mv_* 0 when absent), n_rows,
@@ -41,8 +43,8 @@ __global__ void filter_leaves_kernel(
     const int* __restrict__ orbits, const int* __restrict__ fparams,
     const long long* __restrict__ cols, int F, int C,
     const int* __restrict__ prog, int prog_len,
-    const int* __restrict__ phbits, unsigned char* __restrict__ eligible,
-    int* __restrict__ count) {
+    const int* __restrict__ phbits, const int* __restrict__ geobits,
+    unsigned char* __restrict__ eligible, int* __restrict__ count) {
     const int b = blockIdx.y;
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     int e = 0;
@@ -88,7 +90,8 @@ __global__ void filter_leaves_kernel(
                 if (ok) fb |= 1u << f;
             }
             e = eval_tree(prog, prog_len, (unsigned)orbits[i], fb,
-                          phbits ? (unsigned)phbits[i] : 0u);
+                          phbits ? (unsigned)phbits[i] : 0u,
+                          geobits ? (unsigned)geobits[i] : 0u);
         }
         eligible[i] = (unsigned char)e;
     }
@@ -100,14 +103,14 @@ extern "C" int xt_filter_leaves(const void* docids, const void* base,
                                 const void* orbits, const void* fparams,
                                 const void* cols, int B, int F, int C,
                                 const void* prog, int prog_len,
-                                const void* phbits, void* eligible,
-                                void* count, void* stream) {
+                                const void* phbits, const void* geobits,
+                                void* eligible, void* count, void* stream) {
     if (B == 0 || C == 0) return 0;
     dim3 grid((C + 255) / 256, B);
     filter_leaves_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
         (const int*)docids, (const unsigned char*)base, (const int*)orbits,
         (const int*)fparams, (const long long*)cols, F, C, (const int*)prog,
-        prog_len, (const int*)phbits, (unsigned char*)eligible,
-        (int*)count);
+        prog_len, (const int*)phbits, (const int*)geobits,
+        (unsigned char*)eligible, (int*)count);
     return (int)cudaGetLastError();
 }

@@ -78,7 +78,7 @@ __global__ void merge_docs_kernel(
                     ? (long long)d : n_deleted - 1;
                 m = deleted[dd] ? 0 : 1;
             }
-            if (m && prog) m = eval_tree(prog, prog_len, ob, 0u, 0u);
+            if (m && prog) m = eval_tree(prog, prog_len, ob, 0u, 0u, 0u);
         }
         sums[base + r] = s;
         mask[base + r] = (unsigned char)m;

@@ -10,14 +10,16 @@ step for step as the JAX ``execute`` (825-932) runs its predicate half:
      across the term blocks (the TPU's global docid sort + run merge is
      not needed here: gathers do not serialise on the H100), one owner
      row per doc, and the eligible mask owner & not deleted & tree;
-  3. with value filters and a compaction cap below the row width (and no
-     phrase, execute 836-837): the mask is the upper tree (filter leaves
-     ALL or NONE by polarity), compact_rows packs those rows to the cap,
-     and filter_leaves applies the leaves and the full tree there; with
-     filters or phrases and no such compaction, phrase_leaves (K14, ops/
-     phrase.py) writes each owner row's phrase verdicts and filter_leaves
-     runs the leaves and the full tree over every owner row (execute
-     858-876); otherwise the full tree ran in merge_docs; then a sorted or
+  3. with value filters or geo leaves and a compaction cap below the row
+     width (and no phrase, execute 836-837): the mask is the upper tree
+     (filter and geo leaves ALL or NONE by polarity), compact_rows packs
+     those rows to the cap, geo_leaves (K16) writes each packed row's geo
+     verdicts and filter_leaves applies the leaves and the full tree
+     there; with filters, geo leaves or phrases and no such compaction,
+     phrase_leaves (K14, ops/phrase.py) and geo_leaves write each owner
+     row's phrase and geo verdicts and filter_leaves runs the leaves and
+     the full tree over every owner row (execute 858-876); otherwise the
+     full tree ran in merge_docs; then a sorted or
      aggregating plan with a cap that did not precompact packs its
      eligible rows with compact_rows (execute 893-911) - unless the plan
      is on the fullwidth path (below);
@@ -122,7 +124,12 @@ def check_supported(cfg: ExecConfig, scheme):
         (cfg.collapse_slot is not None, "collapse (ROADMAP queue 2, K10)"),
         (cfg.syn_groups or cfg.max_specs,
          "OP_SYNONYM / OP_MAX (ROADMAP queue 2, K13)"),
-        (cfg.geo_specs, "geo filters (ROADMAP queue 2, K16)"),
+        (len(cfg.geo_specs) > kernels.MAX_GEO,
+         f"more than {kernels.MAX_GEO} geo leaves (ROADMAP queue 2, K16)"),
+        (any(qr > kernels.MAX_GEO_QR or rm > kernels.MAX_GEO_RMAX
+             for _s, qr, rm in cfg.geo_specs),
+         f"geo covers beyond {kernels.MAX_GEO_QR} ranges or docs beyond "
+         f"{kernels.MAX_GEO_RMAX} ranges (ROADMAP queue 2, K16)"),
         (any(s[0] not in SORT_KINDS for s in cfg.sort),
          f"sort kinds other than {SORT_KINDS} (ROADMAP queue 2, K8)"),
         (len(cfg.sort) > kernels.MAX_SORT_KEYS,
@@ -194,8 +201,9 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     seg: DeviceSegment.arrays_pytree() (torch tensors, + imp.* in prefix
     mode); batch: {offsets i32[B,T], lens i32[B,T], tconst f32[B,T],
     scoring f32[B,T], group_bits i32[B,T], fparams i32[B,F,4] with
-    filters, sort_targets f32[B,S,2] and sort_strtabs {si: f32[B,nb]} with
-    a sort} on the same device; stats: {"N", "avg_doclen", ...} numbers.
+    filters, geo_queries [i32[B,QR,2] per geo leaf] with geo leaves,
+    sort_targets f32[B,S,2] and sort_strtabs {si: f32[B,nb]} with a sort}
+    on the same device; stats: {"N", "avg_doclen", ...} numbers.
     cfg.phrase_carry is admitted and changes nothing (ops/phrase.py)."""
     check_supported(cfg, scheme)
     if "sort_cat_remap" in batch:
@@ -223,14 +231,16 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     values = seg["values"]
     # the tree over group bits only matters beyond a single group leaf
     # (executor.py:661-663): ("G", 0) holds on every real row
-    needs_bits = cfg.tree != ("G", 0) or cfg.n_filters or cfg.phrases
+    leaves = cfg.n_filters or cfg.phrases or cfg.geo_specs
+    needs_bits = cfg.tree != ("G", 0) or leaves
     bits = batch["group_bits"] if needs_bits else None
     deleted = seg["deleted"] if cfg.has_deletes else None
     cap = cfg.compact_cap if 0 < cfg.compact_cap < R else 0
     # phrase leaves read every owner row: no precompaction (execute
     # 836-837), whatever the plan's cap
-    precompact = bool(cap and cfg.n_filters and not cfg.phrases)
-    if cfg.n_filters or cfg.phrases:
+    precompact = bool(cap and (cfg.n_filters or cfg.geo_specs)
+                      and not cfg.phrases)
+    if leaves:
         prog = kernels.tree_program(cfg.tree)
         slots = cfg.filter_slots
         fparams = batch["fparams"] if cfg.n_filters else \
@@ -255,9 +265,16 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
                 ids, widths, offsets, lens, orbits, mask, seg["post_posoff"],
                 seg["post_poslen"], seg["positions"], cfg.phrases,
                 cfg.cand_cap, cfg.pmax)
+        geobits = None
+        if cfg.geo_specs:
+            # the HTM range tests: after the merge or the precompaction,
+            # before the tree (execute 866-868)
+            geobits = kernels.geo_leaves(
+                [seg["geo"][s] for s, _qr, _rm in cfg.geo_specs],
+                cfg.geo_specs, batch["geo_queries"], ids, mask)
         eligible, count = kernels.filter_leaves(
             values, slots, cfg.filter_vmax, fparams, ids, mask, orbits, prog,
-            phbits)
+            phbits, geobits)
     else:
         prog = kernels.tree_program(cfg.tree) if needs_bits else None
         sums, eligible, count, _ = kernels.merge_docs(ids, w, widths, bits,

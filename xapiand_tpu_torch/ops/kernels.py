@@ -1,7 +1,7 @@
 """The port's device kernels: ctypes-bound CUDA launchers, their plain
 PyTorch versions, and launch counters.
 
-Eleven kernels carry batch search (sources in ``../csrc``; each file's
+Twelve kernels carry batch search (sources in ``../csrc``; each file's
 header names the TPU function it replaces, what bounds it on the H100 and
 what its design does about that):
 
@@ -23,10 +23,14 @@ what its design does about that):
   phrase_leaves   K14    PHRASE / NEAR verdicts of the first cand_cap
                   +K15   candidates of each phrase leaf, found by binary
                          search (wrapper and plain version: ops/phrase.py)
+  geo_leaves      K16    the exact HTM range test of each geo leaf, one
+                  +K15   bit a leaf, its two rank counts binary searches
+                         over the query's cover (rank_count's)
 
 The boolean tree (K6) is compiled on the host into a short postfix
 program (``tree_program``) that merge_docs and filter_leaves evaluate per
-row; filter_leaves also reads each row's word of phrase verdicts.
+row; filter_leaves also reads each row's words of phrase and geo
+verdicts.
 
 Dispatch: a wrapper given CUDA tensors launches its kernel (on the current
 stream) or raises; given CPU tensors it runs the plain version. Nothing
@@ -72,6 +76,9 @@ MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
 MAX_PHRASE_TERMS = 16     # phrase_leaves: per-thread position-list table
 MAX_CAND_CAP = 4096       # query/plan.py DEFAULT_CAND_CAP
 MAX_PMAX = 128            # query/plan.py DEFAULT_PMAX (the positions guard)
+MAX_GEO = 32              # geo_leaves: the verdicts of a row, one word
+MAX_GEO_QR = 1024         # query/plan.py QR_BUCKETS: the cover in 8 KB smem
+MAX_GEO_RMAX = 256        # query/plan.py's RMAX cap
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -79,14 +86,14 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("common.cuh", "score_slices.cu", "merge_docs.cu", "topk_rows.cu",
            "prefix_certify.cu", "compact_rows.cu", "filter_leaves.cu",
            "sort_topk.cu", "fullwidth_topk.cu", "agg_metrics.cu",
-           "agg_buckets.cu", "phrase_leaves.cu")
+           "agg_buckets.cu", "phrase_leaves.cu", "geo_leaves.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 launches = {"score_slices": 0, "merge_docs": 0, "topk_rows": 0,
             "prefix_certify": 0, "compact_rows": 0, "filter_leaves": 0,
             "sort_topk": 0, "fullwidth_topk": 0, "agg_metrics": 0,
-            "agg_buckets": 0, "phrase_leaves": 0}
+            "agg_buckets": 0, "phrase_leaves": 0, "geo_leaves": 0}
 build_info: dict = {}
 
 _lib = None
@@ -184,7 +191,7 @@ _SIGNATURES = {
                           _P],
     "xt_compact_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "xt_filter_leaves": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
-                         _P, _P],
+                         _P, _P, _P],
     "xt_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
     "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
@@ -194,6 +201,7 @@ _SIGNATURES = {
                        _P, _P, _P],
     "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
+    "xt_geo_leaves": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -269,9 +277,9 @@ def absent_column(device) -> dict:
 # K6: the boolean tree as a postfix program
 # --------------------------------------------------------------------------
 
-OP_G, OP_F, OP_ALL, OP_NONE, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_PH = \
-    range(9)
-_LEAF_OPS = {"G": OP_G, "F": OP_F, "PH": OP_PH}
+OP_G, OP_F, OP_ALL, OP_NONE, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_PH, \
+    OP_GEO = range(10)
+_LEAF_OPS = {"G": OP_G, "F": OP_F, "PH": OP_PH, "GEO": OP_GEO}
 
 
 def tree_program(tree: tuple) -> tuple:
@@ -307,10 +315,12 @@ def tree_program(tree: tuple) -> tuple:
     return tuple(out)
 
 
-def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None):
+def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None,
+                        geobits=None):
     """The program on bool tensors: orbits i32 (None when the program has
     no G leaf), fres a list of bool tensors, one per F leaf, phbits i32
-    (None when the program has no PH leaf): bit i is phrase leaf i."""
+    (None when the program has no PH leaf): bit i is phrase leaf i;
+    geobits i32 likewise for GEO leaves."""
     st: list = []
     for ins in prog:
         op, arg = ins & 0xff, ins >> 8
@@ -320,6 +330,8 @@ def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None):
             st.append(fres[arg])
         elif op == OP_PH:
             st.append((phbits & (1 << arg)) != 0)
+        elif op == OP_GEO:
+            st.append((geobits & (1 << arg)) != 0)
         elif op in (OP_ALL, OP_NONE):
             st.append(torch.full(shape, op == OP_ALL, dtype=torch.bool,
                                  device=device))
@@ -459,9 +471,11 @@ def merge_docs(ids, w, widths, bits=None, deleted=None, prog=None,
         _check("merge_docs.bits", bits, torch.int32, (B, T))
     elif prog is not None and any(i & 0xff == OP_G for i in prog):
         raise ValueError("merge_docs: a tree with G leaves needs bits")
-    if prog is not None and any(i & 0xff in (OP_F, OP_PH) for i in prog):
-        raise ValueError("merge_docs: F and PH leaves are filter_leaves' "
-                         "(merge_docs runs the upper tree or none)")
+    if prog is not None and any(i & 0xff in (OP_F, OP_PH, OP_GEO)
+                                for i in prog):
+        raise ValueError("merge_docs: F, PH and GEO leaves are "
+                         "filter_leaves' (merge_docs runs the upper tree or "
+                         "none)")
     if want_orbits and bits is None:
         raise ValueError("merge_docs: orbits need bits")
     if deleted is not None:
@@ -709,7 +723,7 @@ _FILTER_CH = ("hi", "lo", "max_hi", "max_lo", "present", "mv_hi", "mv_lo",
 
 
 def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
-                  prog, phbits=None):
+                  prog, phbits=None, geobits=None):
     """Value-range filter leaves per row, then the boolean tree.
 
     values: the segment's value columns (arrays_pytree()["values"]); slots
@@ -718,7 +732,8 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
     docids i32[B,C]; base bool[B,C] (owner & not deleted) or None (docid
     != SENTINEL: packed rows); orbits i32[B,C]; prog a tree_program;
     phbits i32[B,C] (phrase_leaves' verdict words, None without PH
-    leaves).
+    leaves); geobits i32[B,C] (geo_leaves' verdict words, None without
+    GEO leaves).
     -> eligible bool[B,C], count i32[B]."""
     B, C = docids.shape
     F = len(slots)
@@ -737,6 +752,12 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
         opt.append(phbits)
     elif any(i & 0xff == OP_PH for i in prog):
         raise ValueError("filter_leaves: a tree with PH leaves needs phbits")
+    if geobits is not None:
+        _check("filter_leaves.geobits", geobits, torch.int32, (B, C))
+        opt.append(geobits)
+    elif any(i & 0xff == OP_GEO for i in prog):
+        raise ValueError("filter_leaves: a tree with GEO leaves needs "
+                         "geobits")
     cols = [values.get(s) for s in slots]
     for col in cols:
         for ch in _FILTER_CH:
@@ -746,7 +767,7 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
                 opt.append(col[ch])
     if not _on_cuda("filter_leaves", docids, orbits, fparams, *opt):
         return _filter_leaves_plain(cols, vmax, fparams, docids, base,
-                                    orbits, prog, phbits)
+                                    orbits, prog, phbits, geobits)
     dev = docids.device
     table = []
     for col, vm in zip(cols, vmax):
@@ -762,7 +783,7 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
             _ptr(base), orbits.data_ptr(), fparams.data_ptr(),
             _ptr(_ints(tuple(table), dev, torch.int64) if table else None),
             B, F, C, _ints(prog, dev).data_ptr(), len(prog), _ptr(phbits),
-            eligible.data_ptr(), count.data_ptr(), _stream())
+            _ptr(geobits), eligible.data_ptr(), count.data_ptr(), _stream())
     return eligible, count
 
 
@@ -775,7 +796,7 @@ def _lex_le(ah, al, bh, bl):
 
 
 def _filter_leaves_plain(cols, vmax, fparams, docids, base, orbits, prog,
-                         phbits=None):
+                         phbits=None, geobits=None):
     first = base if base is not None else docids != SENTINEL
     fres = []
     for i, (col, vm) in enumerate(zip(cols, vmax)):
@@ -799,8 +820,94 @@ def _filter_leaves_plain(cols, vmax, fparams, docids, base, orbits, prog,
             ok = ok & ((cnt == 0) | inr.any(-1))
         fres.append(ok)
     eligible = first & _eval_program_plain(prog, orbits, fres, docids.shape,
-                                           docids.device, phbits)
+                                           docids.device, phbits, geobits)
     return eligible, eligible.sum(1, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# K15 rank_count + K16: geo_leaves
+# --------------------------------------------------------------------------
+
+def rank_count(a, x, count_equal: bool):
+    """For every x (any order): the number of elements of the ascending a
+    below x (count_equal False) or at most x (True), int32
+    (xapiand_tpu/ops/executor.py rank_count 227-246). a [..., L] and x
+    [..., C] share their leading dimensions."""
+    return torch.searchsorted(a, x, right=bool(count_equal)).to(torch.int32)
+
+
+_GEO_CH = ("doc_off", "doc_len", "flat_start", "flat_end")
+
+
+def geo_leaves(cols, specs, queries, docids, base):
+    """The exact HTM range test of each geo leaf per row (executor.py
+    _gather_geo_leaves 367-399): bit g of a row's word is set iff the row
+    is live and one of its doc's first min(doc_len, RMAX) level-13 ranges
+    [rs, re] overlaps the query's cover, #(qs <= re) > #(qe < rs).
+
+    cols: per leaf the segment's geo column {doc_off, doc_len i32[ND+1],
+    flat_start, flat_end i32[GR]}; specs: ExecConfig.geo_specs (slot, QR,
+    RMAX); queries: per leaf the batch's cover i32[B,QR,2], each query's
+    ranges sorted, disjoint, padded with INT32_MAX rows; docids i32[B,C]
+    (a docid past the pad doc clamps to it, as SENTINEL rows do); base
+    bool[B,C] (owner & not deleted) or None (docid != SENTINEL: packed
+    rows). Rows that are not live get 0.
+    -> geobits i32[B,C]."""
+    B, C = docids.shape
+    G = len(specs)
+    if not 0 < G <= MAX_GEO or len(cols) != G or len(queries) != G:
+        raise ValueError(f"geo_leaves: {G} leaves (1..{MAX_GEO}), "
+                         f"{len(cols)} columns, {len(queries)} covers")
+    _check("geo_leaves.docids", docids, torch.int32, (B, C))
+    opt = []
+    if base is not None:
+        _check("geo_leaves.base", base, torch.bool, (B, C))
+        opt.append(base)
+    for col, (_slot, QR, RMAX), q in zip(cols, specs, queries):
+        if not (0 < QR <= MAX_GEO_QR and 0 < RMAX <= MAX_GEO_RMAX):
+            raise ValueError(f"geo_leaves: QR {QR}, RMAX {RMAX}")
+        _check("geo_leaves.cover", q, torch.int32, (B, QR, 2))
+        nd1 = col["doc_off"].shape[0]
+        for ch in _GEO_CH:
+            _check(f"geo_leaves.{ch}", col[ch], torch.int32)
+        if col["doc_len"].shape[0] != nd1 or \
+                col["flat_end"].shape[0] != col["flat_start"].shape[0]:
+            raise ValueError("geo_leaves: ragged geo column")
+        opt += [q] + [col[ch] for ch in _GEO_CH]
+    if not _on_cuda("geo_leaves", docids, *opt):
+        return _geo_leaves_plain(cols, specs, queries, docids, base)
+    dev = docids.device
+    table = []
+    for col, (_slot, QR, RMAX), q in zip(cols, specs, queries):
+        table += [_ptr(col[ch]) for ch in _GEO_CH]
+        table += [col["doc_off"].shape[0], col["flat_start"].shape[0], QR,
+                  RMAX, q.data_ptr()]
+    geobits = torch.empty((B, C), dtype=torch.int32, device=dev)
+    _launch("geo_leaves", "xt_geo_leaves", docids.data_ptr(), _ptr(base),
+            torch.tensor(table, dtype=torch.int64, device=dev).data_ptr(),
+            B, C, G, max(s[1] for s in specs), geobits.data_ptr(),
+            _stream())
+    return geobits
+
+
+def _geo_leaves_plain(cols, specs, queries, docids, base):
+    live = base if base is not None else docids != SENTINEL
+    B, C = docids.shape
+    out = torch.zeros_like(docids)
+    for g, (col, (_slot, _QR, RMAX), q) in enumerate(zip(cols, specs,
+                                                         queries)):
+        d = docids.clamp(max=col["doc_off"].shape[0] - 1).long()
+        cnt = col["doc_len"][d]
+        j = torch.arange(RMAX, device=docids.device)
+        ridx = (col["doc_off"][d].long()[..., None] + j).clamp(
+            max=col["flat_start"].shape[0] - 1)
+        rs, re = col["flat_start"][ridx], col["flat_end"][ridx]
+        qs, qe = q[..., 0].contiguous(), q[..., 1].contiguous()
+        n_le = rank_count(qs, re.reshape(B, -1), True).view(rs.shape)
+        n_lt = rank_count(qe, rs.reshape(B, -1), False).view(rs.shape)
+        hit = ((n_le > n_lt) & (j < cnt[..., None])).any(-1) & live
+        out |= hit.to(torch.int32) << g
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -193,10 +193,16 @@ class BatchSearcher:
             # 272-276); the port's phrase step runs one path either way
             unified = [(replace(c, phrase_carry=True) if c.phrases else c,
                         i) for c, i in unified]
-        works = [max(sum(p or c for p, c in
-                         zip(cfg.prefix or (0,) * cfg.T, cfg.classes)), 1)
-                 if cfg.classes else 1
-                 for cfg, _ in unified]
+        works = []
+        for cfg, _ in unified:
+            w = max(sum(p or c for p, c in
+                        zip(cfg.prefix or (0,) * cfg.T, cfg.classes)), 1) \
+                if cfg.classes else 1
+            for _slot, _QR, RMAX in cfg.geo_specs:
+                # the JAX package's geo weight (xapiand_tpu/search.py:
+                # 288-293), kept so batch widths and launch groups are its
+                w *= 4 * (1 + RMAX)
+            works.append(w)
         wmin = min(works)
         dev = self.searcher.device
         out = []
@@ -251,6 +257,19 @@ class BatchSearcher:
                         for i in chunk])).to(dev)
                     for key in _BATCH_KEYS if key in b0
                 }
+                if "geo_queries" in b0:
+                    # per geo leaf [B, QR, 2]: each query's cover padded
+                    # to the group's unified QR with INT32_MAX rows, which
+                    # no range test counts (xapiand_tpu/search.py:360-376)
+                    gqs = []
+                    for gi, (_slot, QR, _rm) in enumerate(cfg_g.geo_specs):
+                        rows = np.full((len(chunk), QR, 2), 2**31 - 1,
+                                       np.int32)
+                        for r, i in enumerate(chunk):
+                            q = bounds[i].arrays["geo_queries"][gi]
+                            rows[r, :q.shape[0]] = q
+                        gqs.append(torch.from_numpy(rows).to(dev))
+                    batch["geo_queries"] = gqs
                 if cfg_g.sort:
                     # [B, S, 2]: the vmapped form of each plan's [S, 2]
                     batch["sort_targets"] = torch.from_numpy(np.stack(
