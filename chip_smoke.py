@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its four main paths.
+"""Smoke test of the torch port on one CUDA card: its five main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -50,6 +50,29 @@ of an unweighted plan), compact_rows where a group precompacts; geo_leaves
 against its plain version at every launch group, twice bit for bit; the
 torch.searchsorted time of its two counts beside it.
 
+Browse path - the single-query entry point and the remaining plan shapes
+(utils/synth_browse.py) over the faceted path's 1M-doc corpus, nothing
+cut: 1024 queries (seed 11) in five families: M 256 "match_all AND price
+range" by price desc with config 3's aggregations and the cardinality of
+the multi-value size (dense, no term; one BatchSearcher(sort=price desc,
+aggs=...)), N 128 "AND_NOT(match_all, OR(w, w))" (dense with term masks),
+S 256 "OR(synonym(w, w, w), w)" and X 256 "max_(w, w, AND(w, w))" by
+relevance (N, S and X through one BatchSearcher(k=10)), and C, 128 calls
+of SegmentSearcher.execute with a collapse on the category: 64 "OR(w, w,
+w)" by relevance and 64 dense plans by price desc. Kernels: collapse_rows
+(K10), dense_rows (K12), merge_special (K13), agg_distinct (K17b), and
+score_slices, merge_docs, filter_leaves, sort_topk, topk_rows (with the
+collapse's tie ranks), agg_metrics, agg_buckets. Every one of them is held
+against its plain version inside a run of the path itself, at every launch
+it gets (``Held``), twice bit for bit.
+
+The geo path ends with an aggregation run: the 256 T queries again through
+a BatchSearcher with ``_geo_bounds`` of loc and ``_cardinality`` of ts
+(K17b: agg_metrics over the latitude and longitude channels, agg_distinct),
+every kernel of the run (score_slices, merge_docs, geo_leaves,
+filter_leaves, sort_topk and the two) held against its plain version at
+every launch group, and the answers against synth_geo's oracle.
+
 For each path, in order:
 
   1. the corpus (the faceted one with its fingerprint: numpy version,
@@ -89,15 +112,18 @@ JAX package. The kernels are built first, from csrc/, one nvcc per source
 started together.
 
 Any failure raises (exit != 0). The second-to-last line is the kernel JSON
-record (launches: the three paths' counted runs; ms / plain_ms: per-launch
+record (launches: the paths' counted runs; ms / plain_ms: per-launch
 times summed over the launch groups compared; bound_ms: the least time the
 card could take for the same launches, summed likewise, each launch the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
 H100 SXM's published rates, counted from this run's inputs, and bound_by
 the one that dominates; library_ms: for geo_leaves the torch.searchsorted
-calls of its two counts, null elsewhere: no single PyTorch call computes
-any of the other functions); the last line is {"ok": true, "device":
-{...}}.
+calls of its two counts, for topk_rows torch.topk of the masked scores
+(ties in no fixed order), for dense_rows one scatter_add_ of the term
+weights, for agg_distinct torch.unique of the batch's packed keys plus
+scatter_reduce_(amax) of the registers, null elsewhere: no single PyTorch
+call computes any of the other functions); the last line is {"ok": true,
+"device": {...}}.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
@@ -119,6 +145,7 @@ N_DOCS, VOCAB, N_QUERIES, TERMS, K = 1_000_000, 200_000, 1024, 3, 10
 FACETED_DOCS, FACETED_PER_FAMILY = 1_000_000, 256
 POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
 GEO_DOCS, GEO_P, GEO_T = 1_000_000, 1024, 256
+BROWSE_M, BROWSE_N, BROWSE_S, BROWSE_X, BROWSE_C = 256, 128, 256, 256, 128
 MAX_BATCH, PREFIX_CAP = 256, 8192
 ORACLE_RTOL = 1e-5        # float32 device sums vs the float64 oracle
 KERNEL_RTOL = 1e-6        # kernel vs plain version: same float32 op order
@@ -150,6 +177,14 @@ SOURCES = {
                       "xapiand_tpu/ops/phrase.py:28"),
     "geo_leaves": ("xapiand_tpu_torch/csrc/geo_leaves.cu",
                    "xapiand_tpu/ops/executor.py:367"),
+    "collapse_rows": ("xapiand_tpu_torch/csrc/collapse_rows.cu",
+                      "xapiand_tpu/ops/executor.py:577"),
+    "dense_rows": ("xapiand_tpu_torch/csrc/dense_rows.cu",
+                   "xapiand_tpu/ops/executor.py:1237"),
+    "merge_special": ("xapiand_tpu_torch/csrc/merge_special.cu",
+                      "xapiand_tpu/ops/executor.py:746"),
+    "agg_distinct": ("xapiand_tpu_torch/csrc/agg_distinct.cu",
+                     "xapiand_tpu/ops/aggs.py:424"),
 }
 RELEVANCE_KERNELS = ("score_slices", "merge_docs", "topk_rows",
                      "prefix_certify")
@@ -160,6 +195,10 @@ POSITIONAL_KERNELS = ("score_slices", "merge_docs", "phrase_leaves",
                       "filter_leaves", "topk_rows")
 GEO_KERNELS = ("score_slices", "merge_docs", "geo_leaves", "filter_leaves",
                "sort_topk")
+GEO_AGG_KERNELS = GEO_KERNELS + ("agg_metrics", "agg_distinct")
+BROWSE_KERNELS = ("score_slices", "merge_docs", "filter_leaves", "sort_topk",
+                  "topk_rows", "agg_metrics", "agg_buckets", "collapse_rows",
+                  "dense_rows", "merge_special", "agg_distinct")
 
 
 def log(msg):
@@ -280,6 +319,11 @@ class Recorder:
                            round(max(b_ms, o_ms), 4)) + (
             (round(library_ms, 4),) if library_ms is not None else ())
 
+    def worst(self, name, err):
+        """A further comparison of an already timed shape: its error."""
+        self.rec[name]["max_abs_err"] = max(self.rec[name]["max_abs_err"],
+                                            err)
+
     def flush(self, what):
         log(f"[kernels] {what}: kernel/plain/bound(/library) ms "
             f"{self.line}")
@@ -330,19 +374,28 @@ def work_rows(R_rows, B, per_row, per_query):
     return per_row * B * R_rows + per_query * B, B * R_rows
 
 
-def work_selected(B, R, per_row, n_sel, per_sel, out_bytes):
-    """Rows read per_row bytes each, n_sel selected rows per_sel more."""
-    return per_row * B * R + per_sel * n_sel + out_bytes, B * R + n_sel
+def work_selected(B, R, per_row, n_sel, per_sel, out_bytes, n_col=None):
+    """Rows read per_row bytes each, n_sel selected rows per_sel more; where
+    the per_sel bytes are gathered by docid from a column of n_col rows,
+    the column is an input read at most once, whatever the queries share."""
+    n_read = n_sel if n_col is None else min(n_sel, n_col)
+    return per_row * B * R + per_sel * n_read + out_bytes, B * R + n_sel
 
 
-def work_filter(ids, base, F, phbits):
+def n_rows(values):
+    """The rows of the segment's value columns (every doc and the pad)."""
+    return max((c["present"].shape[0] for c in values.values()), default=1)
+
+
+def work_filter(ids, base, F, phbits, n_col=None):
     """filter_leaves: docids, orbits, base and verdict words read per row,
-    5 key words of 17 bytes a leaf per first row, eligible written."""
+    5 key words of 17 bytes a leaf per first row (of n_col column rows at
+    most), eligible written."""
     B, C = ids.shape
     first = base if base is not None else ids != 2**31 - 1
     per_row = 8 + (1 if base is not None else 0) + \
         (4 if phbits is not None else 0) + 1
-    return work_selected(B, C, per_row, n_true(first), 17 * F, 4 * B)
+    return work_selected(B, C, per_row, n_true(first), 17 * F, 4 * B, n_col)
 
 
 # bytes of one eligible row's sort key columns, by key kind
@@ -350,12 +403,24 @@ KEY_BYTES = {"value": 9, "score": 0, "dist": 5, "geodist": 9,
              "strmetric": 8, "docid": 0}
 
 
-def work_sort(specs, elig, k):
+def work_sort(specs, elig, k, n_col=None):
     """sort_topk / fullwidth_topk: ids, sums and flags per row, the key
-    columns per eligible row, the top k (docid, score) written."""
+    columns per eligible row (of n_col column rows at most), the top k
+    (docid, score) written."""
     B, C = elig.shape
     return work_selected(B, C, 9, n_true(elig),
-                         sum(KEY_BYTES[s[0]] for s in specs), 9 * B * k)
+                         sum(KEY_BYTES[s[0]] for s in specs), 9 * B * k,
+                         n_col)
+
+
+def topk_library_ms(sums, owner, k):
+    """The library yardstick of topk_rows: one torch.topk of the masked
+    scores (the same rows and k; it breaks ties in no fixed order)."""
+    import torch
+
+    masked = torch.where(owner, sums, float("-inf"))
+    kk = min(k, masked.shape[1])
+    return cuda_ms(lambda: torch.topk(masked, kk, dim=1), reps=5)
 
 
 def slices(searcher, cfg, batch, stats_d, rec):
@@ -426,7 +491,7 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
     check_equal("topk_rows scores", s, ps)
     B = ids.shape[0]
     rec.note("topk_rows", 0.0, cuda_ms(k3), cuda_ms(p3),
-             work_rows(R, B, 9, 8 * kk))
+             work_rows(R, B, 9, 8 * kk), topk_library_ms(sums, owner, kk))
 
     if cfg.verify_k:
         classes = cfg.term_classes()
@@ -486,7 +551,8 @@ def compare_aggs(values, specs, ids, elig, rec, what):
             note("agg_metrics", check_stats("agg_metrics", got[1:], want[1:]),
                  lambda: kn.agg_metrics(*args),
                  lambda: kn._agg_metrics_plain(*args),
-                 work_selected(B, R, 5, ne, 5 * M, 20 * M * B + 4 * B))
+                 work_selected(B, R, 5, ne, 5 * M, 20 * M * B + 4 * B,
+                               n_rows(values)))
     for sp in specs:
         if sp[0] not in ("terms", "missing"):
             continue
@@ -506,7 +572,7 @@ def compare_aggs(values, specs, ids, elig, rec, what):
         note("agg_buckets", err, lambda: kn.agg_buckets(*args),
              lambda: kn._agg_buckets_plain(*args),
              work_selected(B, R, 5, ne, 4 + 5 * n_val,
-                           4 * B * args[4] * (1 + 5 * S)))
+                           4 * B * args[4] * (1 + 5 * S), n_rows(values)))
     if rec is None:
         log(f"[kernels] {what}: kernel/plain ms {line}")
 
@@ -581,7 +647,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         rec.note("filter_leaves", 0.0,
                  cuda_ms(lambda: kn.filter_leaves(*fargs)),
                  cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
-                 work_filter(ids, mask, cfg.n_filters, None))
+                 work_filter(ids, mask, cfg.n_filters, None,
+                             n_rows(values)))
         mask = got[0]
     if cfg.with_aggs:
         compare_aggs(values, cfg.with_aggs, ids, mask, rec, shape_name)
@@ -603,7 +670,7 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         rec.note("fullwidth_topk", 0.0,
                  cuda_ms(lambda: kn.fullwidth_topk(*fargs)),
                  cuda_ms(lambda: kn._fullwidth_topk_plain(*pargs), reps=3),
-                 work_sort((spec,), mask, cfg.k))
+                 work_sort((spec,), mask, cfg.k, n_rows(values)))
     elif cfg.sort:
         sargs = (cfg.sort, ids, sums, mask, cfg.k, values,
                  batch["sort_targets"])
@@ -614,7 +681,7 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("sort_topk scores", got[1], want[1])
         rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
                  cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-                 work_sort(cfg.sort, mask, cfg.k))
+                 work_sort(cfg.sort, mask, cfg.k, n_rows(values)))
     else:
         targs = (sums, ids, mask, cfg.k)
         got, want = kn.topk_rows(*targs), kn._topk_rows_plain(*targs)
@@ -622,7 +689,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("topk_rows scores", got[1], want[1])
         rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
                  cuda_ms(lambda: kn._topk_rows_plain(*targs)),
-                 work_rows(ids.shape[1], B, 9, 8 * cfg.k))
+                 work_rows(ids.shape[1], B, 9, 8 * cfg.k),
+                 topk_library_ms(sums, mask, cfg.k))
     # every sort key kind, on synthetic columns over the same rows
     col, tg, tab = sort_inputs
     vals = dict(values)
@@ -792,11 +860,633 @@ def device_trace(runs, stats, tag):
     by_kernel: dict = {}
     for e in prof.events():
         if e.device_type.name == "CUDA" and e.name != "smoke.run":
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
-                (e.time_range.end - e.time_range.start) / 1e3
-    log(f"[trace] {tag}: device ms by kernel, largest first: " + str(
-        {n[:40]: round(v, 4) for n, v in sorted(
-            by_kernel.items(), key=lambda kv: -kv[1])[:10]}))
+            ms, n = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (
+                ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    log(f"[trace] {tag}: device (ms, launches) by kernel, largest first: "
+        + str({n[:40]: (round(v, 4), c) for n, (v, c) in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1][0])[:12]}))
+
+
+# --------------------------------------------------------------------------
+# kernels held against their plain versions inside a run of the path itself
+# --------------------------------------------------------------------------
+
+def work_collapse(ids, elig, cmax, n_col):
+    """collapse_rows: docid, score and flag read per row, the key column
+    (hi, lo, present; n_col rows) per eligible row, keep and tie written
+    per row; one table operation per eligible row and round."""
+    B, R = ids.shape
+    ne = n_true(elig)
+    return 14 * B * R + 9 * min(ne, n_col), B * R + ne * cmax
+
+
+def work_dense(lens, classes, B, nd1):
+    """dense_rows, the function: each term block's postings read once
+    (docid, wdf, doclen) and the deleted flags once; scores and orbits
+    written per (query, doc), 8 bytes, and the live flags once, one byte a
+    doc; one binary search per (query, doc) and term with postings. The
+    kernel writes 5 bytes a row more than this (the docid of every row and
+    the live flags once a query, for the kernels after it): that is the
+    design's cost above the bound, not part of it."""
+    import torch
+
+    T = len(classes)
+    if not T:
+        return 2 * nd1 + 8 * B * nd1, B * nd1
+    ln = torch.minimum(lens, torch.tensor(classes, device=lens.device))
+    steps = torch.where(ln > 0, torch.log2(ln.clamp(min=1).float()).ceil()
+                        + 1, 0.0)
+    return (12 * int(ln.sum()) + 2 * nd1 + 8 * B * nd1 + 20 * B * T,
+            B * nd1 + nd1 * int(steps.sum()))
+
+
+def work_special(ids, widths, max_specs, syn_groups):
+    """merge_special: docid and weight read and the sum written per row,
+    the doc's length and the synonym terms' wdf per real row; per real row
+    one pass of binary searches over the term blocks for the base, each
+    branch and each synonym group."""
+    B, R = ids.shape
+    real = n_true(ids != 2**31 - 1)
+    passes = 1 + sum(len(br) for br in max_specs) + len(syn_groups)
+    return (12 * B * R + 8 * B * len(widths) +
+            (8 * real if syn_groups else 0),
+            real * passes * sum(log2c(w) for w in widths))
+
+
+def work_distinct(ids, elig, n_col):
+    """agg_distinct: docid and flag per row, the key column (n_col rows)
+    per eligible row, the count and 1024 registers written per query; a
+    hash and an insert per eligible row."""
+    B, R = ids.shape
+    ne = n_true(elig)
+    return 5 * B * R + 9 * min(ne, n_col) + 4 * B * 1025, B * R + ne
+
+
+def held_collapse(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, sums, elig, col, cmax = a
+    c = col if col is not None else kn.absent_column(ids.device)
+    cm = min(int(cmax), kn.MAX_COLLAPSE)
+
+    def check(got, want):
+        check_equal("collapse_rows keep", got[0], want[0])
+        check_equal("collapse_rows tie", got[1], want[1])
+        return 0.0
+
+    return (lambda: kn._collapse_rows_plain(ids, sums, elig, c, cm), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} max={cm}",
+            lambda: work_collapse(ids, elig, cm, c["present"].shape[0]),
+            None)
+
+
+def held_dense(a):
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    post, offsets, lens, tconst, scoring, _bits, classes, deleted, params = a
+    B, T = offsets.shape
+    nd1 = deleted.shape[0]
+
+    def check(got, want):
+        for nm, g, w in zip(("ids", "scores", "orbits", "live"), got, want):
+            if nm != "scores":
+                check_equal(f"dense_rows {nm}", g, w)
+        return check_close("dense_rows scores", got[1], want[1])
+
+    def library():
+        """One scatter_add_ of the term weights over the doc axis (the
+        weights and docids made beforehand)."""
+        d, w, _tail = kn._score_slices_plain(
+            post, None, offsets, lens, tconst, scoring, classes,
+            (False,) * T, params)
+        d = d.clamp(max=nd1 - 1).long()
+        return cuda_ms(lambda: torch.zeros(
+            (B, nd1), dtype=torch.float32, device=d.device).scatter_add_(
+                1, d, w), reps=3)
+
+    return (lambda: kn._dense_rows_plain(*a), check,
+            f"B={B} R={nd1} T={T} classes={tuple(classes)}",
+            lambda: work_dense(lens, tuple(classes), B, nd1),
+            library if T else None)
+
+
+def held_special(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, _w, widths, _bits, _off, _wdf, _dl, max_specs, syn_groups = a[:9]
+
+    def check(got, want):
+        return check_close("merge_special sums", got, want)
+
+    return (lambda: kn._merge_special_plain(*a), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
+            f"max_specs={max_specs} syn_groups={syn_groups}",
+            lambda: work_special(ids, widths, max_specs, syn_groups), None)
+
+
+def held_distinct(a):
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, col = a
+
+    def check(got, want):
+        check_equal("agg_distinct n", got[0], want[0])
+        check_equal("agg_distinct registers", got[1], want[1])
+        return 0.0
+
+    def library():
+        """torch.unique of the batch's packed 64-bit keys (one call over
+        every query's rows) and scatter_reduce_(amax) into the registers;
+        keys, register indices and values made beforehand."""
+        B = ids.shape[0]
+        d = ids.clamp(max=col["hi"].shape[0] - 1).long()
+        m = elig & col["present"][d]
+        kh, kl = col["hi"][d], col["lo"][d]
+        keys = torch.where(m, (kh.long() << 32) | (kl.long() & 0xFFFFFFFF),
+                           2**63 - 1)
+        idx = kn.hash32(kh, kl) >> 22
+        del d, kh, kl
+        rho = m.to(torch.int32)
+        ms = cuda_ms(lambda: torch.unique(keys), reps=2)
+        return ms + cuda_ms(lambda: torch.zeros(
+            (B, kn.HLL_REGS), dtype=torch.int32,
+            device=ids.device).scatter_reduce_(1, idx, rho, "amax"), reps=2)
+
+    return (lambda: kn._agg_distinct_plain(ids, elig, col), check,
+            f"B={ids.shape[0]} R={ids.shape[1]}",
+            lambda: work_distinct(ids, elig, col["present"].shape[0]),
+            library)
+
+
+def held_topk(a):
+    """topk_rows; after a collapse its tie ranks order equal scores."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    scores, ids, owner, k = a[:4]
+    tie = a[4] if len(a) > 4 else None
+
+    def check(got, want):
+        check_equal("topk_rows docids", got[0], want[0])
+        check_equal("topk_rows scores", got[1], want[1])
+        return 0.0
+
+    B, R = ids.shape
+    return (lambda: kn._topk_rows_plain(scores, ids, owner, k, tie), check,
+            f"{'tie ' if tie is not None else ''}B={B} R={R} k={k}",
+            lambda: work_rows(R, B, 13 if tie is not None else 9, 8 * k),
+            lambda: topk_library_ms(scores, owner, k))
+
+
+def held_slices(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    post, imp, offsets, lens, tconst, scoring, widths, is_prefix, params = a
+    widths = tuple(int(w) for w in widths)
+    pflags = tuple(bool(p) for p in is_prefix)
+    B, R = offsets.shape[0], sum(widths)
+
+    def check(got, want):
+        check_equal("score_slices ids", got[0], want[0])
+        return max(check_close("score_slices w", got[1], want[1]),
+                   check_close("score_slices tail", got[2], want[2]))
+
+    return (lambda: kn._score_slices_plain(post, imp, offsets, lens, tconst,
+                                           scoring, widths, pflags, params),
+            check, f"B={B} R={R} T={len(widths)}",
+            lambda: work_score_slices(lens, widths, B, R), None)
+
+
+def held_merge(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    a = tuple(a) + (None, None, None, False)[len(a) - 3:]
+    ids, _w, widths, bits, deleted, prog, want_orbits = a
+
+    def check(got, want):
+        for nm, g, w in zip(("mask", "count", "orbits"), got[1:], want[1:]):
+            check_equal(f"merge_docs {nm}", g, w)
+        return check_close("merge_docs sums", got[0], want[0])
+
+    return (lambda: kn._merge_docs_plain(*a), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
+            f"bits={bits is not None} deletes={deleted is not None} "
+            f"tree={bool(prog)}",
+            lambda: work_merge_docs(ids, widths, deleted,
+                                    ids if want_orbits else None), None)
+
+
+def held_compact(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    mask, ids, _sums, orbits, cap = a
+
+    def check(got, want):
+        if int(got[3].max()) > cap:
+            raise AssertionError(f"compact_rows: {int(got[3].max())} rows "
+                                 f"exceed the cap {cap}")
+        for nm, g, w in zip(("docids", "sums", "orbits", "n"), got, want):
+            check_equal(f"compact_rows {nm}", g, w)
+        return 0.0
+
+    B, R = ids.shape
+    row_b = 12 if orbits is not None else 8
+    return (lambda: kn._compact_rows_plain(*a), check,
+            f"B={B} R={R} cap={cap}",
+            lambda: work_selected(B, R, 1, min(n_true(mask), B * cap), row_b,
+                                  B * cap * row_b + 4 * B), None)
+
+
+def held_filter(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    values, slots, vmax, fparams, ids, base, orbits, prog = a[:8]
+    phbits, geobits = (tuple(a[8:]) + (None, None))[:2]
+    cols = [values.get(sl) for sl in slots]
+    vm = tuple(int(vmax[i]) if i < len(vmax) else 1
+               for i in range(len(slots)))
+
+    def check(got, want):
+        check_equal("filter_leaves eligible", got[0], want[0])
+        check_equal("filter_leaves count", got[1], want[1])
+        return 0.0
+
+    def work():
+        nbytes, ops = work_filter(ids, base, len(slots), phbits,
+                                  n_rows(values))
+        return nbytes + (4 * ids.numel() if geobits is not None else 0), ops
+
+    return (lambda: kn._filter_leaves_plain(cols, vm, fparams, ids, base,
+                                            orbits, prog, phbits, geobits),
+            check, f"B={ids.shape[0]} R={ids.shape[1]} F={len(slots)} "
+            f"base={base is not None} geo={geobits is not None}", work, None)
+
+
+def held_geo(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    cols, specs, queries, ids, base = a
+
+    def check(got, want):
+        check_equal("geo_leaves verdicts", got, want)
+        return 0.0
+
+    return (lambda: kn._geo_leaves_plain(*a), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} geo_specs={tuple(specs)} "
+            f"base={base is not None}",
+            lambda: work_geo(ids, base, cols, specs, queries),
+            lambda: searchsorted_ms(cols, specs, queries, ids))
+
+
+def held_buckets(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, mode, codes, nb = a[:5]
+    subs = a[5] if len(a) > 5 else ()
+
+    def check(got, want):
+        check_equal("agg_buckets counts", got[0], want[0])
+        return check_stats("agg_buckets", got[1], want[1]) if subs else 0.0
+
+    B, R = ids.shape
+    n_val = sum(c is not None for c in subs)
+    return (lambda: kn._agg_buckets_plain(ids, elig, mode, codes, nb, subs),
+            check, f"B={B} R={R} {mode} nb={nb} subs={len(subs)}",
+            lambda: work_selected(B, R, 5, n_true(elig), 4 + 5 * n_val,
+                                  4 * B * nb * (1 + 5 * len(subs)),
+                                  codes.shape[0] if codes is not None
+                                  else None), None)
+
+
+def held_sort(a):
+    """sort_topk over the dense path's rows (every doc a row)."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    specs, ids, sums, elig, k, values = a[:6]
+    targets = a[6] if len(a) > 6 else None
+    strtabs = (a[7] if len(a) > 7 else None) or {}
+    cols = [values.get(sp[1]) if sp[0] not in ("score", "docid") else None
+            for sp in specs]
+
+    def check(got, want):
+        check_equal("sort_topk docids", got[0], want[0])
+        check_equal("sort_topk scores", got[1], want[1])
+        return 0.0
+
+    return (lambda: kn._sort_topk_plain(specs, cols, ids, sums, elig, k,
+                                        targets, strtabs), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} keys="
+            f"{'-'.join(sp[0] for sp in specs)}",
+            lambda: work_sort(specs, elig, k, n_rows(values)), None)
+
+
+def held_metrics(a):
+    """agg_metrics over the channels of a geo_stats aggregation."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, cols = a
+
+    def check(got, want):
+        check_equal("agg_metrics count", got[0], want[0])
+        return check_stats("agg_metrics", got[1:], want[1:])
+
+    B, R = ids.shape
+    M = len(cols)
+    return (lambda: kn._agg_metrics_plain(ids, elig, cols), check,
+            f"B={B} R={R} metrics={M}",
+            lambda: work_selected(B, R, 5, n_true(elig), 5 * M,
+                                  20 * M * B + 4 * B,
+                                  cols[0][0].shape[0] if cols else None),
+            None)
+
+
+HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
+        "merge_special": held_special, "agg_distinct": held_distinct,
+        "topk_rows": held_topk, "sort_topk": held_sort,
+        "agg_metrics": held_metrics, "score_slices": held_slices,
+        "merge_docs": held_merge, "compact_rows": held_compact,
+        "filter_leaves": held_filter, "geo_leaves": held_geo,
+        "agg_buckets": held_buckets}
+
+
+class Held:
+    """Inside the block, every call the port makes to one of ``names`` (a
+    wrapper of ops/kernels.py) is held against the kernel's plain version
+    on the call's own tensors: the kernel is launched twice (bit for bit
+    the same), compared, and - the first time a shape is seen - timed
+    beside the plain version, its bound and its library yardstick. The
+    call then returns the kernel's result, so the run goes on as the port
+    runs it. ``calls`` counts the calls held, per kernel."""
+
+    def __init__(self, rec, tag, names):
+        self.rec, self.tag = rec, tag
+        self.calls = {n: 0 for n in names}
+        self.timed: set = set()
+        self.saved: dict = {}
+
+    def __enter__(self):
+        from xapiand_tpu_torch.ops import kernels as kn
+
+        for name in self.calls:
+            self.saved[name] = getattr(kn, name)
+            setattr(kn, name, self.hold(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from xapiand_tpu_torch.ops import kernels as kn
+
+        for name, fn in self.saved.items():
+            setattr(kn, name, fn)
+
+    def hold(self, name, kernel):
+        def held(*args):
+            plain, check, key, work, library = HELD[name](args)
+            got = twice(name, lambda: kernel(*args))
+            err = check(got, plain())
+            self.calls[name] += 1
+            if (name, key) in self.timed:
+                self.rec.worst(name, err)
+            else:
+                self.timed.add((name, key))
+                self.rec.note(name, err,
+                              cuda_ms(lambda: kernel(*args), reps=5),
+                              cuda_ms(plain, reps=2), work(),
+                              library() if library else None)
+                self.rec.flush(f"{self.tag} {key}")
+            return got
+
+        return held
+
+
+def browse_match(fam, p, r, w, cat_of, agg_at):
+    """One browse result against the oracle's answer (see the module
+    docstring, step 4)."""
+    import numpy as np
+
+    sent = 2**31 - 1
+    real = r["docids"] != sent
+    if r["count"] != w["count"] or \
+            not (np.isfinite(r["scores"]) == real).all() or \
+            not np.isneginf(r["scores"][~real]).all():
+        return False
+    exp = w["ranked"]
+    if fam in "MN" or (fam == "C" and p["sorted"]):
+        if r["docids"][real].tolist() != [d for d, _s in exp] or \
+                (r["scores"][real] != 0.0).any():
+            return False
+    elif fam in "SX":
+        if not tie_group_match(r["docids"], r["scores"], exp, K):
+            return False
+    else:
+        got = list(zip(r["docids"][real].tolist(),
+                       r["scores"][real].tolist()))
+        if len(got) != min(K, len(exp)) or \
+                len({d for d, _s in got}) != len(got):
+            return False
+        for i, (d, sc) in enumerate(got):
+            ms = w["maybe"].get(d)
+            if ms is None or abs(ms - sc) > ORACLE_RTOL * abs(ms) or \
+                    abs(sc - exp[i][1]) > ORACLE_RTOL * abs(exp[i][1]):
+                return False
+        cats = [int(cat_of[d]) for d, _s in got]
+        if max((cats.count(c) for c in set(cats)), default=0) > \
+                min(p["collapse_max"], 8):
+            return False
+    if fam != "M":
+        return True
+    a = w["aggs"]
+    cats = np.asarray(r["aggs"][agg_at["cats"]])
+    st, card = r["aggs"][agg_at["price_stats"]], r["aggs"][agg_at["sizes"]]
+    n, s1, s2, mn, mx = a["price"]
+    ncat = len(a["cats"])
+
+    def close(x, y):
+        return abs(float(x) - y) <= ORACLE_RTOL * abs(y)
+
+    return bool(
+        (cats[:ncat] == a["cats"]).all() and not cats[ncat:].any()
+        and float(st["n"]) == n and st["min"] == np.float32(mn)
+        and st["max"] == np.float32(mx) and close(st["s"], s1)
+        and close(st["s2"], s2) and int(card["n"]) == a["sizes"]
+        and int(card["maxn"]) == a["sizes"]
+        and np.asarray(card["hll"]).tolist() == a["hll"].tolist())
+
+
+class ExecuteRunner:
+    """The C family as Database.search drives it: one bind and one
+    SegmentSearcher.execute a query. ``run`` has BatchSearcher.run's
+    shape, so the timing helpers take it."""
+
+    def __init__(self, searcher, stats, stats_d):
+        self.searcher, self.stats, self.stats_d = searcher, stats, stats_d
+
+    def bind(self, item):
+        from xapiand_tpu_torch.query.plan import bind, compile_ir
+        from xapiand_tpu_torch.utils import synth_faceted as sf
+
+        q, p = item
+        seg = self.searcher.segment
+
+        def gtf(t):
+            ti = seg.get_term(t)
+            return ti.length if ti else 0
+
+        return bind(compile_ir(q, cost_fn=gtf), seg, self.searcher.scheme,
+                    self.stats, global_tf=gtf, k=K,
+                    sort=sf.PRICE_DESC if p["sorted"] else (),
+                    collapse_slot=sf.CAT_SLOT,
+                    collapse_max=p["collapse_max"])
+
+    def run(self, items, stats=None):
+        return [self.searcher.execute(self.bind(item), self.stats_d)
+                for item in items]
+
+
+def browse_path(dev, rec, smi, corpus, searcher) -> dict:
+    """Slice 6: the single-query entry point and the dense, collapse,
+    OP_MAX / OP_SYNONYM and cardinality plan shapes, over the faceted
+    path's corpus and device segment."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch import aggregations as am
+    from xapiand_tpu_torch.models.weights import CollectionStats
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.search import BatchSearcher
+    from xapiand_tpu_torch.utils import synth_browse as sb
+    from xapiand_tpu_torch.utils import synth_faceted as sf
+
+    seg = corpus.seg
+    qs = sb.browse_queries(BROWSE_M, BROWSE_N, BROWSE_S, BROWSE_X, BROWSE_C,
+                           seed=11)
+    names, specs, arrays, metas = am.compile_for_segment(sf.SCHEMA, seg,
+                                                         sb.BROWSE_AGGS)
+    agg_at = {n: i for i, n in enumerate(names)}
+    log(f"[plan] browse: {len(qs)} queries "
+        f"{ {f: sum(1 for ff, *_x in qs if ff == f) for f in 'MNSXC'} }; "
+        f"aggregations {sb.BROWSE_AGGS} -> {specs}")
+    stats = CollectionStats(doc_count=seg.doc_count,
+                            avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+    stats_d = {"N": float(stats.doc_count),
+               "avg_doclen": float(stats.avg_doclen), "doclen_lower": 1.0,
+               "doclen_upper": float(seg.doclen.max()),
+               "total_len": float(seg.total_doclen)}
+    idx = {f: [i for i, (ff, *_x) in enumerate(qs) if ff in f]
+           for f in ("M", "NSX", "C")}
+    bs_m = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH,
+                         sort=sf.PRICE_DESC, aggs=(specs, arrays))
+    bs_r = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH)
+    ex = ExecuteRunner(searcher, stats, stats_d)
+    runs = [(bs_m, [qs[i][1] for i in idx["M"]]),
+            (bs_r, [qs[i][1] for i in idx["NSX"]]),
+            (ex, [(qs[i][1], qs[i][2]) for i in idx["C"]])]
+    t0 = time.time()
+    for bs, irs in runs[:2]:
+        groups = bs.plan(irs, stats=stats)
+        log(f"[plan] browse: launches (tree, dense, T, R (every doc for a "
+            f"dense group), syn_groups, max_specs, B): " + str(
+                [(c.tree, c.dense, c.T,
+                  seg.num_docs + 1 if c.dense else sum(c.classes),
+                  c.syn_groups, c.max_specs, int(b["offsets"].shape[0]))
+                 for c, _f, b, _ch in groups]))
+        if any(c.prefix or c.fullwidth for c, *_x in groups):
+            raise AssertionError("a browse group in prefix or fullwidth "
+                                 "mode")
+    log(f"[plan] browse: plan {time.time() - t0:.1f} s")
+
+    def run_all():
+        out: list = [None] * len(qs)
+        peak = {}
+        for fam, (runner, items) in zip(("M", "NSX", "C"), runs):
+            torch.cuda.reset_peak_memory_stats()
+            for i, r in zip(idx[fam], runner.run(items, stats=stats)):
+                out[i] = r
+            torch.cuda.synchronize()
+            peak[fam] = torch.cuda.max_memory_allocated()
+        return out, peak
+
+    # the path once with every kernel it runs held against its plain
+    # version at every launch
+    t0 = time.time()
+    with Held(rec, "browse", BROWSE_KERNELS) as held:
+        run_all()
+    torch.cuda.empty_cache()
+    log(f"[kernels] browse: every launch equal to its plain version, the "
+        f"kernels twice bit for bit: {held.calls} launches held, "
+        f"{len(held.timed)} shapes timed ({time.time() - t0:.1f} s)")
+    if not all(held.calls.values()):
+        raise AssertionError(f"a browse kernel was never held: {held.calls}")
+
+    # the path, counted
+    kn.reset_launches()
+    results, peak = run_all()
+    counts = dict(kn.launches)
+    log(f"[main] browse launches {counts}; peak device memory allocated, "
+        f"bytes: {peak}")
+    if not all(counts[n] for n in BROWSE_KERNELS) or \
+            counts["prefix_certify"] or counts["fullwidth_topk"]:
+        raise AssertionError(f"browse launches wrong: {counts}")
+
+    # parity with the float64 oracle
+    t0 = time.time()
+    want = sb.oracle_answers(corpus, qs, K, ORACLE_RTOL)
+    bad = [qi for qi, ((fam, _q, p), r, w) in enumerate(zip(qs, results,
+                                                            want))
+           if not browse_match(fam, p, r, w, corpus.cat_codes, agg_at)]
+    per_fam = {f: sum(1 for qi, (ff, *_x) in enumerate(qs)
+                      if ff == f and qi not in bad) for f in "MNSXC"}
+    cnt = sorted(w["count"] for w in want)
+    log(f"[parity] browse: {len(qs) - len(bad)}/{len(qs)} queries match the "
+        f"float64 oracle (M, N and the sorted half of C exact docid lists; "
+        f"S, X and the relevance half of C tie groups at rtol "
+        f"{ORACLE_RTOL}, C's survivors at most collapse_max a category; "
+        f"counts exact, before the collapse; M's facet counts, price n, "
+        f"min, max and distinct sizes exact, sums at rtol {ORACLE_RTOL}, "
+        f"the 1024 registers equal to the numpy replica) per family "
+        f"{per_fam}; counts min/median/max {cnt[0]}/{cnt[len(cnt) // 2]}/"
+        f"{cnt[-1]} ({time.time() - t0:.1f} s)")
+    if bad:
+        qi = bad[0]
+        r = results[qi]
+        raise AssertionError(
+            f"browse: {len(bad)} queries differ; first {qi} {qs[qi][0]} "
+            f"{qs[qi][2]}: got count {r['count']} "
+            f"{list(zip(r['docids'].tolist(), r['scores'].tolist()))} "
+            f"want count {want[qi]['count']} {want[qi]['ranked'][:K]}")
+    first_m = idx["M"][0]
+    shaped = am.merge_and_shape(names, metas, [results[first_m]["aggs"]],
+                                [{agg_at["cats"]:
+                                  metas[agg_at["cats"]]["cat_names"]}])
+    log(f"[parity] browse: shaped response of query {first_m} "
+        f"{qs[first_m][2]}: count {results[first_m]['count']}, "
+        f"aggregations {json.dumps(shaped)}")
+
+    # the batched families, then execute's calls one by one
+    n_batched = len(idx["M"]) + len(idx["NSX"])
+    timed_runs(runs[:2], stats, n_batched, smi, "browse M+N+S+X")
+    items = runs[2][1]
+    call_ms, bind_ms = [], []
+    for _ in range(3):
+        for item in items:
+            t0 = time.perf_counter()
+            bound = ex.bind(item)
+            t1 = time.perf_counter()
+            searcher.execute(bound, stats_d)
+            torch.cuda.synchronize()
+            bind_ms.append((t1 - t0) * 1e3)
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+    call_ms, bind_ms = sorted(call_ms), sorted(bind_ms)
+    log(f"[qps] browse C: SegmentSearcher.execute ms per call over "
+        f"{len(call_ms)} warm calls: median {call_ms[len(call_ms) // 2]} "
+        f"min {call_ms[0]} max {call_ms[-1]}; bind ms per call median "
+        f"{bind_ms[len(bind_ms) // 2]} min {bind_ms[0]} max {bind_ms[-1]}; "
+        f"on {smi}")
+    device_trace(runs[2:], stats, "browse C")
+    return counts
 
 
 def relevance_path(dev, rec, smi) -> dict:
@@ -887,9 +1577,10 @@ def relevance_path(dev, rec, smi) -> dict:
     return counts
 
 
-def faceted_path(dev, rec, smi) -> dict:
+def faceted_path(dev, rec, smi) -> tuple:
     """Slices 2 and 3: config 3 in full - the predicate path with its
-    aggregations, through the fullwidth path."""
+    aggregations, through the fullwidth path. -> (launch counts, the
+    corpus, its SegmentSearcher: the browse path runs over both)."""
     import numpy as np
     import torch
 
@@ -1099,7 +1790,7 @@ def faceted_path(dev, rec, smi) -> dict:
     log(f"[qps] faceted fullwidth on / off, median QPS: first pair (on "
         f"first) {qps[0]} / {qps[1]}, second pair (off first) {qps[3]} / "
         f"{qps[2]}")
-    return counts
+    return counts, corpus, searcher
 
 
 def work_phrase(ids, widths, batch, orbits, first, seg, cfg, ncand):
@@ -1222,7 +1913,8 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
     check_equal("topk_rows scores", got[1], want[1])
     rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
              cuda_ms(lambda: kn._topk_rows_plain(*targs)),
-             work_rows(R, B, 9, 8 * cfg.k))
+             work_rows(R, B, 9, 8 * cfg.k),
+             topk_library_ms(sums, mask, cfg.k))
     torch.cuda.synchronize()
     rec.flush(f"{shape_name} B={B} R={R}" + (
         f" cand_cap={cfg.cand_cap} pmax={cfg.pmax} K15 lookups "
@@ -1363,7 +2055,9 @@ def work_geo(ids, base, cols, specs, queries):
     for col, (_slot, QR, RMAX), _q in zip(cols, specs, queries):
         d = ids[live].clamp(max=col["doc_off"].shape[0] - 1).long()
         nr = int(torch.clamp(col["doc_len"][d], max=RMAX).sum())
-        nbytes += 8 * int(d.numel()) + 8 * nr + 8 * B * QR
+        # the column is read once at most, whatever the queries share
+        nbytes += 8 * min(int(d.numel()), col["doc_off"].shape[0]) + \
+            8 * min(nr, col["flat_start"].shape[0]) + 8 * B * QR
         ops += 2 * nr * log2c(QR)
     return nbytes, ops
 
@@ -1471,7 +2165,7 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     check_equal("filter_leaves eligible", got[0], want[0])
     check_equal("filter_leaves count", got[1], want[1])
     F = cfg.n_filters
-    nbytes, ops = work_filter(ids, mask, F, None)
+    nbytes, ops = work_filter(ids, mask, F, None, n_rows(values))
     rec.note("filter_leaves", 0.0, cuda_ms(lambda: kn.filter_leaves(*fargs)),
              cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
              (nbytes + 4 * ids.numel(), ops))
@@ -1484,7 +2178,7 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     check_equal("sort_topk scores", got[1], want[1])
     rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
              cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-             work_sort(spec, elig, cfg.k))
+             work_sort(spec, elig, cfg.k, n_rows(values)))
     torch.cuda.synchronize()
     rec.flush(f"{shape_name} B={B} R={R} cap={cap} geo_specs "
               f"{cfg.geo_specs}")
@@ -1569,7 +2263,7 @@ def geo_path(dev, rec, smi) -> dict:
 
     # parity with the oracle, and config_bench's haversine bounds
     t0 = time.time()
-    want = sg.oracle_answers(corpus, qs, rmax, K)
+    want = sg.oracle_answers(corpus, qs, rmax, K, aggs=True)
     bad = []
     for qi, (r, w) in enumerate(zip(results, want)):
         real = r["docids"] != kn.SENTINEL
@@ -1598,6 +2292,86 @@ def geo_path(dev, rec, smi) -> dict:
             f"{qs[qi][2]}: got count {r['count']} {r['docids'].tolist()} "
             f"want {want[qi]}")
     timed_runs([(bs, irs)], stats, len(qs), smi, "geo")
+    agg_counts = geo_aggregations(searcher, corpus, qs, want, stats, rec)
+    return {n: counts[n] + agg_counts[n] for n in counts}
+
+
+def geo_aggregations(searcher, corpus, qs, want, stats, rec) -> dict:
+    """The geo path's aggregation run (K17b): the T queries again with the
+    bounds of loc and the cardinality of ts, held against the kernels'
+    plain versions at every launch group and against the oracle's
+    aggregations (``want``: oracle_answers with aggs=True)."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch import aggregations as am
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.search import BatchSearcher
+    from xapiand_tpu_torch.utils import synth_geo as sg
+
+    t_idx = [qi for qi, (f, _q, _p) in enumerate(qs) if f == "T"]
+    irs = [qs[qi][1] for qi in t_idx]
+    names, specs, arrays, metas = am.compile_for_segment(
+        sg.SCHEMA, corpus.seg, sg.GEO_AGGS)
+    at = {n: i for i, n in enumerate(names)}
+    bs = BatchSearcher(searcher, k=K, aggs=(specs, arrays))
+    groups = bs.plan(irs, stats=stats)
+    log(f"[plan] geo aggregations {sg.GEO_AGGS} -> {specs}; {len(irs)} T "
+        f"queries in {len(groups)} launches (R, compact_cap, B): " + str(
+            sorted({(sum(c.classes), c.compact_cap,
+                     int(b['offsets'].shape[0])) for c, _f, b, _ch in
+                    groups})))
+    with Held(rec, "geo aggregations",
+              GEO_AGG_KERNELS + ("compact_rows",)) as held:
+        bs.run(irs, stats=stats)
+        torch.cuda.synchronize()
+    log(f"[kernels] geo aggregations: every launch equal to its plain "
+        f"version, twice bit for bit: {held.calls} launches held, "
+        f"{len(held.timed)} shapes timed")
+    if not all(held.calls[n] for n in GEO_AGG_KERNELS):
+        raise AssertionError(f"a geo aggregation kernel was never held: "
+                             f"{held.calls}")
+    kn.reset_launches()
+    results = bs.run(irs, stats=stats)
+    torch.cuda.synchronize()
+    counts = dict(kn.launches)
+    log(f"[main] geo aggregations launches {counts}")
+    if not all(counts[n] for n in GEO_AGG_KERNELS):
+        raise AssertionError(f"geo aggregation launches wrong: {counts}")
+
+    def close(x, y):
+        return abs(float(x) - y) <= ORACLE_RTOL * abs(y)
+
+    bad = []
+    for qi, r in zip(t_idx, results):
+        w = want[qi]
+        a = w["aggs"]
+        g, card = r["aggs"][at["bounds"]], r["aggs"][at["hours"]]
+        ok = r["count"] == w["count"] and float(g["n"]) == a["n"] and \
+            all(g[key] == np.float32(a[key]) for key in
+                ("minlat", "maxlat", "minlon", "maxlon")) and \
+            close(g["slat"], a["slat"]) and close(g["slon"], a["slon"]) and \
+            int(card["n"]) == int(card["maxn"]) == a["ts_distinct"] and \
+            np.asarray(card["hll"]).tolist() == a["hll"].tolist()
+        if not ok:
+            bad.append(qi)
+    nd = sorted(want[qi]["aggs"]["ts_distinct"] for qi in t_idx)
+    log(f"[parity] geo aggregations: {len(t_idx) - len(bad)}/{len(t_idx)} "
+        f"queries match the oracle (counts exact; bounds equal to the "
+        f"float32 minima and maxima of the matched docs' centroids; "
+        f"centroid sums at rtol {ORACLE_RTOL}; distinct timestamps exact; "
+        f"the 1024 registers equal to the numpy replica); distinct "
+        f"timestamps min/median/max {nd[0]}/{nd[len(nd) // 2]}/{nd[-1]}")
+    if bad:
+        qi = bad[0]
+        raise AssertionError(
+            f"geo aggregations: {len(bad)} queries differ; first {qi} "
+            f"{qs[qi][2]}: got {results[t_idx.index(qi)]['aggs']} want "
+            f"{want[qi]['aggs']}")
+    first = t_idx[0]
+    shaped = am.merge_and_shape(names, metas, [results[0]["aggs"]], [{}])
+    log(f"[parity] geo aggregations: shaped response of query {first}: "
+        f"count {results[0]['count']}, aggregations {json.dumps(shaped)}")
     return counts
 
 
@@ -1643,22 +2417,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] relevance path {time.time() - t0:.1f} s")
     t0 = time.time()
-    fac = faceted_path(dev, rec, smi)
+    fac, corpus, searcher = faceted_path(dev, rec, smi)
     torch.cuda.empty_cache()
     log(f"[time] faceted path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bro = browse_path(dev, rec, smi, corpus, searcher)
+    del corpus, searcher
+    torch.cuda.empty_cache()
+    log(f"[time] browse path {time.time() - t0:.1f} s")
     t0 = time.time()
     pos = positional_path(dev, rec, smi)
     torch.cuda.empty_cache()
     log(f"[time] positional path {time.time() - t0:.1f} s")
     t0 = time.time()
     geo = geo_path(dev, rec, smi)
-    log(f"[time] geo path {time.time() - t0:.1f} s")
+    log(f"[time] geo path and its aggregation run {time.time() - t0:.1f} s")
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")
 
     print(json.dumps({"kernels": [
-        rec.record(name, sum(c.get(name, 0) for c in (rel, fac, pos, geo)))
+        rec.record(name, sum(c.get(name, 0)
+                             for c in (rel, fac, bro, pos, geo)))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

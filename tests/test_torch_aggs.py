@@ -96,6 +96,7 @@ def world():
                  if c.cat_names and c.cat_names[0] == "cat0")
     w.schema = Schema({"cat": w.cat, "price": w.price, "size": w.size,
                        "nosuch": MISSING_SLOT})
+    w.geo = sf.SORT_TEST_SLOT     # a slot for a synthetic lat / lon column
     return w
 
 
@@ -118,6 +119,14 @@ def _spec_sets(w):
                     ("missing", w.price, ())),
         "missing_subs": (("missing", w.size, subs),
                          ("missing", MISSING_SLOT, (("avg", w.price),))),
+        # K17b, mirroring tests/test_aggs_ext.py:172-187: the multi-value
+        # size column counts each doc's one key (hi, lo), its smallest
+        # value; the price has no fval2, so its longitude reads 0
+        "cardinality": (("cardinality", w.size), ("cardinality", w.price),
+                        ("cardinality", w.cat),
+                        ("cardinality", MISSING_SLOT)),
+        "geo_stats": (("geo_stats", w.geo), ("geo_stats", w.price),
+                      ("geo_stats", MISSING_SLOT), ("count",)),
     }
 
 
@@ -150,25 +159,38 @@ def _assert_aggs(got, want, key=""):
     else:
         g, w = np.asarray(got), np.asarray(want)
         assert g.shape == w.shape and g.dtype == w.dtype, (key, g, w)
-        if key in ("s", "s2"):
+        if key in ("s", "s2", "slat", "slon"):
             np.testing.assert_allclose(g, w, rtol=RTOL, err_msg=key)
         else:
             np.testing.assert_array_equal(g, w, err_msg=key)
 
 
 @pytest.mark.parametrize("name", ["metrics", "metric_slots", "terms",
-                                  "terms_subs", "missing", "missing_subs"])
+                                  "terms_subs", "missing", "missing_subs",
+                                  "cardinality", "geo_stats"])
 def test_compute_aggs_vs_jax(world, name):
-    """K17a: every admitted kind, plain version vs compute_aggs, on the
-    same rows and masks; the structure is JAX's."""
+    """K17a and K17b: every admitted kind, plain version vs compute_aggs,
+    on the same rows and masks; the structure is JAX's (cardinality: n,
+    maxn and all 1024 registers equal; geo_stats: n, minima and maxima
+    equal, the two sums within rtol 1e-5)."""
     specs = _spec_sets(world)[name]
     ids, elig = _rows()
+    jarr, parr = world.jarr, world.parr["values"]
+    if name == "geo_stats":
+        # a synthetic lat / lon column: the World's segment has no geo
+        # value column
+        col, _tg, _tab = sf.sort_test_inputs(tp.N_DOCS, 1)
+        col = {ch: col[ch] for ch in ("hi", "lo", "present", "fval",
+                                      "fval2")}
+        jarr = {**jarr, "values": {**jarr["values"], world.geo: {
+            ch: jnp.asarray(v) for ch, v in col.items()}}}
+        parr = {**parr, world.geo: device_segment_from_numpy(col, CPU)}
     want = _np(jax.jit(jax.vmap(lambda d, m: jaggs.compute_aggs(
-        world.jarr, specs, jnp.minimum(d, tp.N_DOCS), m,
+        jarr, specs, jnp.minimum(d, tp.N_DOCS), m,
         jnp.zeros(d.shape, jnp.float32))))(jnp.asarray(ids),
                                            jnp.asarray(elig)))
     paggs.check_aggs(specs)
-    got = paggs.compute_aggs(world.parr["values"], specs,
+    got = paggs.compute_aggs(parr, specs,
                              torch.from_numpy(ids), torch.from_numpy(elig))
     got = jax.tree_util.tree_map(lambda t: t.numpy(), got)
     _assert_aggs(got, want)
@@ -464,14 +486,13 @@ REFUSED = {
                                                      "_interval": 50,
                                                      "_buckets": 4}}}}},
                "K17c"),
-    "cardinality": ({"c": {"_cardinality": {"_field": "price"}}}, "K17b"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_aggs_raise(world, case):
-    """K17b and K17c kinds raise NotImplementedError naming their item,
-    when the searcher is made."""
+    """K17c kinds raise NotImplementedError naming their item, when the
+    searcher is made."""
     dsl, item = REFUSED[case]
     _n, specs, arrays, _m = pagg.compile_for_segment(world.schema,
                                                      world.pseg, dsl)
@@ -480,8 +501,30 @@ def test_unported_aggs_raise(world, case):
 
 
 def test_geo_stats_raises():
-    with pytest.raises(NotImplementedError, match="K17b"):
-        paggs.check_aggs((("geo_stats", 1),))
+    """geo_stats is ported (K17b): what still raises is a spec of another
+    arity than (kind, slot), which no compile produces."""
+    paggs.check_aggs((("geo_stats", 1), ("cardinality", 1)))
+    for bad in (("geo_stats", 1, 2), ("cardinality",)):
+        with pytest.raises(NotImplementedError, match="K17c"):
+            paggs.check_aggs((bad,))
+
+
+def test_hash32_replica_vs_jax():
+    """kernels.hash32 (the plain version's, and the model of the numpy
+    replicas in utils/synth_browse.py and utils/synth_geo.py) against
+    _hash32 on random and edge key pairs."""
+    from xapiand_tpu_torch.utils.synth_browse import hash32_np
+
+    rng = np.random.Generator(np.random.PCG64(3))
+    hi = rng.integers(-2**31, 2**31, 4000).astype(np.int32)
+    lo = rng.integers(-2**31, 2**31, 4000).astype(np.int32)
+    hi[:4] = (0, -1, 2**31 - 1, -2**31)
+    lo[:4] = (0, -1, 2**31 - 1, -2**31)
+    want = np.asarray(jaggs._hash32(jnp.asarray(hi), jnp.asarray(lo)))
+    assert want.dtype == np.uint32
+    got = kernels.hash32(torch.from_numpy(hi), torch.from_numpy(lo)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    np.testing.assert_array_equal(hash32_np(hi, lo), want)
 
 
 def test_jax_batch_searcher_drops_agg_arrays(world):

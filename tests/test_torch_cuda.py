@@ -13,7 +13,10 @@ mode, the faceted corpus (utils/synth_faceted.py) with its four query
 families and config 3's aggregations, plus synthetic columns for every
 sort key kind, config 2's positional corpus (utils/synth_positional.py)
 with its phrase, NEAR and boolean traffic, and config 4's geotagged corpus
-(utils/synth_geo.py) with its circle AND window traffic. Phrase and geo
+(utils/synth_geo.py) with its circle AND window traffic, and the browse
+traffic of utils/synth_browse.py over the faceted corpus (dense, synonym,
+max and collapse plans, the cardinality and geo_stats aggregations) with
+hand-made collapse rows for the edge shapes. Phrase and geo
 verdicts and candidate counts must be equal. Tolerances: the kernels evaluate the same float32
 expressions in the same order as the plain versions (nvcc -fmad=false),
 so docids, masks, bits, packed rows, counts and certificates must be equal
@@ -532,3 +535,219 @@ def test_geo_corpus_is_pinned():
          16),
         ("T", 293022.625, "2024-08-23T00:00:00", "2024-08-26T00:00:00", 309,
          6)]
+
+
+# ---------------------------------------------------------------------------
+# slice 6: collapse_rows, dense_rows, merge_special, agg_distinct
+# ---------------------------------------------------------------------------
+
+def _cpu_col(col):
+    return {c: t.cpu() for c, t in col.items()}
+
+
+def _collapse_case(rng, B, R, n_docs, n_keys, absent, elig_p):
+    ids = np.stack([np.sort(rng.choice(n_docs, R, replace=False))
+                    for _ in range(B)]).astype(np.int32)
+    sums = (rng.integers(1, 7, (B, R)) / 4).astype(np.float32)
+    elig = rng.random((B, R)) < elig_p
+    ids[:, -7:] = kernels.SENTINEL
+    elig[:, -7:] = False
+    key = rng.integers(0, n_keys, n_docs + 1)
+    col = {"hi": (key // 3 - 2).astype(np.int32),
+           "lo": (key % 3 - 1).astype(np.int32),
+           "present": rng.random(n_docs + 1) >= absent}
+    return ids, sums, elig, col
+
+
+@pytest.mark.parametrize("case", ["keys", "one_key", "empty_query",
+                                  "all_ones_key", "no_column"])
+def test_collapse_rows_matches_plain_version(cuda, case):
+    """collapse_rows (keep and tie ranks) and the tie-ranked topk_rows
+    against their plain versions: categorical keys with ties within and
+    across keys (negative words among them), all rows one key, a query
+    with no eligible row, the key of all ones (the table's empty mark), a
+    slot the segment lacks; collapse_max 1, 3, 8 and 9 (capped at 8)."""
+    rng = np.random.Generator(np.random.PCG64(41))
+    ids, sums, elig, col = _collapse_case(
+        rng, 3, 3000, 9000, 1 if case == "one_key" else 23,
+        0.0 if case == "one_key" else 0.15, 0.8)
+    if case == "empty_query":
+        elig[1] = False
+    if case == "all_ones_key":
+        col["hi"][::3] = -1
+        col["lo"][::3] = -1
+    dcol = None if case == "no_column" else \
+        {c: torch.from_numpy(v).to(cuda) for c, v in col.items()}
+    args = tuple(torch.from_numpy(x).to(cuda) for x in (ids, sums, elig))
+    for cmax in (1, 3, 8, 9):
+        keep, tie = _twice(lambda: kernels.collapse_rows(*args, dcol, cmax))
+        pkeep, ptie = kernels.collapse_rows(
+            *(x.cpu() for x in args),
+            None if dcol is None else _cpu_col(dcol), cmax)
+        assert torch.equal(keep.cpu(), pkeep), (case, cmax)
+        assert torch.equal(tie.cpu(), ptie), (case, cmax)
+        d, s = _twice(lambda: kernels.topk_rows(args[1], args[0], keep, 10,
+                                                tie))
+        pd, ps = kernels._topk_rows_plain(args[1], args[0], keep, 10, tie)
+        assert torch.equal(d, pd) and torch.equal(s, ps), (case, cmax)
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def browse(faceted):
+    from xapiand_tpu_torch.utils import synth_browse as sb
+
+    corpus, searcher, _fams = faceted
+    qs = sb.browse_queries(24, 16, 24, 24, 32, seed=11)
+    _n, specs, arrays, _m = compile_for_segment(sf.SCHEMA, corpus.seg,
+                                                sb.BROWSE_AGGS)
+    return corpus, searcher, qs, (specs, arrays)
+
+
+def _plans(searcher, qs, fams, **kw):
+    bs = BatchSearcher(searcher, k=10, min_batch=8, **kw)
+    return bs.plan([q for f, q, _p in qs if f in fams])
+
+
+def test_dense_rows_matches_plain_version(browse):
+    """dense_rows on the M groups (no term: T = 0 searches nothing) and
+    the N groups (term masks; docs that every term holds among them),
+    against its plain version, twice bit for bit."""
+    _corpus, searcher, qs, aggs_ = browse
+    seg = searcher.device_segment.arrays_pytree()
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    params = searcher.scheme.kernel_params(searcher.segment)
+    n_terms = set()
+    for cfg, _fn, batch, _chunk in \
+            _plans(searcher, qs, "M", sort=sf.PRICE_DESC, aggs=aggs_) + \
+            _plans(searcher, qs, "N"):
+        assert cfg.dense
+        args = (post, batch["offsets"], batch["lens"], batch["tconst"],
+                batch["scoring"], batch["group_bits"], cfg.term_classes(),
+                seg["deleted"], params)
+        got = _twice(lambda: kernels.dense_rows(*args))
+        want = kernels._dense_rows_plain(*args)
+        for g, w, name in zip(got, want, ("ids", "scores", "orbits", "live")):
+            if name == "scores":
+                _close(g, w)
+            else:
+                assert torch.equal(g, w), name
+        real = int((batch["lens"] > 0).sum(1).max())
+        n_terms.add(real)
+        if real > 1:
+            # a doc in every term: its orbits hold every term's bit
+            every = batch["group_bits"][0].unique().sum()
+            assert bool((got[2][0] == every).any())
+        else:
+            assert not bool(got[1].any()) and not bool(got[2].any())
+    assert 0 in n_terms and max(n_terms) >= 2
+    torch.cuda.synchronize()
+
+
+def test_merge_special_matches_plain_version(browse):
+    """merge_special on the S (synonym) and X (max) groups' rows against
+    its plain version, twice bit for bit."""
+    _corpus, searcher, qs, _aggs = browse
+    seg = searcher.device_segment.arrays_pytree()
+    seen = set()
+    for cfg, _fn, batch, _chunk in _plans(searcher, qs, "SX"):
+        post, _imp, widths, prefix, params = _inputs(searcher, cfg, batch)
+        ids, w, _ = kernels.score_slices(
+            post, None, batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, prefix, params)
+        args = (ids, w, widths, batch["group_bits"], batch["offsets"],
+                seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
+                cfg.syn_groups, batch.get("syn_tconst"), params)
+        got = _twice(lambda: kernels.merge_special(*args))
+        _close(got, kernels._merge_special_plain(*args))
+        assert bool((got > 0).any())
+        seen.add((bool(cfg.max_specs), bool(cfg.syn_groups)))
+    assert seen == {(True, False), (False, True)}
+    torch.cuda.synchronize()
+
+
+def test_agg_distinct_matches_plain_version(browse):
+    """agg_distinct (the exact count and the 1024 registers) over a dense
+    group's rows for the multi-value size, the price, the category and a
+    slot the segment lacks, with a query without a match among them; and
+    geo_stats through compute_aggs on a column with and without fval2."""
+    corpus, searcher, qs, aggs_ = browse
+    seg = searcher.device_segment.arrays_pytree()
+    values = dict(seg["values"])
+    col, _tg, _tab = sf.sort_test_inputs(corpus.seg.num_docs, 1)
+    values[sf.SORT_TEST_SLOT] = device_segment_from_numpy(col,
+                                                          searcher.device)
+    cfg, _fn, batch, _chunk = _plans(searcher, qs, "M", sort=sf.PRICE_DESC,
+                                     aggs=aggs_)[0]
+    ids, _s, orbits, live = kernels.dense_rows(
+        (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]),
+        batch["offsets"], batch["lens"], batch["tconst"], batch["scoring"],
+        batch["group_bits"], cfg.term_classes(), seg["deleted"],
+        searcher.scheme.kernel_params(searcher.segment))
+    elig, _count = kernels.filter_leaves(
+        values, cfg.filter_slots, cfg.filter_vmax, batch["fparams"], ids,
+        live, orbits, kernels.tree_program(cfg.tree))
+    elig[1] = False            # an empty query
+    for slot in (sf.SIZE_SLOT, sf.PRICE_SLOT, sf.CAT_SLOT,
+                 sf.SORT_TEST_SLOT, None):
+        c = values[slot] if slot is not None else \
+            kernels.absent_column(ids.device)
+        n, regs = _twice(lambda: kernels.agg_distinct(ids, elig, c))
+        pn, pregs = kernels._agg_distinct_plain(ids, elig, c)
+        assert torch.equal(n, pn) and torch.equal(regs, pregs), slot
+        assert int(n[1]) == 0 and not bool(regs[1].any())
+        assert slot is None or int(n[0]) > 0
+    specs = (("geo_stats", sf.SORT_TEST_SLOT), ("geo_stats", sf.PRICE_SLOT),
+             ("geo_stats", 99), ("cardinality", sf.SIZE_SLOT))
+    assert "fval2" not in values[sf.PRICE_SLOT]
+    got = _twice(lambda: aggs.compute_aggs(values, specs, ids, elig))
+    want = aggs.compute_aggs({k: _cpu_col(v) for k, v in values.items()},
+                             specs, ids.cpu(), elig.cpu())
+    for g, w in zip(got, want):
+        for key in w:
+            if key in ("slat", "slon"):
+                np.testing.assert_allclose(_host(g[key]), _host(w[key]),
+                                           rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(_host(g[key]), _host(w[key]))
+    assert not bool(got[1]["slon"].any())     # no fval2: longitude 0
+    torch.cuda.synchronize()
+
+
+def test_browse_search_cuda_equals_cpu(browse):
+    """The browse families end to end, card against CPU: M, N, S, X
+    through BatchSearcher.run, C through SegmentSearcher.execute with its
+    collapse."""
+    from xapiand_tpu_torch.models.weights import CollectionStats
+    from xapiand_tpu_torch.query.plan import bind, compile_ir
+
+    corpus, searcher, qs, aggs_ = browse
+    seg = corpus.seg
+    cpu = SegmentSearcher(seg, device=torch.device("cpu"))
+    kernels.reset_launches()
+    for fams, kw in (("M", {"sort": sf.PRICE_DESC, "aggs": aggs_}),
+                     ("NSX", {})):
+        irs = [q for f, q, _p in qs if f in fams]
+        got = BatchSearcher(searcher, k=10, min_batch=8, **kw).run(irs)
+        want = BatchSearcher(cpu, k=10, min_batch=8, **kw).run(irs)
+        for g, e in zip(got, want):
+            np.testing.assert_array_equal(g["docids"], e["docids"])
+            np.testing.assert_allclose(g["scores"], e["scores"], rtol=1e-6)
+            assert g["count"] == e["count"]
+            if "aggs" in e:
+                _assert_aggs(g["aggs"], e["aggs"])
+    stats = CollectionStats(doc_count=seg.doc_count,
+                            avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+    stats_d = {"N": float(seg.doc_count), "avg_doclen": float(seg.avg_doclen)}
+    for _f, q, p in (x for x in qs if x[0] == "C"):
+        bound = bind(compile_ir(q), seg, searcher.scheme, stats, k=10,
+                     sort=sf.PRICE_DESC if p["sorted"] else (),
+                     collapse_slot=sf.CAT_SLOT,
+                     collapse_max=p["collapse_max"])
+        g, e = searcher.execute(bound, stats_d), cpu.execute(bound, stats_d)
+        np.testing.assert_array_equal(g["docids"], e["docids"])
+        np.testing.assert_allclose(g["scores"], e["scores"], rtol=1e-6)
+        assert int(g["count"]) == int(e["count"])
+    for name in ("collapse_rows", "dense_rows", "merge_special",
+                 "agg_distinct"):
+        assert kernels.launches[name] > 0, name

@@ -10,8 +10,9 @@ JAX counterparts, called on the same numpy inputs.
 (The predicate path, K6-K8 and K11, is held against JAX in
 tests/test_torch_predicate.py.)
 
-Tolerances: lax.sort is unstable (executor.py:774-783), so JAX sums a
-doc's rows in an unspecified order while the port sums in term order:
+Tolerances: lax.sort is stable (executor.py:774-783), so a doc's rows
+stand in term order on both sides; JAX adds them in the association order
+of _merge_runs' segmented scan, the port one after another in term order:
 scores agree to rtol 1e-5, ranks are compared as tie groups, and every
 returned doc is checked against a float64 BM25 oracle. Docids of equal
 float32 scores must ascend. Counts and certificates are equal.
@@ -317,17 +318,18 @@ def test_execute_batch_vs_jax_batched(case):
 # sorts, unweighted, compaction, count-only) run against the JAX executor
 # in tests/test_torch_predicate.py::test_configs_inside_the_slice_run_as_jax
 OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
-    ("dense", {"dense": True}, "K12"), ("join", {"join": True}, "K21"),
+    ("join", {"join": True}, "K21"),
     ("drive", {"drive": 0}, "K21"), ("n_chunks", {"n_chunks": 2}, "K21"),
-    # the fullwidth path (K9) and K17a aggregations are ported: their
-    # cases now carry an aggregation of a later item
+    # the fullwidth path (K9) and the K17a / K17b aggregations are ported:
+    # their cases now carry an aggregation of a later item
     ("fullwidth", {"fullwidth": True, "carry": ((1, ("fval",)),),
-                   "with_aggs": (("cardinality", 1),)}, "K17b"),
-    ("carry", {"carry": ((1, ("hi",)),), "with_aggs": (("geo_stats", 1),)},
-     "K17b"),
-    ("collapse_slot", {"collapse_slot": 1}, "K10"),
-    ("syn_groups", {"syn_groups": (1,)}, "K13"),
-    ("max_specs", {"max_specs": ((1, 2),)}, "K13"),
+                   "with_aggs": (("percentiles", 1, 64),)}, "K17c"),
+    ("carry", {"carry": ((1, ("hi",)),),
+               "with_aggs": (("geo_stats", 1, 2),)}, "K17c"),
+    # synonym groups and max specs are ported (K13): the cases carry more
+    # of them than the kernel's table holds
+    ("syn_groups", {"syn_groups": (1,) * 33}, "K13"),
+    ("max_specs", {"max_specs": ((1, 2),) * 33}, "K13"),
     # phrases are ported (K14): the case carries a cap beyond the kernel's
     ("phrases", {"phrases": (((0, 1), (0, 1), 0, True),),
                  "cand_cap": 8192}, "K14"),
@@ -352,6 +354,31 @@ def test_configs_outside_the_slice_raise(change, item):
     check_supported(cfg, BM25())
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         check_supported(replace(cfg, **change), BM25())
+
+
+# the shapes slice 6 ported: refused before it, admitted now (they run
+# against the JAX executor in tests/test_torch_browse.py)
+INSIDE = [
+    ("dense", {"dense": True, "tree": ("ALL",)}),
+    ("dense_join", {"dense": True, "join": True}),
+    ("collapse_slot", {"collapse_slot": 1, "collapse_max": 3}),
+    ("syn_groups", {"syn_groups": (1,)}),
+    ("max_specs", {"max_specs": ((1, 2),)}),
+    ("cardinality", {"with_aggs": (("cardinality", 1),)}),
+    ("geo_stats", {"carry": ((1, ("hi",)),),
+                   "with_aggs": (("geo_stats", 1),)}),
+]
+
+
+@pytest.mark.parametrize("change", [c[1] for c in INSIDE],
+                         ids=[c[0] for c in INSIDE])
+def test_configs_of_slice_6_are_admitted(change):
+    from dataclasses import replace
+
+    from xapiand_tpu_torch.ops.executor import ExecConfig
+
+    cfg = ExecConfig(T=4, L=256, k=10, tree=("G", 0), classes=(256,) * 4)
+    check_supported(replace(cfg, **change), BM25())
 
 
 def test_other_scheme_raises():

@@ -19,7 +19,7 @@ and the geo parts of test_sort_distance.py.
                          weight) and results
   the tree program       GEO leaves vs _eval_tree
   limits                 plans beyond the kernel's limits raise
-                         NotImplementedError naming K16 (dense: K12)
+                         NotImplementedError naming K16
   config 4's generator   utils/synth_geo.py draws what
                          scripts/config_bench.py draws, builds what the JAX
                          Database indexes (geo column, geo value column, ts
@@ -409,8 +409,8 @@ def test_plans_beyond_the_limits_raise(world):
                  {"geo_specs": ((g[0], g[1], 2 * kernels.MAX_GEO_RMAX),)}):
         with pytest.raises(NotImplementedError, match="K16"):
             check_supported(dataclasses.replace(cfg, **over), BM25())
-    with pytest.raises(NotImplementedError, match="K12"):
-        check_supported(dataclasses.replace(cfg, dense=True), BM25())
+    # the dense path is ported (K12): a dense geo plan is admitted
+    check_supported(dataclasses.replace(cfg, dense=True), BM25())
     ids = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="geobits"):
         kernels.filter_leaves({}, (), (), torch.zeros((1, 0, 4),

@@ -35,6 +35,7 @@ assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
         "xapiand_tpu_torch.utils.dtutils",
         "xapiand_tpu_torch.utils.iputils",
         "xapiand_tpu_torch.utils.synth_geo", "xapiand_tpu_torch.native",
+        "xapiand_tpu_torch.utils.synth_browse",
         "xapiand_tpu_torch.analysis.accuracy",
         "xapiand_tpu_torch.geo.cartesian", "xapiand_tpu_torch.geo.datum",
         "xapiand_tpu_torch.geo.ewkt", "xapiand_tpu_torch.geo.geospatial",
@@ -114,6 +115,21 @@ res = gb.run([q for _f, q, _p in gq])
 want = sg.oracle_answers(gc, gq, rmax)
 assert [r["count"] for r in res] == [w["count"] for w in want]
 assert sum(w["count"] for w in want) > 0
+from xapiand_tpu_torch.models.weights import CollectionStats
+from xapiand_tpu_torch.query.plan import bind, compile_ir
+from xapiand_tpu_torch.utils import synth_browse as sb
+bq = [x for x in sb.browse_queries(2, 2, 2, 2, 4) if x[0] == "C"]
+ss = SegmentSearcher(c.seg, device=torch.device("cpu"))
+st = CollectionStats(doc_count=c.seg.doc_count, avg_doclen=c.seg.avg_doclen,
+                     doclen_lower=1.0)
+res = [ss.execute(bind(compile_ir(q), c.seg, ss.scheme, st, k=10,
+                       sort=sf.PRICE_DESC if p["sorted"] else (),
+                       collapse_slot=sf.CAT_SLOT,
+                       collapse_max=p["collapse_max"]),
+                  {"N": st.doc_count, "avg_doclen": st.avg_doclen})
+       for _f, q, p in bq]
+want = sb.oracle_answers(c, bq)
+assert [int(r["count"]) for r in res] == [w["count"] for w in want]
 import sys
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]
@@ -126,7 +142,8 @@ def test_port_searches_with_the_jax_package_absent(tmp_path):
     one on the path: the port imports all its modules and runs a relevance
     and a value-sorted faceted batch search with config 3's aggregations
     (compile_for_segment to merge_and_shape), config 2's phrase and
-    boolean batch, and config 4's circle AND window batch, plan to
+    boolean batch, config 4's circle AND window batch, and collapsed
+    SegmentSearcher.execute calls of the browse traffic, plan to
     results, without it."""
     pkg = tmp_path / "xapiand_tpu"
     pkg.mkdir()

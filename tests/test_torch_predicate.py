@@ -20,7 +20,8 @@ marked deleted, carried into the port's Segment (its dataclasses are
 pinned copies) and its device arrays through device_segment_from_numpy.
 
 Tolerances: masks, counts, docids, bits and packed-row sets are equal. JAX
-sums a doc's rows in lax.sort's unstable order and the port in term order,
+sums a doc's rows (lax.sort is stable: they stand in term order) in the
+association order of its segmented scan and the port one after another,
 so scores agree to rtol 1e-5 and relevance ranks are compared as tie
 groups. Packed rows are compared as sets: the port packs rows in its own
 (term-grouped) order.

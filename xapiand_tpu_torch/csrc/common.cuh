@@ -110,6 +110,17 @@ __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
     return (int)(st & 1u);
 }
 
+// The slot hash of the open-addressed sets of 64-bit keys (collapse_rows.cu,
+// agg_distinct.cu): murmur3's 64-bit finalizer.
+__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
+    x ^= x >> 33;
+    x *= 0xff51afd7ed558ccdull;
+    x ^= x >> 33;
+    x *= 0xc4ceb9fe1a85ec53ull;
+    x ^= x >> 33;
+    return x;
+}
+
 // (ah, al) >= (bh, bl) and <=, lexicographic on signed int32 pairs
 // (executor.py _lex_ge / _lex_le 144-150). split_key XORs the sign bit of
 // both words, so this order is the order of the u64 sortable keys.

@@ -20,31 +20,74 @@
 // flag); the inserts are rare once a thread's list is full. One block per
 // query leaves SMs idle when B < 132 - a two-pass split over row tiles is
 // later work.
+//
+// After a collapse (collapse_rows.cu) a tie is broken by the row's tie rank
+// first and its docid second, the order lax.top_k finds the collapsed rows
+// in: the same kernel over the 96-bit key (score, ~tie, ~docid), held as a
+// 64-bit and a 32-bit word. The kernel is a template on the key type; the
+// relevance path's instantiation is the one-word key.
 #include "common.cuh"
 
-__device__ __forceinline__ unsigned long long make_key(float s, int d) {
+// the score's bits made monotone, in the high word; never 0 for a real row
+__device__ __forceinline__ unsigned long long score_word(float s) {
     unsigned int u = __float_as_uint(s);
     u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return ((unsigned long long)u << 32) | (unsigned long long)(~(unsigned)d);
+    return (unsigned long long)u << 32;
 }
 
-template <int KMAX>
+// A key type: make(score, docid, tie rank), a strict order lt, eq, the
+// lane exchange shfl, and docid() back out; a zeroed key is "no row".
+struct RowKey {   // (score desc, docid asc)
+    unsigned long long a;
+    __device__ static RowKey make(float s, int d, int) {
+        return {score_word(s) | (unsigned long long)(~(unsigned)d)};
+    }
+    __device__ bool lt(const RowKey& y) const { return a < y.a; }
+    __device__ bool eq(const RowKey& y) const { return a == y.a; }
+    __device__ RowKey shfl(int o) const {
+        return {__shfl_xor_sync(0xffffffffu, a, o)};
+    }
+    __device__ int docid() const { return (int)(~(unsigned)(a & 0xffffffffu)); }
+};
+
+struct TieKey {   // (score desc, tie asc, docid asc)
+    unsigned long long a;   // score (monotone) << 32 | ~tie
+    unsigned int b;         // ~docid
+    __device__ static TieKey make(float s, int d, int tie) {
+        return {score_word(s) | (unsigned long long)(~(unsigned)tie),
+                ~(unsigned)d};
+    }
+    __device__ bool lt(const TieKey& y) const {
+        return a != y.a ? a < y.a : b < y.b;
+    }
+    __device__ bool eq(const TieKey& y) const { return a == y.a && b == y.b; }
+    __device__ TieKey shfl(int o) const {
+        return {__shfl_xor_sync(0xffffffffu, a, o),
+                __shfl_xor_sync(0xffffffffu, b, o)};
+    }
+    __device__ int docid() const { return (int)(~b); }
+};
+
+// tie: the rows' tie ranks (read by TieKey only; nullptr for RowKey)
+template <class Key, int KMAX>
 __global__ void topk_rows_kernel(const float* __restrict__ scores,
                                  const int* __restrict__ ids,
                                  const unsigned char* __restrict__ owner,
-                                 int R, int k, int* __restrict__ out_d,
+                                 const int* __restrict__ tie, int R, int k,
+                                 int* __restrict__ out_d,
                                  float* __restrict__ out_s) {
-    __shared__ unsigned long long warp_best[32];
+    __shared__ Key warp_best[32];
     const int b = blockIdx.x;
     const long long base = (long long)b * R;
-    unsigned long long top[KMAX];
+    Key top[KMAX];
     int n = 0;
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
         if (!owner[base + r]) continue;
-        const unsigned long long key = make_key(scores[base + r], ids[base + r]);
-        if (n == k && key <= top[k - 1]) continue;
+        const Key key = Key::make(scores[base + r], ids[base + r],
+                                  tie ? tie[base + r] : 0);
+        if (n == k && !top[k - 1].lt(key)) continue;
         int i = n < k ? n++ : k - 1;
-        while (i > 0 && top[i - 1] < key) {
+        while (i > 0 && top[i - 1].lt(key)) {
             top[i] = top[i - 1];
             --i;
         }
@@ -53,46 +96,69 @@ __global__ void topk_rows_kernel(const float* __restrict__ scores,
     int head = 0;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = (blockDim.x + 31) >> 5;
+    const Key none = {};
     for (int j = 0; j < k; ++j) {
-        const unsigned long long mine = head < n ? top[head] : 0ull;
-        unsigned long long m = mine;
+        const Key mine = head < n ? top[head] : none;
+        Key m = mine;
         for (int o = 16; o > 0; o >>= 1) {
-            const unsigned long long x = __shfl_xor_sync(0xffffffffu, m, o);
-            m = x > m ? x : m;
+            const Key x = m.shfl(o);
+            if (m.lt(x)) m = x;
         }
         if (lane == 0) warp_best[warp] = m;
         __syncthreads();
-        m = 0ull;
-        for (int q = 0; q < nwarps; ++q) m = warp_best[q] > m ? warp_best[q] : m;
+        m = none;
+        for (int q = 0; q < nwarps; ++q)
+            if (m.lt(warp_best[q])) m = warp_best[q];
         __syncthreads();
-        if (m != 0ull && mine == m) ++head;   // keys are unique
+        // a real key's high word is never 0; owner docids are unique, so
+        // no two rows share a key
+        const bool any = m.a != 0ull;
+        if (any && mine.eq(m)) ++head;
         if (threadIdx.x == 0) {
-            if (m == 0ull) {
+            if (!any) {
                 out_d[b * k + j] = XT_SENTINEL;
                 out_s[b * k + j] = __int_as_float(0xff800000);   // -inf
             } else {
-                const unsigned int hi = (unsigned int)(m >> 32);
+                const unsigned int hi = (unsigned int)(m.a >> 32);
                 const unsigned int bits =
                     (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
-                out_d[b * k + j] = (int)(~(unsigned int)(m & 0xffffffffu));
+                out_d[b * k + j] = m.docid();
                 out_s[b * k + j] = __uint_as_float(bits);
             }
         }
     }
 }
 
-extern "C" int xt_topk_rows(const void* scores, const void* ids,
-                            const void* owner, int B, int R, int k,
-                            void* out_d, void* out_s, void* stream) {
+template <class Key>
+static int launch_topk(const void* scores, const void* ids, const void* owner,
+                       const void* tie, int B, int R, int k, void* out_d,
+                       void* out_s, void* stream) {
     if (B == 0 || k == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     if (k <= 64)
-        topk_rows_kernel<64><<<B, 256, 0, st>>>(
+        topk_rows_kernel<Key, 64><<<B, 256, 0, st>>>(
             (const float*)scores, (const int*)ids,
-            (const unsigned char*)owner, R, k, (int*)out_d, (float*)out_s);
+            (const unsigned char*)owner, (const int*)tie, R, k, (int*)out_d,
+            (float*)out_s);
     else
-        topk_rows_kernel<256><<<B, 256, 0, st>>>(
+        topk_rows_kernel<Key, 256><<<B, 256, 0, st>>>(
             (const float*)scores, (const int*)ids,
-            (const unsigned char*)owner, R, k, (int*)out_d, (float*)out_s);
+            (const unsigned char*)owner, (const int*)tie, R, k, (int*)out_d,
+            (float*)out_s);
     return (int)cudaGetLastError();
+}
+
+extern "C" int xt_topk_rows_tie(const void* scores, const void* ids,
+                                const void* owner, const void* tie, int B,
+                                int R, int k, void* out_d, void* out_s,
+                                void* stream) {
+    return launch_topk<TieKey>(scores, ids, owner, tie, B, R, k, out_d, out_s,
+                               stream);
+}
+
+extern "C" int xt_topk_rows(const void* scores, const void* ids,
+                            const void* owner, int B, int R, int k,
+                            void* out_d, void* out_s, void* stream) {
+    return launch_topk<RowKey>(scores, ids, owner, nullptr, B, R, k, out_d,
+                               out_s, stream);
 }

@@ -1,4 +1,5 @@
-"""On-device aggregations (torch port of ``xapiand_tpu/ops/aggs.py``, K17a).
+"""On-device aggregations (torch port of ``xapiand_tpu/ops/aggs.py``, K17a
+and K17b).
 
 ``compute_aggs`` walks ``ExecConfig.with_aggs`` in order over one launch
 group's rows - the rows the ordering step reads: the compacted rows, or
@@ -14,14 +15,22 @@ structure with a leading query axis on every array:
                                       f32[B, ncats] per sub]}
   ("missing", slot, subs)             {"count": i32[B][, "subs": [... f32
                                       [B, 1] per sub]]}
+  ("cardinality", slot)               {"n", "maxn": i32[B] (the exact
+                                      distinct count, twice), "hll":
+                                      i32[B, 1024]}
+  ("geo_stats", slot)                 {"n", "slat", "slon", "minlat",
+                                      "maxlat", "minlon", "maxlon"} f32[B]
 
 The count and every metric spec share one ``agg_metrics`` launch (up to
 kernels.MAX_AGG_METRICS metrics a launch); each terms or missing spec is
-one ``agg_buckets`` launch. A slot the segment lacks reads as a column
-where no doc has a value (executor.py _get_value_col 313-325).
+one ``agg_buckets`` launch, each cardinality spec one ``agg_distinct``
+launch, and each geo_stats spec one ``agg_metrics`` launch over the
+slot's two channels (fval the latitude, fval2 the longitude, 0 where the
+column has none). A slot the segment lacks reads as a column where no doc
+has a value (executor.py _get_value_col 313-325).
 
 ``check_aggs`` refuses every other kind with NotImplementedError naming
-its ROADMAP item: K17b (cardinality, geo_stats) and K17c (the kinds that
+its ROADMAP item, K17c (the kinds that
 read plan arrays - median, mode, percentiles, histogram, range, filter,
 nested, key_range, geo_ip, geo_trixels, geodist_range, and median/mode
 sub-aggregations - which come with ``Database``: the JAX BatchSearcher
@@ -29,6 +38,8 @@ does not stack those arrays into its batches).
 """
 
 from __future__ import annotations
+
+import torch
 
 from xapiand_tpu_torch.ops import kernels
 
@@ -44,12 +55,12 @@ def _refuse(what: str, item: str):
 
 
 def check_aggs(specs) -> None:
-    """Raise NotImplementedError for an aggregation spec outside K17a."""
+    """Raise NotImplementedError for an aggregation spec outside K17a and
+    K17b."""
     for spec in specs:
         kind = spec[0] if spec else None
-        if kind in ("cardinality", "geo_stats"):
-            _refuse(f"the {kind} aggregation", "K17b")
-        if kind == "count" or (kind in METRIC_KINDS and len(spec) == 2):
+        if kind == "count" or (kind in METRIC_KINDS and len(spec) == 2) \
+                or (kind in ("cardinality", "geo_stats") and len(spec) == 2):
             continue
         if kind not in ("terms", "missing"):
             _refuse(f"the {kind} aggregation", "K17c, with Database")
@@ -128,4 +139,19 @@ def compute_aggs(values: dict, specs, ids, eligible) -> tuple:
             out[i] = {"count": counts[:, 0]}
             if subs:
                 out[i]["subs"] = _shape_subs(stats, len(subs))
+        elif spec[0] == "cardinality":
+            n, regs = kernels.agg_distinct(ids, eligible,
+                                           column(values, spec[1], dev))
+            # maxn is n on the device; it grows when partials merge
+            out[i] = {"n": n, "maxn": n, "hll": regs}
+        elif spec[0] == "geo_stats":
+            col = column(values, spec[1], dev)
+            lon = col["fval2"] if "fval2" in col else \
+                torch.zeros_like(col["fval"])
+            _, n, s, _s2, mn, mx = kernels.agg_metrics(
+                ids, eligible, [(col["fval"], col["present"]),
+                                (lon, col["present"])])
+            out[i] = {"n": n[0], "slat": s[0], "slon": s[1],
+                      "minlat": mn[0], "maxlat": mx[0],
+                      "minlon": mn[1], "maxlon": mx[1]}
     return tuple(out)

@@ -115,15 +115,24 @@ def check_supported(cfg: ExecConfig, scheme):
     if type(scheme) is not BM25:
         raise NotImplementedError(f"not ported yet: weight scheme "
                                   f"{scheme.key()!r} (ROADMAP queue 2, K18)")
+    special = bool(cfg.syn_groups or cfg.max_specs)
+    # a dense plan reads neither drive nor join (execute 643-648)
     checks = (
-        (cfg.dense, "the dense match-all path (ROADMAP queue 2, K12)"),
-        (cfg.join or cfg.drive >= 0 or cfg.n_chunks > 1,
+        ((cfg.join or cfg.drive >= 0 or cfg.n_chunks > 1) and not cfg.dense,
          "join/semijoin/chunked execution (ROADMAP queue 2, K21)"),
         (cfg.emit_sort_keys, "sort keys for the mesh merge (ROADMAP queue "
                              "2, K19)"),
-        (cfg.collapse_slot is not None, "collapse (ROADMAP queue 2, K10)"),
-        (cfg.syn_groups or cfg.max_specs,
-         "OP_SYNONYM / OP_MAX (ROADMAP queue 2, K13)"),
+        (special and not cfg.dense and (
+            len(cfg.syn_groups) > kernels.MAX_SPECIAL
+            or len(cfg.max_specs) > kernels.MAX_SPECIAL
+            or any(len(br) > kernels.MAX_SPECIAL for br in cfg.max_specs)),
+         f"more than {kernels.MAX_SPECIAL} synonym groups, max specs or "
+         "branches of one (ROADMAP queue 2, K13)"),
+        (special and not cfg.dense and any(cfg.prefix),
+         "OP_SYNONYM / OP_MAX in impact-prefix mode (ROADMAP queue 2, K13)"),
+        # the prefix branch of execute_batch orders its candidates itself
+        (cfg.collapse_slot is not None and not cfg.dense and any(cfg.prefix),
+         "a collapse in impact-prefix mode (ROADMAP queue 2, K10)"),
         (len(cfg.geo_specs) > kernels.MAX_GEO,
          f"more than {kernels.MAX_GEO} geo leaves (ROADMAP queue 2, K16)"),
         (any(qr > kernels.MAX_GEO_QR or rm > kernels.MAX_GEO_RMAX
@@ -135,7 +144,7 @@ def check_supported(cfg: ExecConfig, scheme):
         (len(cfg.sort) > kernels.MAX_SORT_KEYS,
          f"more than {kernels.MAX_SORT_KEYS} sort keys (ROADMAP queue 2, "
          "K8)"),
-        ((cfg.sort or cfg.unweighted) and not cfg.count_only
+        ((cfg.sort or cfg.unweighted or cfg.dense) and not cfg.count_only
          and cfg.k > kernels.MAX_SORT_TOPK,
          f"sorted top-k beyond k={kernels.MAX_SORT_TOPK} (ROADMAP queue 2, "
          "K8)"),
@@ -194,6 +203,67 @@ def upper_tree(tree, positive: bool = True):
     return ("ALL",) if positive else ("NONE",)
 
 
+def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
+                   eligible, out: dict, fast: bool = False,
+                   unweighted=None) -> None:
+    """The final ordering (_rank_and_topk 462-574) into out: a collapse
+    first (K10: the survivors stay in place, and a relevance top-k breaks
+    ties by the collapsed position), then the fullwidth window, the
+    multi-key sort, or the relevance top-k."""
+    unweighted = cfg.unweighted if unweighted is None else unweighted
+    tie = None
+    if cfg.collapse_slot is not None:
+        eligible, tie = kernels.collapse_rows(
+            ids, sums, eligible, values.get(cfg.collapse_slot),
+            cfg.collapse_max)
+    if fast and len(cfg.sort) == 1 and not unweighted:
+        out["docids"], out["scores"], out["certified"] = \
+            kernels.fullwidth_topk(cfg.sort[0], ids, sums, eligible, cfg.k,
+                                   values, batch.get("sort_targets"),
+                                   batch.get("sort_strtabs"))
+    elif cfg.sort or unweighted:
+        # the last sort key is the docid (564), so a collapse changes only
+        # which rows are eligible
+        specs = cfg.sort or (("docid", None, False),)
+        out["docids"], out["scores"] = kernels.sort_topk(
+            specs, ids, sums, eligible, cfg.k, values,
+            batch.get("sort_targets"), batch.get("sort_strtabs"))
+    else:
+        out["docids"], out["scores"] = kernels.topk_rows(sums, ids, eligible,
+                                                         cfg.k, tie)
+
+
+def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, params) -> dict:
+    """The dense path for match-all roots (_execute_dense 1237-1308): every
+    doc is a row (dense_rows, K12), then the leaves and the tree over all
+    rows, the aggregations over the matches with the scores as their sums,
+    and the ordering - by docid, with the scores returned, when the plan
+    has no sort. Synonym and max specs are not read here, as in JAX."""
+    B = batch["offsets"].shape[0]
+    values = seg["values"]
+    ids, scores, orbits, live = kernels.dense_rows(
+        (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]),
+        batch["offsets"], batch["lens"], batch["tconst"], batch["scoring"],
+        batch["group_bits"], cfg.term_classes(), seg["deleted"], params)
+    geobits = None
+    if cfg.geo_specs:
+        geobits = kernels.geo_leaves(
+            [seg["geo"][s] for s, _qr, _rm in cfg.geo_specs], cfg.geo_specs,
+            batch["geo_queries"], ids, live)
+    fparams = batch["fparams"] if cfg.n_filters else \
+        ids.new_empty((B, 0, 4))
+    match, count = kernels.filter_leaves(
+        values, cfg.filter_slots, cfg.filter_vmax, fparams, ids, live,
+        orbits, kernels.tree_program(cfg.tree), None, geobits)
+    out = {"count": count}
+    if cfg.with_aggs:
+        out["aggs"] = aggs.compute_aggs(values, cfg.with_aggs, ids, match)
+    if not cfg.count_only:
+        _rank_and_topk(cfg, values, batch, ids, scores, match, out,
+                       unweighted=cfg.unweighted or not cfg.sort)
+    return out
+
+
 def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
                   scheme) -> dict:
     """B queries of one config against one segment.
@@ -202,8 +272,10 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     mode); batch: {offsets i32[B,T], lens i32[B,T], tconst f32[B,T],
     scoring f32[B,T], group_bits i32[B,T], fparams i32[B,F,4] with
     filters, geo_queries [i32[B,QR,2] per geo leaf] with geo leaves,
-    sort_targets f32[B,S,2] and sort_strtabs {si: f32[B,nb]} with a sort}
-    on the same device; stats: {"N", "avg_doclen", ...} numbers.
+    syn_tconst f32[B,NS] with synonym groups, sort_targets f32[B,S,2] and
+    sort_strtabs {si: f32[B,nb]} with a sort} on the same device; stats:
+    {"N", "avg_doclen", ...} numbers (BM25 reads these two; the others are
+    the other schemes', ROADMAP queue 2, K18).
     cfg.phrase_carry is admitted and changes nothing (ops/phrase.py)."""
     check_supported(cfg, scheme)
     if "sort_cat_remap" in batch:
@@ -211,6 +283,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
                                   "(ROADMAP queue 2, K19)")
     params = scheme.kernel_params(CollectionStats(
         doc_count=float(stats["N"]), avg_doclen=float(stats["avg_doclen"])))
+    if cfg.dense:
+        return _execute_dense(seg, batch, cfg, params)
     T = cfg.T
     classes = cfg.term_classes()
     # impact-prefix mode reads the first prefix[t] rows of the impact-
@@ -230,12 +304,27 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     R = ids.shape[1]
     values = seg["values"]
     # the tree over group bits only matters beyond a single group leaf
-    # (executor.py:661-663): ("G", 0) holds on every real row
+    # (executor.py:661-663): ("G", 0) holds on every real row; synonym and
+    # max specs read the bits too
     leaves = cfg.n_filters or cfg.phrases or cfg.geo_specs
-    needs_bits = cfg.tree != ("G", 0) or leaves
+    special = bool(cfg.syn_groups or cfg.max_specs)
+    needs_bits = cfg.tree != ("G", 0) or leaves or special
     bits = batch["group_bits"] if needs_bits else None
     deleted = seg["deleted"] if cfg.has_deletes else None
     cap = cfg.compact_cap if 0 < cfg.compact_cap < R else 0
+
+    def merged(prog, want_orbits=False):
+        """merge_docs, then the OP_MAX / OP_SYNONYM sums (K13) on the same
+        rows, before any compaction moves them (execute 746-812)."""
+        sums, mask, count, orbits = kernels.merge_docs(
+            ids, w, widths, bits, deleted, prog, want_orbits)
+        if special:
+            sums = kernels.merge_special(
+                ids, w, widths, bits, offsets, seg["post_wdf"],
+                seg["post_doclen"], cfg.max_specs, cfg.syn_groups,
+                batch.get("syn_tconst"), params)
+        return sums, mask, count, orbits
+
     # phrase leaves read every owner row: no precompaction (execute
     # 836-837), whatever the plan's cap
     precompact = bool(cap and (cfg.n_filters or cfg.geo_specs)
@@ -248,15 +337,13 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
         if precompact:
             # pack the upper-tree rows, then the leaves at cap width
             # (execute 836-857)
-            sums, mask, _, orbits = kernels.merge_docs(
-                ids, w, widths, bits, deleted,
-                kernels.tree_program(upper_tree(cfg.tree)), want_orbits=True)
+            sums, mask, _, orbits = merged(
+                kernels.tree_program(upper_tree(cfg.tree)), True)
             ids, sums, orbits, _ = kernels.compact_rows(mask, ids, sums,
                                                         orbits, cap)
             mask = None
         else:
-            sums, mask, _, orbits = kernels.merge_docs(
-                ids, w, widths, bits, deleted, None, want_orbits=True)
+            sums, mask, _, orbits = merged(None, True)
         phbits = None
         if cfg.phrases:
             # the phrase step: after the merge (owner rows, deletes,
@@ -276,15 +363,17 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
             values, slots, cfg.filter_vmax, fparams, ids, mask, orbits, prog,
             phbits, geobits)
     else:
-        prog = kernels.tree_program(cfg.tree) if needs_bits else None
-        sums, eligible, count, _ = kernels.merge_docs(ids, w, widths, bits,
-                                                      deleted, prog)
+        prog = kernels.tree_program(cfg.tree) \
+            if cfg.tree != ("G", 0) else None
+        sums, eligible, count, _ = merged(prog)
     fast = fullwidth_fast(cfg, values, ids.shape[1])
-    if cap and not precompact and not fast and (cfg.sort or cfg.with_aggs):
-        # pack the eligible rows before the sort-key and agg-field
-        # gathers (execute 893-911)
+    if cap and not precompact and not fast and \
+            (cfg.sort or cfg.with_aggs or cfg.collapse_slot is not None):
+        # pack the eligible rows before the sort-key, agg-field and
+        # collapse-key gathers (execute 893-911)
         ids, sums, _, _ = kernels.compact_rows(eligible, ids, sums, None, cap)
         eligible = ids != SENTINEL
+    # the count is taken before a collapse (execute 881)
     out = {"count": count}
     if cfg.with_aggs:
         out["aggs"] = aggs.compute_aggs(values, cfg.with_aggs, ids,
@@ -298,17 +387,6 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
             kernels.prefix_certify(post, offsets, lens, tconst, scoring,
                                    classes, tail, cand_d, cand_v, cfg.k,
                                    params)
-    elif fast and len(cfg.sort) == 1 and not cfg.unweighted:
-        out["docids"], out["scores"], out["certified"] = \
-            kernels.fullwidth_topk(cfg.sort[0], ids, sums, eligible, cfg.k,
-                                   values, batch.get("sort_targets"),
-                                   batch.get("sort_strtabs"))
-    elif cfg.sort or cfg.unweighted:
-        specs = cfg.sort or (("docid", None, False),)
-        out["docids"], out["scores"] = kernels.sort_topk(
-            specs, ids, sums, eligible, cfg.k, values,
-            batch.get("sort_targets"), batch.get("sort_strtabs"))
     else:
-        out["docids"], out["scores"] = kernels.topk_rows(sums, ids, eligible,
-                                                         cfg.k)
+        _rank_and_topk(cfg, values, batch, ids, sums, eligible, out, fast)
     return out

@@ -1,7 +1,7 @@
 """The port's device kernels: ctypes-bound CUDA launchers, their plain
 PyTorch versions, and launch counters.
 
-Twelve kernels carry batch search (sources in ``../csrc``; each file's
+Sixteen kernels carry batch search (sources in ``../csrc``; each file's
 header names the TPU function it replaces, what bounds it on the H100 and
 what its design does about that):
 
@@ -26,6 +26,18 @@ what its design does about that):
   geo_leaves      K16    the exact HTM range test of each geo leaf, one
                   +K15   bit a leaf, its two rank counts binary searches
                          over the query's cover (rank_count's)
+
+  collapse_rows   K10    the survivors of a collapse (per key the best
+                         min(collapse_max, 8) rows by score) and each
+                         row's tie rank, which topk_rows then orders by
+  dense_rows      K12    the dense match-all path's rows, one per (query,
+                         doc): scores, group bits and the live mask by
+                         binary search in every term's postings
+  merge_special   K13    the per-doc sums of OP_MAX (best branch) and
+                         OP_SYNONYM (summed wdf scored once) plans
+  agg_distinct    K17b   cardinality: the exact distinct count of value
+                         keys and 1024 HyperLogLog registers (geo_stats,
+                         K17b's other half, is two columns of agg_metrics)
 
 The boolean tree (K6) is compiled on the host into a short postfix
 program (``tree_program``) that merge_docs and filter_leaves evaluate per
@@ -79,6 +91,10 @@ MAX_PMAX = 128            # query/plan.py DEFAULT_PMAX (the positions guard)
 MAX_GEO = 32              # geo_leaves: the verdicts of a row, one word
 MAX_GEO_QR = 1024         # query/plan.py QR_BUCKETS: the cover in 8 KB smem
 MAX_GEO_RMAX = 256        # query/plan.py's RMAX cap
+MAX_COLLAPSE = 8          # _collapse keeps min(collapse_max, 8) rows a key
+MAX_COLLAPSE_ROWS = 2**28  # collapse_rows: slots of the key table fit int32
+MAX_SPECIAL = 32          # merge_special: max specs / branches / synonyms
+HLL_REGS = 1024           # ops/aggs.py _HLL_M (p = 10)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -86,14 +102,18 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("common.cuh", "score_slices.cu", "merge_docs.cu", "topk_rows.cu",
            "prefix_certify.cu", "compact_rows.cu", "filter_leaves.cu",
            "sort_topk.cu", "fullwidth_topk.cu", "agg_metrics.cu",
-           "agg_buckets.cu", "phrase_leaves.cu", "geo_leaves.cu")
+           "agg_buckets.cu", "phrase_leaves.cu", "geo_leaves.cu",
+           "collapse_rows.cu", "dense_rows.cu", "merge_special.cu",
+           "agg_distinct.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 launches = {"score_slices": 0, "merge_docs": 0, "topk_rows": 0,
             "prefix_certify": 0, "compact_rows": 0, "filter_leaves": 0,
             "sort_topk": 0, "fullwidth_topk": 0, "agg_metrics": 0,
-            "agg_buckets": 0, "phrase_leaves": 0, "geo_leaves": 0}
+            "agg_buckets": 0, "phrase_leaves": 0, "geo_leaves": 0,
+            "collapse_rows": 0, "dense_rows": 0, "merge_special": 0,
+            "agg_distinct": 0}
 build_info: dict = {}
 
 _lib = None
@@ -202,6 +222,15 @@ _SIGNATURES = {
     "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "xt_geo_leaves": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "xt_topk_rows_tie": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _P, _LL,
+                         _P, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "xt_dense_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                      _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+    "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
+                         _P, _P, _I, _F, _F, _F, _F, _F, _P, _P],
+    "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _P, _P, _LL, _P, _LL, _P,
+                        _P, _P],
 }
 
 
@@ -270,6 +299,7 @@ def absent_column(device) -> dict:
     _get_value_col 313-325): every read clamps to row 0, where no value is
     present. Cached per device."""
     return {"fval": _ints((0.0,), device, torch.float32),
+            "hi": _ints((0,), device), "lo": _ints((0,), device),
             "present": _ints((False,), device, torch.bool)}
 
 
@@ -533,32 +563,49 @@ def _merge_docs_plain(ids, w, widths, bits=None, deleted=None, prog=None,
 # K4: topk_rows
 # --------------------------------------------------------------------------
 
-def topk_rows(scores, ids, owner, k: int):
-    """Top-k owner rows per query by (score desc, docid asc).
+def topk_rows(scores, ids, owner, k: int, tie=None):
+    """Top-k owner rows per query by (score desc, docid asc); with tie
+    i32[B,R] (collapse_rows' tie ranks, >= 0) by (score desc, tie asc,
+    docid asc).
     -> docids i32[B,k] (SENTINEL past the owner count), scores f32[B,k]
     (-inf there)."""
     B, R = scores.shape
     _check("topk_rows.scores", scores, torch.float32, (B, R))
     _check("topk_rows.ids", ids, torch.int32, (B, R))
     _check("topk_rows.owner", owner, torch.bool, (B, R))
+    opt = []
+    if tie is not None:
+        _check("topk_rows.tie", tie, torch.int32, (B, R))
+        opt.append(tie)
     if not 0 < k <= MAX_TOPK:
         raise ValueError(f"topk_rows: k={k} outside 1..{MAX_TOPK}")
-    if not _on_cuda("topk_rows", scores, ids, owner):
-        return _topk_rows_plain(scores, ids, owner, k)
+    if not _on_cuda("topk_rows", scores, ids, owner, *opt):
+        return _topk_rows_plain(scores, ids, owner, k, tie)
     dev = scores.device
     out_d = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if tie is not None:
+        _launch("topk_rows", "xt_topk_rows_tie", scores.data_ptr(),
+                ids.data_ptr(), owner.data_ptr(), tie.data_ptr(), B, R, k,
+                out_d.data_ptr(), out_s.data_ptr(), _stream())
+        return out_d, out_s
     _launch("topk_rows", "xt_topk_rows", scores.data_ptr(), ids.data_ptr(),
             owner.data_ptr(), B, R, k, out_d.data_ptr(), out_s.data_ptr(),
             _stream())
     return out_d, out_s
 
 
-def _topk_rows_plain(scores, ids, owner, k):
+def _topk_rows_plain(scores, ids, owner, k, tie=None):
     masked = torch.where(owner, scores, float("-inf"))
     d = torch.where(owner, ids, SENTINEL)
     d_sorted, order = torch.sort(d, dim=1, stable=True)
     m_sorted = torch.gather(masked, 1, order)
+    if tie is not None:
+        # stable sorts, least significant key first: docid, tie, score
+        o1 = torch.sort(torch.gather(torch.where(owner, tie, I32MAX), 1,
+                                     order), dim=1, stable=True)[1]
+        d_sorted = torch.gather(d_sorted, 1, o1)
+        m_sorted = torch.gather(m_sorted, 1, o1)
     vals, o2 = torch.sort(m_sorted, dim=1, descending=True, stable=True)
     vals = vals[:, :k].contiguous()
     dd = torch.gather(d_sorted, 1, o2[:, :k])
@@ -1346,3 +1393,384 @@ def _agg_buckets_plain(ids, eligible, mode, codes, nb, subs):
         outs.append(tuple(x.to(torch.float32).view(B, nb)
                           for x in (n, s, s2, mn, mx)))
     return counts, tuple(torch.stack(x) for x in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# K10: collapse_rows
+# --------------------------------------------------------------------------
+
+_COLLAPSE_CH = ("hi", "lo", "present")
+
+
+def _pow2_cover(n: int) -> int:
+    c = 1
+    while c < n:
+        c *= 2
+    return c
+
+
+def collapse_rows(ids, sums, eligible, col, collapse_max: int):
+    """The survivors of a collapse (executor.py _collapse 577-617) and each
+    row's tie rank, without permuting the rows.
+
+    ids i32[B,R], sums f32[B,R], eligible bool[B,R] (eligible rows hold
+    distinct docids); col: the collapse slot's value column {hi, lo i32[n],
+    present bool[n]} read at min(id, n - 1), or None for a slot the
+    segment lacks; collapse_max >= 1, capped at MAX_COLLAPSE as JAX caps it.
+    -> keep bool[B,R]: the row is eligible and either its doc has no value
+       (solo) or fewer than the cap of the eligible rows with its (hi, lo)
+       key precede it by (score desc, docid asc);
+       tie i32[B,R]: the rank of the row's key among the query's distinct
+       keys, (hi, lo) ascending, for an eligible row with a value;
+       INT32_MAX otherwise. Among survivors of equal score the collapsed
+       order is (tie, docid) ascending."""
+    B, R = ids.shape
+    if collapse_max < 1:
+        raise ValueError(f"collapse_rows: collapse_max {collapse_max}")
+    cmax = min(int(collapse_max), MAX_COLLAPSE)
+    _check("collapse_rows.ids", ids, torch.int32, (B, R))
+    _check("collapse_rows.sums", sums, torch.float32, (B, R))
+    _check("collapse_rows.eligible", eligible, torch.bool, (B, R))
+    if col is None:
+        # a slot the segment lacks: no doc has a value, every row is solo
+        col = absent_column(ids.device)
+    n = col["hi"].shape[0]
+    for ch in _COLLAPSE_CH:
+        _check(f"collapse_rows.{ch}", col[ch],
+               torch.bool if ch == "present" else torch.int32, (n,))
+    if not _on_cuda("collapse_rows", ids, sums, eligible,
+                    *(col[ch] for ch in _COLLAPSE_CH)):
+        return _collapse_rows_plain(ids, sums, eligible, col, cmax)
+    if R > MAX_COLLAPSE_ROWS:
+        raise ValueError(f"collapse_rows: {R} rows a query exceed "
+                         f"{MAX_COLLAPSE_ROWS} (the key table's slots are "
+                         "int32)")
+    dev = ids.device
+    cap = _pow2_cover(2 * max(R, 1))
+    lcap = _pow2_cover(max(R, 1))
+    table = torch.empty((3, B, cap + 1), dtype=torch.int64, device=dev)
+    slot = torch.empty((B, R), dtype=torch.int32, device=dev)
+    lst = torch.empty((B, lcap), dtype=torch.int64, device=dev)
+    nkeys = torch.empty(B, dtype=torch.int32, device=dev)
+    keep = torch.empty((B, R), dtype=torch.bool, device=dev)
+    tie = torch.empty((B, R), dtype=torch.int32, device=dev)
+    _launch("collapse_rows", "xt_collapse_rows", ids.data_ptr(),
+            sums.data_ptr(), eligible.data_ptr(), B, R, col["hi"].data_ptr(),
+            col["lo"].data_ptr(), col["present"].data_ptr(), n, cmax,
+            table[0].data_ptr(), cap, table[1].data_ptr(),
+            table[2].data_ptr(), slot.data_ptr(), lst.data_ptr(), lcap,
+            nkeys.data_ptr(), keep.data_ptr(), tie.data_ptr(), _stream())
+    return keep, tie
+
+
+def _collapse_rows_plain(ids, sums, eligible, col, cmax):
+    """_collapse as the JAX package runs it: one stable sort by (solo
+    flag, key hi, key lo or docid, -score) - with the docid as the last
+    key, the order its docid-ascending rows enter in - then the rank within
+    each run of equal keys, scattered back to the rows."""
+    B, R = ids.shape
+    dev = ids.device
+    d = ids.clamp(max=col["hi"].shape[0] - 1).long()
+    kh, kl, present = col["hi"][d], col["lo"][d], col["present"][d]
+    grouped = present & eligible
+    keys = [(~grouped).long(), _ikey(torch.where(grouped, kh, 0)),
+            _ikey(torch.where(grouped, kl, ids)), _fkey(-sums), _ikey(ids)]
+    order = _lex_order(keys)
+    og, o1, o2 = (torch.gather(x, 1, order) for x in keys[:3])
+    head = torch.ones((B, R), dtype=torch.bool, device=dev)
+    head[:, 1:] = (og[:, 1:] != og[:, :-1]) | (o1[:, 1:] != o1[:, :-1]) | \
+        (o2[:, 1:] != o2[:, :-1])
+    pos = torch.arange(R, device=dev).expand(B, R)
+    start = torch.cummax(torch.where(head, pos, 0), 1)[0]
+    keep_s = ((pos - start) < cmax) | (og > 0)
+    rank_s = (torch.cumsum(head.long(), 1) - 1).to(torch.int32)
+    keep = torch.zeros_like(eligible).scatter_(1, order, keep_s) & eligible
+    rank = torch.zeros_like(ids).scatter_(1, order, rank_s)
+    return keep, torch.where(grouped, rank, I32MAX)
+
+
+# --------------------------------------------------------------------------
+# K12: dense_rows
+# --------------------------------------------------------------------------
+
+def dense_rows(post, offsets, lens, tconst, scoring, bits, classes, deleted,
+               params):
+    """The rows of the dense match-all path (executor.py _execute_dense
+    1242-1280): one per (query, doc) over all ND+1 docs.
+
+    post: (docids i32[P], wdf f32[P], doclen f32[P]); offsets / lens /
+    bits i32[B,T], tconst / scoring f32[B,T]; classes[t]: the rows of term
+    t's slice, of which the first min(lens, classes[t]) count (a plan
+    without terms has every lens 0); deleted bool[ND+1], the last doc the
+    pad doc; params = BM25.kernel_params.
+    -> ids i32[B,ND+1] (the row index), scores f32[B,ND+1] (the doc's
+       weights added in term order; the pad doc 0), orbits i32[B,ND+1]
+       (the OR of the group bits of the terms holding the doc), live
+       bool[B,ND+1] (not deleted and not the pad doc, the same for every
+       query: the base mask of the kernels that follow)."""
+    B, T = offsets.shape
+    classes = tuple(int(c) for c in classes)
+    if len(classes) != T:
+        raise ValueError(f"dense_rows: {T} terms, classes {classes}")
+    for name, t, dt in (("offsets", offsets, torch.int32),
+                        ("lens", lens, torch.int32),
+                        ("bits", bits, torch.int32),
+                        ("tconst", tconst, torch.float32),
+                        ("scoring", scoring, torch.float32)):
+        _check(f"dense_rows.{name}", t, dt, (B, T))
+    for t, dt in zip(post, (torch.int32, torch.float32, torch.float32)):
+        _check("dense_rows.postings", t, dt)
+    _check("dense_rows.deleted", deleted, torch.bool)
+    nd1 = deleted.shape[0]
+    if not _on_cuda("dense_rows", offsets, lens, tconst, scoring, bits,
+                    deleted, *post):
+        return _dense_rows_plain(post, offsets, lens, tconst, scoring, bits,
+                                 classes, deleted, params)
+    dev = offsets.device
+    ids = torch.empty((B, nd1), dtype=torch.int32, device=dev)
+    scores = torch.empty((B, nd1), dtype=torch.float32, device=dev)
+    orbits = torch.empty((B, nd1), dtype=torch.int32, device=dev)
+    live = torch.empty((B, nd1), dtype=torch.bool, device=dev)
+    _launch("dense_rows", "xt_dense_rows", post[0].data_ptr(),
+            post[1].data_ptr(), post[2].data_ptr(), post[0].shape[0],
+            offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
+            scoring.data_ptr(), bits.data_ptr(),
+            _ints(classes, dev).data_ptr(), B, T, deleted.data_ptr(), nd1,
+            *params, ids.data_ptr(), scores.data_ptr(), orbits.data_ptr(),
+            live.data_ptr(), _stream())
+    return ids, scores, orbits, live
+
+
+def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
+                      deleted, params):
+    """_execute_dense's scatters: per term the slice's docids (the pad doc
+    past lens) scatter the weight into the scores and the group bit into
+    the masks; each term holds a doc once, so the adds of one doc follow
+    term order."""
+    B, T = offsets.shape
+    dev = offsets.device
+    nd1 = deleted.shape[0]
+    n = post[0].shape[0]
+    scores = torch.zeros((B, nd1), dtype=torch.float32, device=dev)
+    orbits = torch.zeros((B, nd1), dtype=torch.int32, device=dev)
+    for t in range(T):
+        W = classes[t]
+        start = offsets[:, t].long().clamp(max=n - W).clamp(min=0)
+        idx = start[:, None] + torch.arange(W, device=dev)
+        inl = torch.arange(W, device=dev)[None, :] < lens[:, t:t + 1]
+        d = torch.where(inl, post[0][idx], nd1 - 1).long()
+        w = bm25_sumpart(post[1][idx], post[2][idx], tconst[:, t:t + 1],
+                         params) * scoring[:, t:t + 1]
+        scores.scatter_add_(1, d, torch.where(inl, w, 0.0))
+        hit = torch.zeros_like(orbits).scatter_reduce_(
+            1, d, inl.to(torch.int32), "amax")
+        orbits |= hit * bits[:, t:t + 1]
+    scores[:, nd1 - 1] = 0.0
+    orbits[:, nd1 - 1] = 0
+    live = ~deleted
+    live[nd1 - 1] = False
+    ids = torch.arange(nd1, dtype=torch.int32, device=dev)
+    return (ids.expand(B, nd1).contiguous(), scores, orbits,
+            live.expand(B, nd1).contiguous())
+
+
+# --------------------------------------------------------------------------
+# K13: merge_special
+# --------------------------------------------------------------------------
+
+def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
+                  max_specs, syn_groups, syn_tconst, params):
+    """The per-doc sums of a plan with OP_MAX or OP_SYNONYM (executor.py
+    execute 746-756, 787-812), on merge_docs' rows.
+
+    ids i32[B,R] / w f32[B,R]: score_slices' rows (no prefix block);
+    widths per term; bits / offsets i32[B,T]; post_wdf / post_doclen
+    f32[P]; max_specs: ExecConfig.max_specs (per spec its branch masks
+    over group bits); syn_groups: ExecConfig.syn_groups (one mask each);
+    syn_tconst f32[B,NS], NS >= len(syn_groups) (None without synonyms);
+    params = BM25.kernel_params.
+    -> sums f32[B,R], on every real row of a doc, 0 on SENTINEL rows: the
+       doc's weights in term order without the terms of any branch mask;
+       plus per max spec the maximum over its branches of the branch
+       terms' weights, summed in term order; plus per synonym group, where
+       the doc's summed wdf over the group's terms is > 0, sumpart(that
+       sum, the doc's length or 1 where it is 0, syn_tconst[b, i])."""
+    widths = tuple(int(x) for x in widths)
+    B, R = ids.shape
+    T = len(widths)
+    max_specs = tuple(tuple(int(m) for m in br) for br in max_specs)
+    syn_groups = tuple(int(m) for m in syn_groups)
+    if len(max_specs) > MAX_SPECIAL or len(syn_groups) > MAX_SPECIAL or \
+            any(len(br) > MAX_SPECIAL for br in max_specs):
+        raise ValueError(f"merge_special: more than {MAX_SPECIAL} max "
+                         "specs, branches or synonym groups")
+    _check("merge_special.ids", ids, torch.int32, (B, sum(widths)))
+    _check("merge_special.w", w, torch.float32, (B, R))
+    _check("merge_special.bits", bits, torch.int32, (B, T))
+    _check("merge_special.offsets", offsets, torch.int32, (B, T))
+    _check("merge_special.post_wdf", post_wdf, torch.float32)
+    _check("merge_special.post_doclen", post_doclen, torch.float32,
+           post_wdf.shape)
+    opt = []
+    NS = 0
+    if syn_groups:
+        if syn_tconst is None or syn_tconst.dim() != 2 or \
+                syn_tconst.shape[1] < len(syn_groups):
+            raise ValueError("merge_special: synonym groups need syn_tconst "
+                             f"f32[B, >= {len(syn_groups)}]")
+        NS = syn_tconst.shape[1]
+        _check("merge_special.syn_tconst", syn_tconst, torch.float32,
+               (B, NS))
+        opt.append(syn_tconst)
+    if not _on_cuda("merge_special", ids, w, bits, offsets, post_wdf,
+                    post_doclen, *opt):
+        return _merge_special_plain(ids, w, widths, bits, offsets, post_wdf,
+                                    post_doclen, max_specs, syn_groups,
+                                    syn_tconst, params)
+    dev = ids.device
+    spec = [len(max_specs)]
+    for br in max_specs:
+        spec += [len(br), *(_i32(m) for m in br)]
+    spec += [len(syn_groups), *(_i32(m) for m in syn_groups)]
+    sums = torch.empty((B, R), dtype=torch.float32, device=dev)
+    _launch("merge_special", "xt_merge_special", ids.data_ptr(),
+            w.data_ptr(), _ints(widths, dev).data_ptr(),
+            _ints(row_offsets(widths), dev).data_ptr(), B, T, R,
+            bits.data_ptr(), offsets.data_ptr(), post_wdf.data_ptr(),
+            post_doclen.data_ptr(), post_wdf.shape[0],
+            _ints(tuple(spec), dev).data_ptr(), _ptr(syn_tconst if syn_groups
+                                                     else None), NS,
+            *params, sums.data_ptr(), _stream())
+    return sums
+
+
+def _i32(m: int) -> int:
+    """A group-bit mask as the int32 that holds its bits (bit 31 set:
+    negative)."""
+    m &= 0xFFFFFFFF
+    return m - 2**32 if m >= 2**31 else m
+
+
+def _merge_special_plain(ids, w, widths, bits, offsets, post_wdf,
+                         post_doclen, max_specs, syn_groups, syn_tconst,
+                         params):
+    B, R = ids.shape
+    dev = ids.device
+    ro = row_offsets(widths)
+    n = post_wdf.shape[0]
+    real = ids != SENTINEL
+    wt, wdft, dl_parts = [], [], []
+    for u, W in enumerate(widths):
+        blk = ids[:, ro[u]:ro[u + 1]].contiguous()
+        pos = torch.searchsorted(blk, ids).clamp(max=W - 1)
+        hit = real & (torch.gather(blk, 1, pos) == ids)
+        start = offsets[:, u].long().clamp(max=n - W).clamp(min=0)
+        wt.append(torch.where(
+            hit, torch.gather(w[:, ro[u]:ro[u + 1]], 1, pos), 0.0))
+        wdft.append(torch.where(hit, post_wdf[start[:, None] + pos], 0.0))
+        dl_parts.append(post_doclen[start[:, None] +
+                                    torch.arange(W, device=dev)])
+    excl = 0
+    for br in max_specs:
+        for m in br:
+            excl |= m
+
+    def masked_sum(parts, mask, invert=False):
+        s = torch.zeros((B, R), dtype=torch.float32, device=dev)
+        for u in range(len(widths)):
+            on = (bits[:, u:u + 1] & _i32(mask)) != 0
+            s = s + torch.where(on != invert, parts[u], 0.0)
+        return s
+
+    sums = masked_sum(wt, excl, invert=True)
+    for br in max_specs:
+        best = None
+        for m in br:
+            bs = masked_sum(wt, m)
+            best = bs if best is None else torch.maximum(best, bs)
+        if best is not None:
+            sums = sums + best
+    if syn_groups:
+        dl = torch.cat(dl_parts, 1)
+        dl = torch.where(dl > 0, dl, 1.0)
+        for i, m in enumerate(syn_groups):
+            ssum = masked_sum(wdft, m)
+            sw = bm25_sumpart(ssum, dl, syn_tconst[:, i:i + 1], params)
+            sums = sums + torch.where(ssum > 0, sw, 0.0)
+    return torch.where(real, sums, 0.0)
+
+
+# --------------------------------------------------------------------------
+# K17b: agg_distinct (cardinality)
+# --------------------------------------------------------------------------
+
+def agg_distinct(ids, eligible, col):
+    """The cardinality aggregation of one value column over a launch
+    group's rows (ops/aggs.py compute_aggs 424-472).
+
+    ids i32[B,R], eligible bool[B,R]; col: {hi, lo i32[n], present
+    bool[n]}, read at min(id, n - 1) (the column's one key a doc: the
+    smallest value of a multi-value doc); a row counts where it is
+    eligible and its doc has the value.
+    -> n i32[B]: the distinct (hi, lo) keys among those rows, the key
+       (INT32_MAX, INT32_MAX) left out as JAX leaves it out; regs
+       i32[B,1024]: the HyperLogLog registers (p = 10) of _hash32 of the
+       keys, 0 where no row fell."""
+    B, R = ids.shape
+    _check("agg_distinct.ids", ids, torch.int32, (B, R))
+    _check("agg_distinct.eligible", eligible, torch.bool, (B, R))
+    n = col["hi"].shape[0]
+    for ch in _COLLAPSE_CH:
+        _check(f"agg_distinct.{ch}", col[ch],
+               torch.bool if ch == "present" else torch.int32, (n,))
+    if not _on_cuda("agg_distinct", ids, eligible,
+                    *(col[ch] for ch in _COLLAPSE_CH)):
+        return _agg_distinct_plain(ids, eligible, col)
+    dev = ids.device
+    cap = _pow2_cover(2 * max(R, 1))
+    table = torch.empty((B, cap), dtype=torch.int64, device=dev)
+    count = torch.empty(B, dtype=torch.int32, device=dev)
+    regs = torch.empty((B, HLL_REGS), dtype=torch.int32, device=dev)
+    _launch("agg_distinct", "xt_agg_distinct", ids.data_ptr(),
+            eligible.data_ptr(), B, R, _split(B, R), col["hi"].data_ptr(),
+            col["lo"].data_ptr(), col["present"].data_ptr(), n,
+            table.data_ptr(), cap, count.data_ptr(), regs.data_ptr(),
+            _stream())
+    return count, regs
+
+
+def hash32(hi, lo):
+    """_hash32 (ops/aggs.py 40-49) of int32 tensors: murmur3 fmix32 of
+    hi ^ lo * 0x9E3779B9 in uint32 arithmetic, as int64 in [0, 2**32)."""
+    M = 0xFFFFFFFF
+    h = (hi.long() & M) ^ (((lo.long() & M) * 0x9E3779B9) & M)
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & M
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & M
+    return h ^ (h >> 16)
+
+
+def _agg_distinct_plain(ids, eligible, col):
+    B, R = ids.shape
+    d = ids.clamp(max=col["hi"].shape[0] - 1).long()
+    m = eligible & col["present"][d]
+    kh, kl = col["hi"][d], col["lo"][d]
+    h = torch.where(m, kh, I32MAX)
+    lo = torch.where(m, kl, I32MAX)
+    key = torch.sort(h.long() * 2**32 + _ikey(lo), dim=1)[0]
+    head = torch.ones_like(m)
+    head[:, 1:] = key[:, 1:] != key[:, :-1]
+    valid = key != I32MAX * 2**32 + I32MAX + 2**31
+    exact = (head & valid).sum(1, dtype=torch.int32)
+    hh = hash32(kh, kl)
+    idx = hh >> 22
+    rest = (hh << 10) & 0xFFFFFFFF
+    # clz of a uint32: 32 - bit length; log2 of an int64 < 2**32 is exact
+    # in float64
+    clz = 31 - torch.floor(torch.log2(rest.clamp(min=1).double())).long()
+    rho = torch.where(rest == 0, 23, clz + 1)
+    rho = torch.where(m, rho, 0).to(torch.int32)
+    regs = torch.zeros((B, HLL_REGS), dtype=torch.int32, device=ids.device)
+    regs.scatter_reduce_(1, idx, rho, "amax")
+    return exact, regs

@@ -26,7 +26,9 @@ from xapiand_tpu_torch.ops.executor import (ExecConfig, check_supported,
 from xapiand_tpu_torch.ops.kernels import MAX_PREFIX_ROWS
 
 _BATCH_KEYS = ("offsets", "lens", "tconst", "scoring", "group_bits",
-               "fparams")
+               "fparams", "syn_tconst")
+# stacked at their own length, not padded to T (xapiand_tpu/search.py:353)
+_OWN_LENGTH = ("fparams", "syn_tconst")
 
 
 class SegmentSearcher:
@@ -62,6 +64,39 @@ class SegmentSearcher:
 
         return run
 
+    def execute(self, bound, stats: dict,
+                scheme: Optional[WeightScheme] = None) -> dict:
+        """One bound plan (query/plan.py bind) against the segment: the
+        single-query entry point, and the only one that collapses
+        (``bind(collapse_slot=...)``). stats: {"N", "avg_doclen",
+        "doclen_lower", "doclen_upper", "total_len"}, of which BM25 reads
+        the first two. -> numpy arrays without a query axis: docids i32[k],
+        scores f32[k], count i32[()] (taken before a collapse), aggs with
+        aggregations, certified bool[()] where the plan certifies.
+
+        ``bound.cfg.carry`` is admitted: the port reads value channels by
+        docid, so nothing is uploaded for it."""
+        scheme = scheme or self.scheme
+        cfg, arrays = bound.cfg, bound.arrays
+        check_supported(cfg, scheme)
+        dev = self.device
+
+        def up(a):
+            return torch.from_numpy(np.asarray(a)[None]).to(dev)
+
+        batch = {key: up(arrays[key]) for key in _BATCH_KEYS
+                 if key in arrays}
+        if "geo_queries" in arrays:
+            batch["geo_queries"] = [up(q) for q in arrays["geo_queries"]]
+        if "sort_targets" in arrays:
+            batch["sort_targets"] = up(arrays["sort_targets"])
+        if "sort_strtabs" in arrays:
+            batch["sort_strtabs"] = {si: up(t) for si, t in
+                                     arrays["sort_strtabs"].items()}
+        out = execute_batch(self.device_segment.arrays_pytree(), batch, cfg,
+                            stats, scheme)
+        return _tree_map(lambda a: a[0].cpu().numpy(), out)
+
 
 class BatchSearcher:
     """Shape-bucketed batch execution over one segment (see the JAX
@@ -80,8 +115,8 @@ class BatchSearcher:
     package routes small batches to are not ported yet (ROADMAP queue 1).
     The host path is exact too, so results are the same either way.
     Not ported: docid-range chunking (``chunk_rows`` must be 0, K21), and
-    the aggregation kinds of K17b / K17c (ops/aggs.py check_aggs), which
-    raise here at once.
+    the aggregation kinds of K17c (ops/aggs.py check_aggs), which raise
+    here at once.
     """
 
     def __init__(self, searcher: SegmentSearcher, k: int = 10,
@@ -252,7 +287,7 @@ class BatchSearcher:
                     key: torch.from_numpy(np.stack([
                         np.pad(bounds[i].arrays[key],
                                _pad_spec(bounds[i].arrays[key],
-                                         T if key != "fparams" else
+                                         T if key not in _OWN_LENGTH else
                                          bounds[i].arrays[key].shape[0]))
                         for i in chunk])).to(dev)
                     for key in _BATCH_KEYS if key in b0

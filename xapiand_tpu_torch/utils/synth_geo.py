@@ -66,6 +66,10 @@ first RMAX ranges overlaps one of the query's cover ranges (HTM cover
 semantics, GeoSpatialRange::insideRanges). It also holds config_bench's
 haversine bounds (300-341) on every answer: every doc truly inside the
 circle matches, and nothing further out than the radius plus 15 km does.
+With ``aggs=True`` it also answers ``GEO_AGGS`` (the bounding box of the
+matched points, ``_geo_bounds`` of loc, and how many distinct hours they
+fall on, ``_cardinality`` of ts; ``SCHEMA`` names the two fields for
+``aggregations.compile_for_segment``) over each query's matches.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ import random
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -87,6 +92,7 @@ from xapiand_tpu_torch.models.segment import (GeoColumn, Segment, TermInfo,
 from xapiand_tpu_torch.query.ir import Q
 from xapiand_tpu_torch.utils import dtutils
 from xapiand_tpu_torch.utils import serialise as ser
+from xapiand_tpu_torch.utils.synth_browse import hll_registers
 
 N_WORDS, BODY_LEN, ZIPF_S = 2000, 12, 1.07
 # the JAX schema's slots and prefixes for the fields loc, ts
@@ -99,6 +105,23 @@ GEO_LEVELS = accuracy.DEF_ACC_GEO    # the schema's default accuracies
 DATE_UNITS = accuracy.DEF_ACC_DATE
 HAVERSINE_SLACK_M = 15_000           # config_bench's boundary allowance
 _I32MAX = 2**31 - 1
+# the aggregation run over the T queries: the bounding box of the matched
+# points and how many distinct hours they fall on
+GEO_AGGS = {"bounds": {"_geo_bounds": {"_field": "loc"}},
+            "hours": {"_cardinality": {"_field": "ts"}}}
+
+
+class GeoSchema:
+    """The corpus's fields, as far as ``aggregations.compile_for_segment``
+    reads a schema: ``get_field(name).slot``."""
+
+    SLOTS = {"loc": LOC_SLOT, "ts": TS_SLOT}
+
+    def get_field(self, name: str) -> SimpleNamespace:
+        return SimpleNamespace(slot=self.SLOTS[name])
+
+
+SCHEMA = GeoSchema()
 
 
 @dataclass
@@ -414,12 +437,16 @@ def haversine_m(lat1, lon1, lat2, lon2):
 
 
 def oracle_answers(corpus: GeoCorpus, queries: list, rmax: int,
-                   k: int = 10) -> list:
+                   k: int = 10, aggs: bool = False) -> list:
     """Per query {"count", "docids": the first k matches ascending,
     "inside", "near": how many live docs in the window lie inside the
     circle and inside radius + 15 km, "bounds_ok": every inside doc
     matches and every match is near}. rmax: the plan's RMAX (a doc is
-    tested on its first rmax ranges)."""
+    tested on its first rmax ranges). With aggs, also "aggs": GEO_AGGS over
+    the matches - "n", the float32 "minlat" / "maxlat" / "minlon" /
+    "maxlon" of the docs' centroids (+inf / -inf when nothing matched),
+    the float64 sums "slat" / "slon", "ts_distinct" the number of distinct
+    timestamps and "hll" their 1024 HyperLogLog registers."""
     seg = corpus.seg
     g = seg.geo[LOC_SLOT]
     N = seg.num_docs
@@ -464,4 +491,17 @@ def oracle_answers(corpus: GeoCorpus, queries: list, rmax: int,
         out.append({"count": int(len(match)), "docids": match[:k].tolist(),
                     "inside": int(len(inside)), "near": int(len(near)),
                     "bounds_ok": ok})
+        if aggs:
+            loc, tcol = seg.values[LOC_SLOT], seg.values[TS_SLOT]
+            lat32, lon32 = loc.fval[match], loc.fval2[match]
+            out[-1]["aggs"] = {
+                "n": len(match),
+                "minlat": lat32.min(initial=np.inf),
+                "maxlat": lat32.max(initial=-np.inf),
+                "minlon": lon32.min(initial=np.inf),
+                "maxlon": lon32.max(initial=-np.inf),
+                "slat": float(corpus.lat[match].sum()),
+                "slon": float(corpus.lon[match].sum()),
+                "ts_distinct": len(np.unique(corpus.ts_key[match])),
+                "hll": hll_registers(tcol.hi[match], tcol.lo[match])}
     return out
