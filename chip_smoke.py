@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its five main paths.
+"""Smoke test of the torch port on one CUDA card: its six main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -65,6 +65,32 @@ score_slices, merge_docs, filter_leaves, sort_topk, topk_rows (with the
 collapse's tie ranks), agg_metrics, agg_buckets. Every one of them is held
 against its plain version inside a run of the path itself, at every launch
 it gets (``Held``), twice bit for bit.
+
+Schemes path - every weight scheme of the JAX package (K18) through the
+serving paths, over the relevance path's corpus (its docs' distinct terms
+and its terms' summed wdf set before the upload: the statistics the other
+schemes read, BM25 none) and the faceted path's corpus and device
+segments, with real stats (utils/synth_schemes.py real_stats:
+doclen_upper the longest doc, total_len the collection's length): the 20
+configurations of utils/synth_schemes.py (the 15 other schemes at their
+defaults, LM's four other smoothings, BM25) each over 64 of bench.py's
+ORs (the draw continued past its 1,024: 1,280 queries) through
+BatchSearcher(prefix_cap=8192, k=10) - BM25 and BM25Plus in impact-prefix
+mode with its exact re-runs, the others on the exact path - and the
+catalogue, 32 N (dense; its right side scores nothing), 32 D (dense and
+scored: AND_MAYBE(match_all, OR(w, w)) on N's words, ranked by docid as
+JAX ranks a dense plan without a sort, its scores held to the oracle, and
+dense_rows must return nonzero scores), 32 S (synonym), 32 X (OP_MAX)
+queries of utils/synth_browse.py (seed 13) through BatchSearcher.run and
+32 relevance C calls of SegmentSearcher.execute with their collapse, under
+TfIdf, PL2, DiceCoeff and LM absolute discount, and C alone under every
+configuration
+that scored nothing on the relevance ORs. score_slices, prefix_certify,
+dense_rows and merge_special are held against their plain versions at
+every launch (``Held``), bit for bit (max abs err 0.0), twice; every answer
+is held to utils/synth_schemes.py's float64 oracle at each scheme's
+derived tolerance (counts exact, an impact-prefix answer's count the docs
+of the rows it read); every scheme but Bool returns a nonzero score.
 
 The geo path ends with an aggregation run: the 256 T queries again through
 a BatchSearcher with ``_geo_bounds`` of loc and ``_cardinality`` of ts
@@ -147,6 +173,7 @@ POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
 GEO_DOCS, GEO_P, GEO_T = 1_000_000, 1024, 256
 BROWSE_M, BROWSE_N, BROWSE_S, BROWSE_X, BROWSE_C = 256, 128, 256, 256, 128
 MAX_BATCH, PREFIX_CAP = 256, 8192
+SCHEME_RELEVANCE, SCHEME_CATALOGUE = 64, 32   # queries a scheme
 ORACLE_RTOL = 1e-5        # float32 device sums vs the float64 oracle
 KERNEL_RTOL = 1e-6        # kernel vs plain version: same float32 op order
 AGG_RTOL = 1e-5           # aggregation sums: float32, another add order
@@ -242,6 +269,22 @@ def check_close(name, a, b):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} "
                              f"(scale {scale}, rtol {KERNEL_RTOL})")
     return err
+
+
+def max_ulps(got, want):
+    """The largest distance in float32 ulps between the float outputs of
+    a kernel and its plain version."""
+    import torch
+
+    ulps = 0
+    for x, y in zip(leaves(got), leaves(want)):
+        if x.dtype == torch.float32 and x.shape == y.shape and x.numel():
+            ix = x.view(torch.int32).long()
+            iy = y.view(torch.int32).long()
+            ix = torch.where(ix < 0, -2**31 - ix, ix)
+            iy = torch.where(iy < 0, -2**31 - iy, iy)
+            ulps = max(ulps, int((ix - iy).abs().max()))
+    return ulps
 
 
 def check_equal(name, a, b):
@@ -353,12 +396,23 @@ def log2c(n):
     return max(int(n) - 1, 1).bit_length()
 
 
-def work_score_slices(lens, widths, B, R):
+# float operations per posting of each scheme's formula (a logarithm
+# counted as one), models/weights.py S_* order
+SCHEME_OPS = (9, 11, 1, 6, 0, 1, 5, 8, 9, 33, 18, 32, 22, 21, 12, 10, 9, 11,
+              12)
+
+
+def work_score_slices(lens, widths, B, R, spec=None, C=1, n_uniq=0):
+    """score_slices: each in-length posting read once (12 bytes), its
+    doc's uniqterms where the scheme reads them (n_uniq: the column's rows
+    at most), the rows written, the per-term words read (C constants)."""
     import torch
 
     w = torch.tensor(widths, device=lens.device)
     n = int(torch.minimum(lens, w[None, :]).sum())
-    return 12 * n + 8 * B * R + 4 * lens.numel(), 9 * n
+    ops = SCHEME_OPS[spec.sid] if spec is not None else 9
+    return (12 * n + 8 * B * R + 4 * lens.numel() * C +
+            4 * min(n, n_uniq), ops * n)
 
 
 def work_merge_docs(ids, widths, deleted, orbits):
@@ -429,7 +483,7 @@ def slices(searcher, cfg, batch, stats_d, rec):
     from xapiand_tpu_torch.ops import kernels as kn
 
     seg = searcher.device_segment.arrays_pytree()
-    params = searcher.scheme.kernel_params(CollectionStats(
+    params = searcher.scheme.kernel_spec(CollectionStats(
         doc_count=stats_d["N"], avg_doclen=stats_d["avg_doclen"]))
     prefix = cfg.prefix or (0,) * cfg.T
     pflags = tuple(bool(p) for p in prefix)
@@ -512,9 +566,7 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
         rec.note("prefix_certify",
                  check_close("prefix_certify scores", cs, pcs),
                  cuda_ms(k4), cuda_ms(p4),
-                 (8 * B * kk + 12 * B * (kk - 1) * cfg.T
-                  + 9 * B * min(cfg.k, kk - 1),
-                  B * (kk - 1) * sum(log2c(c) for c in classes)))
+                 work_certify(B, kk, cfg.T, classes, cfg.k))
     rec.flush(f"{shape_name} B={ids.shape[0]} R={R}")
 
 
@@ -946,7 +998,9 @@ def held_dense(a):
 
     from xapiand_tpu_torch.ops import kernels as kn
 
-    post, offsets, lens, tconst, scoring, _bits, classes, deleted, params = a
+    post, offsets, lens, tconst, scoring, _bits, classes, deleted, spec = \
+        a[:9]
+    uniq = a[9] if len(a) > 9 else None
     B, T = offsets.shape
     nd1 = deleted.shape[0]
 
@@ -961,15 +1015,22 @@ def held_dense(a):
         weights and docids made beforehand)."""
         d, w, _tail = kn._score_slices_plain(
             post, None, offsets, lens, tconst, scoring, classes,
-            (False,) * T, params)
+            (False,) * T, spec, uniq)
         d = d.clamp(max=nd1 - 1).long()
         return cuda_ms(lambda: torch.zeros(
             (B, nd1), dtype=torch.float32, device=d.device).scatter_add_(
                 1, d, w), reps=3)
 
+    def work():
+        nbytes, ops = work_dense(lens, tuple(classes), B, nd1)
+        C = tconst.shape[2] if tconst.dim() == 3 else 1
+        return (nbytes + 4 * (C - 1) * B * T +
+                (4 * nd1 if uniq is not None else 0),
+                ops + (SCHEME_OPS[spec.sid] - 9) * int(lens.sum()))
+
     return (lambda: kn._dense_rows_plain(*a), check,
-            f"B={B} R={nd1} T={T} classes={tuple(classes)}",
-            lambda: work_dense(lens, tuple(classes), B, nd1),
+            f"B={B} R={nd1} T={T} classes={tuple(classes)} "
+            f"scored={bool(scoring.any())}", work,
             library if T else None)
 
 
@@ -981,10 +1042,17 @@ def held_special(a):
     def check(got, want):
         return check_close("merge_special sums", got, want)
 
+    uniq = a[11] if len(a) > 11 else None
+
+    def work():
+        nbytes, ops = work_special(ids, widths, max_specs, syn_groups)
+        if syn_groups and uniq is not None:
+            nbytes += 4 * min(n_true(ids != 2**31 - 1), uniq.shape[0])
+        return nbytes, ops
+
     return (lambda: kn._merge_special_plain(*a), check,
             f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
-            f"max_specs={max_specs} syn_groups={syn_groups}",
-            lambda: work_special(ids, widths, max_specs, syn_groups), None)
+            f"max_specs={max_specs} syn_groups={syn_groups}", work, None)
 
 
 def held_distinct(a):
@@ -1045,10 +1113,13 @@ def held_topk(a):
 def held_slices(a):
     from xapiand_tpu_torch.ops import kernels as kn
 
-    post, imp, offsets, lens, tconst, scoring, widths, is_prefix, params = a
+    post, imp, offsets, lens, tconst, scoring, widths, is_prefix, spec = \
+        a[:9]
+    uniq = a[9] if len(a) > 9 else None
     widths = tuple(int(w) for w in widths)
     pflags = tuple(bool(p) for p in is_prefix)
     B, R = offsets.shape[0], sum(widths)
+    C = tconst.shape[2] if tconst.dim() == 3 else 1
 
     def check(got, want):
         check_equal("score_slices ids", got[0], want[0])
@@ -1056,9 +1127,41 @@ def held_slices(a):
                    check_close("score_slices tail", got[2], want[2]))
 
     return (lambda: kn._score_slices_plain(post, imp, offsets, lens, tconst,
-                                           scoring, widths, pflags, params),
+                                           scoring, widths, pflags, spec,
+                                           uniq),
             check, f"B={B} R={R} T={len(widths)}",
-            lambda: work_score_slices(lens, widths, B, R), None)
+            lambda: work_score_slices(lens, widths, B, R, spec, C,
+                                      uniq.shape[0] if uniq is not None
+                                      else 0), None)
+
+
+def work_certify(B, kk, T, classes, k):
+    """prefix_certify: the candidates read, one posting probe of 12 bytes
+    per candidate and term, the certified top k written; a binary search
+    per candidate and term."""
+    return (8 * B * kk + 12 * B * (kk - 1) * T + 9 * B * min(k, kk - 1),
+            B * (kk - 1) * sum(log2c(c) for c in classes))
+
+
+def held_certify(a):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    post, offsets, lens, tconst, scoring, classes, tail, cand_d, cand_v, \
+        k, spec = a[:11]
+    uniq = a[11] if len(a) > 11 else None
+    classes = tuple(int(c) for c in classes)
+    B, kk = cand_d.shape
+    kout = min(k, kk - 1)
+
+    def check(got, want):
+        check_equal("prefix_certify docids", got[0], want[0])
+        check_equal("prefix_certify certified", got[2], want[2])
+        return check_close("prefix_certify scores", got[1], want[1])
+
+    return (lambda: kn._prefix_certify_plain(
+        post, offsets, lens, tconst, scoring, classes, tail, cand_d, cand_v,
+        kout, spec, uniq), check, f"B={B} K={kk - 1} T={len(classes)}",
+        lambda: work_certify(B, kk, len(classes), classes, k), None)
 
 
 def held_merge(a):
@@ -1210,7 +1313,7 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_metrics": held_metrics, "score_slices": held_slices,
         "merge_docs": held_merge, "compact_rows": held_compact,
         "filter_leaves": held_filter, "geo_leaves": held_geo,
-        "agg_buckets": held_buckets}
+        "agg_buckets": held_buckets, "prefix_certify": held_certify}
 
 
 class Held:
@@ -1220,11 +1323,15 @@ class Held:
     the same), compared, and - the first time a shape is seen - timed
     beside the plain version, its bound and its library yardstick. The
     call then returns the kernel's result, so the run goes on as the port
-    runs it. ``calls`` counts the calls held, per kernel."""
+    runs it. ``calls`` counts the calls held, per kernel, and ``nonzero``
+    the nonzero floats the kernel returned over them."""
 
-    def __init__(self, rec, tag, names):
-        self.rec, self.tag = rec, tag
+    def __init__(self, rec, tag, names, exact=False):
+        """exact: every float the kernel returns must be the plain
+        version's, bit for bit (max abs err 0.0)."""
+        self.rec, self.tag, self.exact = rec, tag, exact
         self.calls = {n: 0 for n in names}
+        self.nonzero = {n: 0 for n in names}
         self.timed: set = set()
         self.saved: dict = {}
 
@@ -1246,8 +1353,16 @@ class Held:
         def held(*args):
             plain, check, key, work, library = HELD[name](args)
             got = twice(name, lambda: kernel(*args))
-            err = check(got, plain())
+            want = plain()
+            err = check(got, want)
+            if self.exact and err != 0.0:
+                raise AssertionError(
+                    f"{name} {self.tag}: kernel vs plain max abs err {err}, "
+                    f"{max_ulps(got, want)} ulps at most")
             self.calls[name] += 1
+            self.nonzero[name] += sum(int(x.count_nonzero())
+                                      for x in leaves(got)
+                                      if x.is_floating_point())
             if (name, key) in self.timed:
                 self.rec.worst(name, err)
             else:
@@ -1489,8 +1604,224 @@ def browse_path(dev, rec, smi, corpus, searcher) -> dict:
     return counts
 
 
-def relevance_path(dev, rec, smi) -> dict:
-    """Slice 1: BM25 top-10 over three-term ORs, bench.py's corpus."""
+SCHEME_KERNELS = ("score_slices", "prefix_certify", "dense_rows",
+                  "merge_special")
+
+
+def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
+    """Slice 7: every weight scheme (K18) through the serving paths, on the
+    relevance path's corpus and the faceted path's corpus and device
+    segments. -> the launch counts of its counted runs."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.query.ir import Q
+    from xapiand_tpu_torch.query.plan import bind, compile_ir
+    from xapiand_tpu_torch.search import BatchSearcher
+    from xapiand_tpu_torch.utils import synth_browse as sb
+    from xapiand_tpu_torch.utils import synth_faceted as sf
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    seg, searcher, drawn = rel_world
+    st = ss.real_stats(seg)
+    uniq = seg.uniqterms
+    log(f"[plan] schemes: relevance stats {st}; uniqterms min/median/max "
+        f"{uniq[:-1].min()}/{float(np.median(uniq[:-1]))}/{uniq[:-1].max()}")
+    counts = {n: 0 for n in kn.launches}
+    nonzero: dict = {}
+
+    def add_counts():
+        for n, c in kn.launches.items():
+            counts[n] += c
+
+    # 1. relevance: 64 of bench.py's ORs a configuration
+    t_rel = time.time()
+    oracle_s = 0.0
+    for i, config in enumerate(ss.SCHEME_CONFIGS):
+        label = config[0]
+        scheme = ss.make(config)
+        qs = drawn[SCHEME_RELEVANCE * i:SCHEME_RELEVANCE * (i + 1)]
+        irs = [Q.or_terms(q) for q in qs]
+        bs = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH,
+                           prefix_cap=PREFIX_CAP, scheme=scheme)
+        planned = bs.plan(irs, stats=st)
+        prefix = {}
+        for cfg, _fn, _b, chunk in planned:
+            for qi in chunk:
+                prefix[qi] = cfg.prefix
+        names = ("score_slices", "prefix_certify") if any(
+            c.prefix for c, *_x in planned) else ("score_slices",)
+        with Held(rec, f"schemes {label}", names, exact=True) as held:
+            bs.run(irs, stats=st)
+        torch.cuda.synchronize()
+        if not all(held.calls.values()):
+            raise AssertionError(f"schemes {label}: {held.calls}")
+        kn.reset_launches()
+        results = bs.run(irs, stats=st)
+        torch.cuda.synchronize()
+        add_counts()
+        if not all(kn.launches[n] for n in names):
+            raise AssertionError(f"schemes {label} launches {kn.launches}")
+        t0 = time.time()
+        want = ss.relevance_answers(seg, qs, scheme, st, uniq)
+        imp = seg.impact_arrays(scheme, st)[0] if "prefix_certify" in names \
+            else None
+        bad = []
+        for qi, (r, w) in enumerate(zip(results, want)):
+            n = None
+            if imp is not None and qi not in bs.reran and any(prefix[qi]):
+                n = ss.prefix_count(seg, imp, qs[qi], prefix[qi])
+            err = ss.match_ranked(r["docids"], r["scores"], r["count"], w,
+                                  K, n)
+            if err:
+                bad.append((qi, err))
+        oracle_s += time.time() - t0
+        nonzero[label] = sum(int((r["scores"][r["docids"] != kn.SENTINEL]
+                                  != 0).sum()) for r in results)
+        shapes = [(bool(c.prefix), int(g["offsets"].shape[0]))
+                  for c, _f, g, _h in planned]
+        log(f"[parity] schemes relevance {label}: {len(qs) - len(bad)}/"
+            f"{len(qs)} match the float64 oracle (counts exact, scores "
+            f"within {ss.ERR_ULPS} ulps of each posting's error scale, "
+            f"ranks as tie groups at that tolerance); groups (prefix, B) "
+            f"{shapes}; {len(bs.reran)} re-ran exactly; {nonzero[label]} "
+            f"nonzero scores returned")
+        timed_runs([(bs, irs)], st, len(irs), smi,
+                   f"schemes relevance {label}", profiled=False)
+        if bad:
+            qi, err = bad[0]
+            raise AssertionError(f"schemes relevance {label}: {len(bad)} "
+                                 f"queries differ; first {qi} {qs[qi]}: "
+                                 f"{err}")
+    log(f"[time] schemes relevance: {time.time() - t_rel:.1f} s, oracle "
+        f"{oracle_s:.1f} s")
+
+    # 2. the catalogue: N and D (dense), S (synonym), X (OP_MAX) through
+    # BatchSearcher.run and relevance C through SegmentSearcher.execute
+    t_cat = time.time()
+    fseg = corpus.seg
+    fst = ss.real_stats(fseg)
+    fuq = fseg.uniqterms
+    qs = [q for q in sb.browse_queries(0, SCHEME_CATALOGUE,
+                                       SCHEME_CATALOGUE, SCHEME_CATALOGUE,
+                                       2 * SCHEME_CATALOGUE, seed=13)
+          if not q[2].get("sorted")]
+    # N's right side does not score, so its dense_rows weights are all 0;
+    # D scores N's words on every doc: AND_MAYBE(match_all, OR(w, w))
+    qs += [("D", Q.and_maybe(Q.match_all(),
+                             Q.or_terms([f"w{i}" for i in p["w"]])), p)
+           for f, _q, p in qs if f == "N"]
+    batch_i = [i for i, q in enumerate(qs) if q[0] in "NDSX"]
+    exec_i = [i for i, q in enumerate(qs) if q[0] == "C"]
+    stats_d = ss.stats_dict(fst)
+    # the configurations that scored nothing on bench.py's ORs (their
+    # formulas need a term of a large collection share) run C as well
+    zero = [c for c in ss.SCHEME_CONFIGS if not nonzero[c[0]] and
+            c[0] != "bool"]
+    log(f"[plan] schemes catalogue: {len(qs)} queries "
+        f"{ {f: sum(1 for q in qs if q[0] == f) for f in 'NDSXC'} }; "
+        f"schemes {[c[0] for c in ss.CATALOGUE_SCHEMES]}, and C alone "
+        f"under {[c[0] for c in zero]} (no nonzero score on the relevance "
+        f"ORs)")
+
+    def gtf(t):
+        ti = fseg.get_term(t)
+        return ti.length if ti else 0
+
+    for config in ss.CATALOGUE_SCHEMES + tuple(zero):
+        label = config[0]
+        scheme = ss.make(config)
+        only_c = config not in ss.CATALOGUE_SCHEMES
+        bs = BatchSearcher(fac_searcher, k=K, max_batch=MAX_BATCH,
+                           scheme=scheme)
+        b_irs = [] if only_c else [qs[i][1] for i in batch_i]
+        bounds = [bind(compile_ir(qs[i][1], cost_fn=gtf), fseg, scheme, fst,
+                       global_tf=gtf, k=K, collapse_slot=sf.CAT_SLOT,
+                       collapse_max=qs[i][2]["collapse_max"])
+                  for i in exec_i]
+
+        def run():
+            out = bs.run(b_irs, stats=fst) if b_irs else []
+            return out + [fac_searcher.execute(b, stats_d, scheme=scheme)
+                          for b in bounds]
+
+        names = ("score_slices",) if only_c else \
+            ("score_slices", "dense_rows", "merge_special")
+        t0 = time.time()
+        with Held(rec, f"schemes catalogue {label}", names,
+                  exact=True) as held:
+            run()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        if not all(held.calls.values()) or \
+                not (only_c or held.nonzero["dense_rows"]):
+            raise AssertionError(f"schemes catalogue {label}: {held.calls}"
+                                 f" held, nonzero floats {held.nonzero}")
+        kn.reset_launches()
+        results = run()
+        torch.cuda.synchronize()
+        add_counts()
+        if not all(kn.launches[n] for n in names):
+            raise AssertionError(f"schemes catalogue {label} launches "
+                                 f"{kn.launches}")
+        t2 = time.time()
+        idx = exec_i if only_c else batch_i + exec_i
+        want = ss.catalogue_answers(corpus, [qs[i] for i in idx], scheme,
+                                    fst, fuq)
+        bad = []
+        for i, r, w in zip(idx, results, want):
+            fam, _q, p = qs[i]
+            if fam == "N":
+                real = r["docids"] != kn.SENTINEL
+                err = None if (r["count"] == w["count"] and
+                               r["docids"][real].tolist() ==
+                               w["docids"][:K].tolist() and
+                               not r["scores"][real].any()) else "N differs"
+            elif fam == "D":
+                err = ss.match_docid_order(r["docids"], r["scores"],
+                                           r["count"], w, K)
+            elif fam == "C":
+                err = ss.match_collapsed(
+                    r["docids"], r["scores"], int(r["count"]), w,
+                    corpus.cat_codes, min(p["collapse_max"], 8), K)
+            else:
+                err = ss.match_ranked(r["docids"], r["scores"], r["count"],
+                                      w, K)
+            if err:
+                bad.append((i, err))
+        nz = sum(int((r["scores"][r["docids"] != kn.SENTINEL] != 0).sum())
+                 for r in results)
+        nonzero[label] = nonzero.get(label, 0) + nz
+        log(f"[parity] schemes catalogue {label}: {len(idx) - len(bad)}/"
+            f"{len(idx)} match the float64 oracle (N and D the first docids"
+            f" ascending, D's scores within tolerance, S and X tie groups, C "
+            f"at most collapse_max a category; counts exact); {held.calls} "
+            f"launches held, nonzero floats out {held.nonzero}; {nz} nonzero "
+            f"scores returned; held "
+            f"run {t1 - t0:.1f} s, counted run {t2 - t1:.1f} s, oracle "
+            f"{time.time() - t2:.1f} s")
+        if bad:
+            i, err = bad[0]
+            raise AssertionError(f"schemes catalogue {label}: {len(bad)} "
+                                 f"differ; first {i} {qs[i][0]} {qs[i][2]}: "
+                                 f"{err}")
+    log(f"[time] schemes catalogue: {time.time() - t_cat:.1f} s")
+    empty = [lb for lb, n in nonzero.items() if not n and lb != "bool"]
+    if empty or nonzero["bool"]:
+        raise AssertionError(f"schemes with no nonzero score: {empty}; "
+                             f"bool {nonzero['bool']}")
+    log(f"[main] schemes launches {counts}; nonzero scores by scheme "
+        f"{nonzero}")
+    if not all(counts[n] for n in SCHEME_KERNELS):
+        raise AssertionError(f"a schemes kernel never launched: {counts}")
+    return counts
+
+
+def relevance_path(dev, rec, smi) -> tuple:
+    """Slice 1: BM25 top-10 over three-term ORs, bench.py's corpus. ->
+    (launch counts, (the segment, its SegmentSearcher, the drawn queries):
+    the schemes path runs over them)."""
     import numpy as np
     import torch
 
@@ -1499,16 +1830,23 @@ def relevance_path(dev, rec, smi) -> dict:
     from xapiand_tpu_torch.ops import kernels as kn
     from xapiand_tpu_torch.query.ir import Q
     from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
+    from xapiand_tpu_torch.utils import synth_schemes as ss
     from xapiand_tpu_torch.utils.synth import (build_synthetic_segment,
                                                sample_queries)
 
-    # corpus and plan: bench.py:125-157
+    # corpus and plan: bench.py:125-157; the schemes path's queries
+    # continue bench.py's draw (the first N_QUERIES are bench.py's)
     t0 = time.time()
     seg = build_synthetic_segment(N_DOCS, VOCAB, seed=7)
-    queries = sample_queries(seg, N_QUERIES, TERMS, seed=11)
-    queries = [sorted(q, key=lambda t: -seg.terms[t].length)
-               for q in queries]
+    drawn = sample_queries(seg, max(N_QUERIES, SCHEME_RELEVANCE *
+                                    len(ss.SCHEME_CONFIGS)), TERMS, seed=11)
+    drawn = [sorted(q, key=lambda t: -seg.terms[t].length) for q in drawn]
+    queries = drawn[:N_QUERIES]
     irs = [Q.or_terms(q) for q in queries]
+    # the statistics the other schemes read, as a deployment has them (BM25
+    # reads none of them): each doc's distinct terms, each term's summed wdf
+    seg.uniqterms = ss.uniqterms(seg)
+    ss.real_collfreq(seg)
     log(f"[corpus] relevance: {N_DOCS} docs, {len(seg.post_docids)} "
         f"posting rows, {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1573,8 +1911,8 @@ def relevance_path(dev, rec, smi) -> dict:
         if not (np.isfinite(r["scores"]) | (r["docids"] == kn.SENTINEL)).all():
             raise AssertionError("non-finite score on a real docid")
     timed_runs([(bs, irs)], stats, N_QUERIES, smi, "relevance")
-    del searcher, bs, planned, seg
-    return counts
+    del bs, planned
+    return counts, (seg, searcher, drawn)
 
 
 def faceted_path(dev, rec, smi) -> tuple:
@@ -1591,11 +1929,14 @@ def faceted_path(dev, rec, smi) -> tuple:
     from xapiand_tpu_torch.ops import kernels as kn
     from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
     from xapiand_tpu_torch.utils import synth_faceted as sf
+    from xapiand_tpu_torch.utils import synth_schemes as ss
 
     os.environ["XT_FULLWIDTH"] = "1"
     t0 = time.time()
     corpus = sf.build_faceted_corpus(FACETED_DOCS, seed=7)
     seg = corpus.seg
+    # each doc's distinct terms, for the schemes path (BM25 reads none)
+    seg.uniqterms = ss.uniqterms(seg)
     log(f"[corpus] faceted: {FACETED_DOCS} docs, fingerprint "
         f"{sf.fingerprint(corpus)}, {time.time() - t0:.1f} s")
     qs = sf.faceted_queries(FACETED_PER_FAMILY, seed=11)
@@ -2109,7 +2450,7 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
             (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]), None,
             batch["offsets"], batch["lens"], batch["tconst"],
             batch["scoring"], widths, (0,) * cfg.T,
-            searcher.scheme.kernel_params(CollectionStats(
+            searcher.scheme.kernel_spec(CollectionStats(
                 doc_count=stats_d["N"], avg_doclen=stats_d["avg_doclen"])))
     B, R = ids.shape
     deleted = seg["deleted"] if cfg.has_deletes else None
@@ -2413,7 +2754,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rec = Recorder()
     t0 = time.time()
-    rel = relevance_path(dev, rec, smi)
+    rel, rel_world = relevance_path(dev, rec, smi)
     torch.cuda.empty_cache()
     log(f"[time] relevance path {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -2422,9 +2763,13 @@ def main() -> int:
     log(f"[time] faceted path {time.time() - t0:.1f} s")
     t0 = time.time()
     bro = browse_path(dev, rec, smi, corpus, searcher)
-    del corpus, searcher
     torch.cuda.empty_cache()
     log(f"[time] browse path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sch = schemes_path(dev, rec, smi, rel_world, corpus, searcher)
+    del corpus, searcher, rel_world
+    torch.cuda.empty_cache()
+    log(f"[time] schemes path {time.time() - t0:.1f} s")
     t0 = time.time()
     pos = positional_path(dev, rec, smi)
     torch.cuda.empty_cache()
@@ -2438,7 +2783,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         rec.record(name, sum(c.get(name, 0)
-                             for c in (rel, fac, bro, pos, geo)))
+                             for c in (rel, fac, bro, sch, pos, geo)))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,8 @@ import torch
 from xapiand_tpu import aggregations as jagg
 from xapiand_tpu.database import Database
 from xapiand_tpu_torch import aggregations as pagg
-from xapiand_tpu_torch.models.segment import Segment, TermInfo, ValueColumn
+from xapiand_tpu_torch.models.segment import (Segment, ValueColumn,
+                                              terms_from)
 from xapiand_tpu_torch.search import BatchSearcher, SegmentSearcher
 
 
@@ -44,8 +45,7 @@ def world():
     db.commit()
     jseg = db._searchers[0].segment
     pseg = _fields(jseg, Segment,
-                   terms={t: TermInfo(*raw)
-                          for t, raw in jseg.terms.raw_items()},
+                   terms=terms_from(jseg.terms),
                    values={s: _fields(c, ValueColumn)
                            for s, c in jseg.values.items()})
     return db.schema, jseg, pseg

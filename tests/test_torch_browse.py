@@ -44,8 +44,9 @@ from xapiand_tpu.models.weights import CollectionStats as JStats
 from xapiand_tpu.query.ir import Q as JQ
 from xapiand_tpu.search import BatchSearcher as JBatch
 from xapiand_tpu.search import SegmentSearcher as JSearcher
-from xapiand_tpu_torch.models.segment import (Segment, TermInfo, ValueColumn,
-                                              device_segment_from_numpy)
+from xapiand_tpu_torch.models.segment import (Segment, ValueColumn,
+                                              device_segment_from_numpy,
+                                              terms_from)
 from xapiand_tpu_torch.models.weights import BM25, CollectionStats
 from xapiand_tpu_torch.ops import aggs as paggs
 from xapiand_tpu_torch.ops import kernels
@@ -107,7 +108,7 @@ class World:
         self.jseg = jseg
         self.pseg = _fields(
             jseg, Segment,
-            terms={t: TermInfo(*raw) for t, raw in jseg.terms.raw_items()},
+            terms=terms_from(jseg.terms),
             values={s: _fields(c, ValueColumn)
                     for s, c in jseg.values.items()})
         self.js = JSearcher(jseg, JBM25())

@@ -16,8 +16,11 @@ with its phrase, NEAR and boolean traffic, and config 4's geotagged corpus
 (utils/synth_geo.py) with its circle AND window traffic, and the browse
 traffic of utils/synth_browse.py over the faceted corpus (dense, synonym,
 max and collapse plans, the cardinality and geo_stats aggregations) with
-hand-made collapse rows for the edge shapes. Phrase and geo
-verdicts and candidate counts must be equal. Tolerances: the kernels evaluate the same float32
+hand-made collapse rows for the edge shapes, and every weight scheme (K18)
+over the relevance corpus with real collection frequencies, uniqterms and
+stats and over the browse groups. Phrase and geo
+verdicts and candidate counts must be equal; under the other schemes
+every kernel output must be equal bit for bit. Tolerances: the kernels evaluate the same float32
 expressions in the same order as the plain versions (nvcc -fmad=false),
 so docids, masks, bits, packed rows, counts and certificates must be equal
 and floats agree to rtol 1e-6; the aggregation sums (s, s2) add in
@@ -76,7 +79,7 @@ def _inputs(searcher, cfg, batch):
     post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
     imp = (seg["imp.docids"], seg["imp.wdf"], seg["imp.doclen"]) \
         if "imp.docids" in seg else None
-    params = searcher.scheme.kernel_params(searcher.segment)
+    params = searcher.scheme.kernel_spec(searcher.segment)
     return post, imp, widths, prefix, params
 
 
@@ -616,7 +619,7 @@ def test_dense_rows_matches_plain_version(browse):
     _corpus, searcher, qs, aggs_ = browse
     seg = searcher.device_segment.arrays_pytree()
     post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
-    params = searcher.scheme.kernel_params(searcher.segment)
+    params = searcher.scheme.kernel_spec(searcher.segment)
     n_terms = set()
     for cfg, _fn, batch, _chunk in \
             _plans(searcher, qs, "M", sort=sf.PRICE_DESC, aggs=aggs_) + \
@@ -683,7 +686,7 @@ def test_agg_distinct_matches_plain_version(browse):
         (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]),
         batch["offsets"], batch["lens"], batch["tconst"], batch["scoring"],
         batch["group_bits"], cfg.term_classes(), seg["deleted"],
-        searcher.scheme.kernel_params(searcher.segment))
+        searcher.scheme.kernel_spec(searcher.segment))
     elig, _count = kernels.filter_leaves(
         values, cfg.filter_slots, cfg.filter_vmax, batch["fparams"], ids,
         live, orbits, kernels.tree_program(cfg.tree))
@@ -751,3 +754,160 @@ def test_browse_search_cuda_equals_cpu(browse):
     for name in ("collapse_rows", "dense_rows", "merge_special",
                  "agg_distinct"):
         assert kernels.launches[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K18: every weight scheme through score_slices, prefix_certify, dense_rows
+# and merge_special, bit for bit
+# ---------------------------------------------------------------------------
+
+def _scheme_ids():
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    return [c[0] for c in ss.SCHEME_CONFIGS]
+
+
+@pytest.fixture(scope="module")
+def scheme_world(cuda):
+    """The relevance corpus with real collection frequencies, uniqterms and
+    stats, its ORs and four with a frequent term."""
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    seg = build_synthetic_segment(20000, 2000, seed=3)
+    ss.real_collfreq(seg)
+    seg.uniqterms = ss.uniqterms(seg)
+    qs = sample_queries(seg, 60, 3, seed=5)
+    qs += [[f"t{i}", *q[:2]] for i, q in enumerate(qs[:4])]
+    return SegmentSearcher(seg, device=cuda), qs, ss.real_stats(seg)
+
+
+def _config(label):
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    return ss.make(dict((c[0], c) for c in ss.SCHEME_CONFIGS)[label])
+
+
+@pytest.mark.parametrize("label", _scheme_ids())
+def test_scheme_slices_and_certify_match_plain_versions(scheme_world, label):
+    """score_slices under every scheme (tconst [B, T, C], uniqterms where
+    read), and prefix_certify under BM25 and BM25Plus (prefix mode),
+    equal to their plain versions bit for bit, twice."""
+    searcher, qs, st = scheme_world
+    scheme = _config(label)
+    seg = searcher.device_segment
+    spec = scheme.kernel_spec(st)
+    uniq = seg.arrays["uniqterms"] if spec.needs_uniq else None
+    irs = [Q.or_terms(q) for q in qs]
+    n_prefix = nonzero = 0
+    for cap in (0, 512):
+        bs = BatchSearcher(searcher, k=10, prefix_cap=cap, scheme=scheme)
+        for cfg, _fn, batch, _chunk in bs.plan(irs, stats=st):
+            post, imp, widths, prefix, _p = _inputs(searcher, cfg, batch)
+            args = (batch["offsets"], batch["lens"], batch["tconst"],
+                    batch["scoring"])
+            assert batch["tconst"].dim() == (2 if scheme.n_constants == 1
+                                             else 3)
+            got = _twice(lambda: kernels.score_slices(
+                post, imp, *args, widths, prefix, spec, uniq))
+            want = kernels._score_slices_plain(
+                post, imp, *args, widths, tuple(map(bool, prefix)), spec,
+                uniq)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            nonzero += int((got[1] != 0).sum())
+            if cfg.verify_k:
+                n_prefix += 1
+                ids, w, tail = got
+                sums, owner, _c, _o = kernels.merge_docs(ids, w, widths)
+                d, s = kernels.topk_rows(sums, ids, owner, cfg.verify_k + 1)
+                res = _twice(lambda: kernels.prefix_certify(
+                    post, *args, cfg.term_classes(), tail, d, s, cfg.k,
+                    spec))
+                pres = kernels._prefix_certify_plain(
+                    post, *args, cfg.term_classes(), tail, d, s, cfg.k, spec)
+                for g, w in zip(res, pres):
+                    assert torch.equal(g, w)
+    assert (n_prefix > 0) == (label in ("bm25", "bm25plus"))
+    assert (nonzero > 0) == (label != "bool")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("label", ["tfidf", "pl2", "dicecoeff",
+                                   "lm-absolute_discount", "bb2", "dph"])
+def test_scheme_dense_and_special_match_plain_versions(browse, label):
+    """dense_rows on the N groups and on scored dense groups (D:
+    AND_MAYBE(match_all, OR(w, w)) on N's words; N's right side scores
+    nothing) and merge_special on the S and X groups under a scheme, with
+    the corpus' uniqterms, bit for bit, twice; D's scores are not all 0."""
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    corpus, searcher, qs, _aggs = browse
+    qs = qs + [("D", Q.and_maybe(Q.match_all(),
+                                 Q.or_terms([f"w{i}" for i in p["w"]])), p)
+               for f, _q, p in qs if f == "N"]
+    scheme = _config(label)
+    st = ss.real_stats(corpus.seg)
+    spec = scheme.kernel_spec(st)
+    seg = searcher.device_segment.arrays_pytree()
+    uniq = torch.from_numpy(ss.uniqterms(corpus.seg)).to(searcher.device) \
+        if spec.needs_uniq else None
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    seen = set()
+    for cfg, _fn, batch, _chunk in _plans(searcher, qs, "NDSX",
+                                          scheme=scheme):
+        if cfg.dense:
+            args = (post, batch["offsets"], batch["lens"], batch["tconst"],
+                    batch["scoring"], batch["group_bits"],
+                    cfg.term_classes(), seg["deleted"], spec, uniq)
+            got = _twice(lambda: kernels.dense_rows(*args))
+            for g, w in zip(got, kernels._dense_rows_plain(*args)):
+                assert torch.equal(g, w)
+            scored = bool(batch["scoring"].any())
+            assert bool((got[1] != 0).any()) == scored
+            seen.add("dense scored" if scored else "dense")
+            continue
+        _p, _i, widths, prefix, _s = _inputs(searcher, cfg, batch)
+        ids, w, _ = kernels.score_slices(
+            post, None, batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, prefix, spec, uniq)
+        args = (ids, w, widths, batch["group_bits"], batch["offsets"],
+                seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
+                cfg.syn_groups, batch.get("syn_tconst"), spec, uniq)
+        got = _twice(lambda: kernels.merge_special(*args))
+        assert torch.equal(got, kernels._merge_special_plain(*args))
+        assert bool((got > 0).any())
+        seen.add("syn" if cfg.syn_groups else "max")
+    assert seen == {"dense", "dense scored", "syn", "max"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("label", ["bm25plus", "pl2", "dicecoeff",
+                                   "lm-absolute_discount", "bb2"])
+def test_scheme_search_cuda_matches_oracle(scheme_world, label):
+    """BatchSearcher.run on the card under a scheme, held to the float64
+    oracle of utils/synth_schemes.py (BM25Plus in prefix mode, its
+    uncertified queries re-run exactly)."""
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    searcher, qs, st = scheme_world
+    scheme = _config(label)
+    cap = 512 if label == "bm25plus" else 0
+    bs = BatchSearcher(searcher, k=10, prefix_cap=cap, scheme=scheme)
+    kernels.reset_launches()
+    got = bs.run([Q.or_terms(q) for q in qs], stats=st)
+    assert kernels.launches["score_slices"] > 0
+    uniq = ss.uniqterms(searcher.segment)
+    oracle = ss.relevance_answers(searcher.segment, qs, scheme, st, uniq)
+    imp = searcher.segment.impact_arrays(scheme, st)[0] if cap else None
+    prefix = {}
+    if cap:
+        for cfg, _fn, _b, chunk in bs.plan([Q.or_terms(q) for q in qs],
+                                           stats=st):
+            for qi in chunk:
+                prefix[qi] = cfg.prefix
+    for qi, (r, o) in enumerate(zip(got, oracle)):
+        n = None
+        if cap and qi not in bs.reran and any(prefix[qi]):
+            n = ss.prefix_count(searcher.segment, imp, qs[qi], prefix[qi])
+        err = ss.match_ranked(r["docids"], r["scores"], r["count"], o, 10, n)
+        assert err is None, (qi, err)

@@ -87,7 +87,7 @@ class Case:
                        "doclen_lower": jnp.float32(1.0)}
         self.pstats = {"N": float(seg.doc_count),
                        "avg_doclen": float(seg.avg_doclen)}
-        self.params = BM25().kernel_params(
+        self.params = BM25().kernel_spec(
             CollectionStats(seg.doc_count, seg.avg_doclen))
         self.dense = [self._dense(q) for q in self.queries]
 
@@ -382,9 +382,14 @@ def test_configs_of_slice_6_are_admitted(change):
 
 
 def test_other_scheme_raises():
-    from xapiand_tpu_torch.models.weights import WeightScheme
+    """Every scheme of the JAX package is admitted (K18); a scheme without a
+    per-posting formula, the base class, raises when its spec is built."""
+    from xapiand_tpu_torch.models.weights import (_SCHEMES, CollectionStats,
+                                                  WeightScheme, get_scheme)
     from xapiand_tpu_torch.ops.executor import ExecConfig
 
     cfg = ExecConfig(T=4, L=256, k=10, tree=("G", 0), classes=(256,) * 4)
-    with pytest.raises(NotImplementedError, match="K18"):
-        check_supported(cfg, WeightScheme())
+    for name in _SCHEMES:
+        check_supported(cfg, get_scheme(name))
+    with pytest.raises(NotImplementedError):
+        WeightScheme().kernel_spec(CollectionStats(10, 5.0))

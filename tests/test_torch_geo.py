@@ -56,9 +56,10 @@ from xapiand_tpu.query.dsl import QueryDSL
 from xapiand_tpu.query.ir import Q as JQ
 from xapiand_tpu.search import BatchSearcher as JBatch
 from xapiand_tpu.search import SegmentSearcher as JSearcher
-from xapiand_tpu_torch.models.segment import (GeoColumn, Segment, TermInfo,
+from xapiand_tpu_torch.models.segment import (GeoColumn, Segment,
                                               ValueColumn,
-                                              device_segment_from_numpy)
+                                              device_segment_from_numpy,
+                                              terms_from)
 from xapiand_tpu_torch.models.weights import BM25
 from xapiand_tpu_torch.ops import kernels
 from xapiand_tpu_torch.ops.executor import (SENTINEL, ExecConfig,
@@ -119,7 +120,7 @@ class GWorld:
         self.dsl = QueryDSL(db.schema)
         self.pseg = tp._fields(
             jseg, Segment,
-            terms={t: TermInfo(*raw) for t, raw in jseg.terms.raw_items()},
+            terms=terms_from(jseg.terms),
             values={s: tp._fields(c, ValueColumn)
                     for s, c in jseg.values.items()},
             geo={s: tp._fields(g, GeoColumn) for s, g in jseg.geo.items()})
@@ -132,7 +133,7 @@ class GWorld:
                        "doclen_lower": jnp.float32(1.0)}
         self.pstats = {"N": float(jseg.doc_count),
                        "avg_doclen": float(jseg.avg_doclen)}
-        self.params = BM25().kernel_params(self.ps.segment)
+        self.params = BM25().kernel_spec(self.ps.segment)
         P = [p for f, _q, p in sg.queries4(24, 0)]
         T = [p for f, _q, p in sg.queries4(0, 12)]
         near = [_circle(-100.0, 40.0, 100_000.0),
@@ -478,9 +479,9 @@ def test_synth_geo_is_the_database(world):
 
     heads = (sg.LOC_PREFIX + "#G", sg.TS_PREFIX + "#D")
     want = {}
-    for t, raw in world.jseg.terms.raw_items():
+    for t, ti in terms_from(world.jseg.terms).items():
         if t.startswith(heads):
-            d = postings(world.jseg, TermInfo(*raw))
+            d = postings(world.jseg, ti)
             if d:
                 want[t] = d
     got = {t: postings(c.seg, c.seg.terms[t]) for t in c.seg.terms

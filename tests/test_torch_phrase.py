@@ -57,8 +57,9 @@ from xapiand_tpu.ops.phrase import phrase_leaves as jax_phrase_leaves
 from xapiand_tpu.query.dsl import QueryDSL
 from xapiand_tpu.search import BatchSearcher as JBatch
 from xapiand_tpu.search import SegmentSearcher as JSearcher
-from xapiand_tpu_torch.models.segment import (Segment, TermInfo, ValueColumn,
-                                              device_segment_from_numpy)
+from xapiand_tpu_torch.models.segment import (Segment, ValueColumn,
+                                              device_segment_from_numpy,
+                                              terms_from)
 from xapiand_tpu_torch.models.weights import BM25
 from xapiand_tpu_torch.ops import kernels, phrase
 from xapiand_tpu_torch.ops.executor import (SENTINEL, ExecConfig,
@@ -108,7 +109,7 @@ class PWorld:
         self.jseg = jseg
         self.pseg = tp._fields(
             jseg, Segment,
-            terms={t: TermInfo(*raw) for t, raw in jseg.terms.raw_items()},
+            terms=terms_from(jseg.terms),
             values={s: tp._fields(c, ValueColumn)
                     for s, c in jseg.values.items()})
         self.js = JSearcher(jseg, JBM25())
@@ -120,7 +121,7 @@ class PWorld:
                        "doclen_lower": jnp.float32(1.0)}
         self.pstats = {"N": float(jseg.doc_count),
                        "avg_doclen": float(jseg.avg_doclen)}
-        self.params = BM25().kernel_params(self.ps.segment)
+        self.params = BM25().kernel_spec(self.ps.segment)
         self.fams: dict = {}
 
     def parse(self, dsl):

@@ -42,8 +42,9 @@ from xapiand_tpu.models.weights import BM25 as JBM25
 from xapiand_tpu.query.ir import Q as JQ
 from xapiand_tpu.search import BatchSearcher as JBatch
 from xapiand_tpu.search import SegmentSearcher as JSearcher
-from xapiand_tpu_torch.models.segment import (Segment, TermInfo, ValueColumn,
-                                              device_segment_from_numpy)
+from xapiand_tpu_torch.models.segment import (Segment, ValueColumn,
+                                              device_segment_from_numpy,
+                                              terms_from)
 from xapiand_tpu_torch.models.weights import BM25
 from xapiand_tpu_torch.ops import kernels
 from xapiand_tpu_torch.ops.executor import (SENTINEL, ExecConfig,
@@ -109,7 +110,7 @@ class World:
         self.jseg = jseg
         self.pseg = _fields(
             jseg, Segment,
-            terms={t: TermInfo(*raw) for t, raw in jseg.terms.raw_items()},
+            terms=terms_from(jseg.terms),
             values={s: _fields(c, ValueColumn)
                     for s, c in jseg.values.items()})
         self.js = JSearcher(jseg, JBM25())
@@ -121,7 +122,7 @@ class World:
                        "doclen_lower": jnp.float32(1.0)}
         self.pstats = {"N": float(jseg.doc_count),
                        "avg_doclen": float(jseg.avg_doclen)}
-        self.params = BM25().kernel_params(self.ps.segment)
+        self.params = BM25().kernel_spec(self.ps.segment)
         qr = np.random.Generator(np.random.PCG64(11))
         self.draws = {fam: [tuple(int(x) for x in qr.integers(0, hi))
                             for _ in range(16)]

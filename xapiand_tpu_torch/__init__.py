@@ -16,7 +16,11 @@ the predicate path of filtered, value-sorted faceted search (boolean trees,
 deletes, value filters, multi-key sorts, compaction; its corpus is
 ``utils/synth_faceted.py``); slice 3 config 3 in full (aggregations, the
 fullwidth path); slice 4 config 2 in full (phrase and NEAR leaves, its
-corpus ``utils/synth_positional.py``). The device kernels are hand-written
+corpus ``utils/synth_positional.py``); slice 5 config 4 (geo leaves, its
+corpus ``utils/synth_geo.py``); slice 6 ``SegmentSearcher.execute`` and
+the remaining plan shapes (collapse, the dense path, OP_MAX / OP_SYNONYM,
+cardinality, geo_stats); slice 7 every weight scheme of the JAX package
+(``models/weights.py get_scheme``). The device kernels are hand-written
 CUDA C++ for ``sm_90a`` (``csrc/``), built at first use; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead
 (``ops/kernels.py``).

@@ -32,6 +32,194 @@ __device__ __forceinline__ float bm25_sumpart(float wdf, float doclen,
     return tconst * (wdf / fmaxf(denom, 1e-9f));
 }
 
+// K18: the per-posting formulas of every weight scheme (xapiand_tpu/
+// models/weights.py 164-575), one id each (xapiand_tpu_torch/models/
+// weights.py S_*; IneB2 shares IfB2's formula, LM has one per smoothing).
+// p holds the scheme's float32 parameters as models/weights.py kernel_spec
+// folds them; tc points at the term's n_constants floats; uniq is the
+// doc's distinct-term count (1 where the scheme reads none). Every
+// expression is the JAX package's, in its order, each operation rounded
+// (-fmad=false), so the plain version (weights.py scheme_sumpart) gives
+// the same bits; log2f / logf are CUDA's full-precision functions, the
+// ones torch.log2 / torch.log call on the card.
+enum : int {
+    XT_SCHEME_BM25 = 0, XT_SCHEME_BM25PLUS, XT_SCHEME_TFIDF, XT_SCHEME_TRAD,
+    XT_SCHEME_BOOL, XT_SCHEME_COORD, XT_SCHEME_DICE, XT_SCHEME_INL2,
+    XT_SCHEME_IFB2, XT_SCHEME_BB2, XT_SCHEME_PL2, XT_SCHEME_PL2PLUS,
+    XT_SCHEME_DLH, XT_SCHEME_DPH, XT_SCHEME_LM_TWO_STAGE, XT_SCHEME_LM_JM,
+    XT_SCHEME_LM_DIRICHLET, XT_SCHEME_LM_DIRICHLET_PLUS, XT_SCHEME_LM_ABS
+};
+#define XT_SCHEME_PARAMS 8
+
+struct SchemeSpec {
+    int id;
+    float p[XT_SCHEME_PARAMS];
+};
+
+// the launch's spec from the C entry point's (id, host parameter array)
+static inline SchemeSpec make_spec(int id, const float* params) {
+    SchemeSpec s;
+    s.id = id;
+    for (int i = 0; i < XT_SCHEME_PARAMS; ++i) s.p[i] = params[i];
+    return s;
+}
+
+// DFR normalisation 2: wdf * log2(1 + c*avg / max(len, 1))
+__device__ __forceinline__ float dfr_wdfn(float wdf, float dl, float cavg) {
+    return wdf * log2f(1.0f + cavg / fmaxf(dl, 1.0f));
+}
+
+// PL2's P(wdfn): P1 + (wdfn + 0.5) log2(wdfn) - P2 wdfn, mean = F / N
+__device__ __forceinline__ float pl2_p(float wdfn, float F, const float* p) {
+    const float mean = F / p[1];
+    const float P1 = mean / p[2] + p[3];
+    const float P2 = log2f(mean) + p[4];
+    return P1 + (wdfn + 0.5f) * log2f(fmaxf(wdfn, 1e-9f)) - P2 * wdfn;
+}
+
+// BB2's Stirling value (y + 0.5)(c - log2 y) + d c
+__device__ __forceinline__ float bb2_stirling(float d, float y, float c) {
+    return (y + 0.5f) * (c - log2f(fmaxf(y, 1e-9f))) + d * c;
+}
+
+__device__ __forceinline__ float scheme_sumpart_generic(
+    const SchemeSpec& s, float wdf, float dl, const float* tc, float uniq) {
+    const float* p = s.p;
+    const float tc0 = tc[0];
+    switch (s.id) {
+    case XT_SCHEME_BM25PLUS: {
+        const float normlen = fmaxf(dl * p[0], p[4]);
+        const float denom = p[1] * (normlen * p[2] + p[3]) + wdf;
+        const float part = wdf / fmaxf(denom, 1e-9f) + p[5];
+        return wdf > 0.0f ? tc0 * part : 0.0f;
+    }
+    case XT_SCHEME_TFIDF:
+        return tc0 * wdf;
+    case XT_SCHEME_TRAD: {
+        if (p[0] == 0.0f) return tc0 * 1.0f;
+        const float normlen = dl / p[1];
+        const float denom = p[0] * normlen + wdf;
+        return tc0 * (wdf / fmaxf(denom, 1e-9f));
+    }
+    case XT_SCHEME_BOOL:
+        return 0.0f;
+    case XT_SCHEME_COORD:
+        return tc0 * 1.0f;
+    case XT_SCHEME_DICE:
+        return wdf > 0.0f ? tc0 * 2.0f / (p[0] + uniq) : 0.0f;
+    case XT_SCHEME_INL2: {
+        const float wdfn = dfr_wdfn(wdf, dl, p[0]);
+        return wdf > 0.0f ? tc0 * wdfn / (wdfn + 1.0f) : 0.0f;
+    }
+    case XT_SCHEME_IFB2: {
+        const float wdfn = dfr_wdfn(wdf, dl, p[0]);
+        const float w = tc0 * wdfn * tc[1] / (wdfn + 1.0f);
+        return wdf > 0.0f ? w : 0.0f;
+    }
+    case XT_SCHEME_BB2: {
+        const float F = tc[1];
+        const float wdfn = fminf(dfr_wdfn(wdf, dl, p[0]), F - 1.0f);
+        const float N = p[1];
+        const float wt = p[2] - log2f(N - 1.0f);
+        const float sc1 = log2f(N + F - 1.0f);
+        const float sc2 = log2f(F);
+        const float y2 = F - wdfn;
+        const float y1 = (N - 2.0f) + y2;
+        const float st = bb2_stirling(wdfn + 1.0f, y1, sc1) -
+                         bb2_stirling(wdfn, y2, sc2);
+        const float w = tc0 / (wdfn + 1.0f) * (wt + st);
+        return (wdf > 0.0f && w > 0.0f) ? w : 0.0f;
+    }
+    case XT_SCHEME_PL2: {
+        const float wdfn = dfr_wdfn(wdf, dl, p[0]);
+        const float P = pl2_p(wdfn, tc[1], p);
+        const float w = tc0 * P / (wdfn + 1.0f);
+        return (wdf > 0.0f && P > 0.0f) ? w : 0.0f;
+    }
+    case XT_SCHEME_PL2PLUS: {
+        const float F = tc[1];
+        const float mean = F / p[1];
+        const float wdfn = dfr_wdfn(wdf, dl, p[0]);
+        const float P = pl2_p(wdfn, F, p);
+        const float dw = pl2_p(p[5], F, p) / p[6];
+        const float wt = P / (wdfn + 1.0f) + dw;
+        const float w = tc0 * wt;
+        return (wdf > 0.0f && mean >= 1.0f && wt > 0.0f) ? w : 0.0f;
+    }
+    case XT_SCHEME_DLH:
+    case XT_SCHEME_DPH: {
+        const float log_const = p[0] / tc[1];
+        const float len = fmaxf(dl, 1.0f);
+        const float f = wdf / len;
+        const float omf = fminf(fmaxf(1.0f - f, 1e-9f), 1.0f);
+        const float wdfs = fmaxf(wdf, 1e-9f);
+        const float a = wdf * log2f(fmaxf(f * log_const, 1e-30f));
+        const float c = 0.5f * log2f(p[1] * wdfs * omf);
+        float wt, w;
+        if (s.id == XT_SCHEME_DLH) {
+            wt = a + (len - wdf) * log2f(omf) + c;
+            w = tc0 * wt / (wdfs + 0.5f);
+        } else {
+            const float norm = omf * omf / (wdf + 1.0f);
+            wt = norm * (a + c);
+            w = tc0 * wt;
+        }
+        return (wdf > 0.0f && wdf < len && wt > 0.0f) ? w : 0.0f;
+    }
+    case XT_SCHEME_LM_TWO_STAGE:
+    case XT_SCHEME_LM_JM:
+    case XT_SCHEME_LM_DIRICHLET:
+    case XT_SCHEME_LM_DIRICHLET_PLUS:
+    case XT_SCHEME_LM_ABS: {
+        // LM: p = (s1, s2, 1 - s1, param_log or doclen_upper)
+        const float wc = tc[1];
+        const float s1 = p[0], s2 = p[1], oms1 = p[2];
+        const float ln = fmaxf(dl, 1.0f);
+        float ws;
+        if (s.id == XT_SCHEME_LM_JM) {
+            ws = s1 * wc + oms1 * wdf / ln;
+        } else if (s.id == XT_SCHEME_LM_DIRICHLET) {
+            ws = (wdf + s1 * wc) / (ln + s1);
+        } else if (s.id == XT_SCHEME_LM_DIRICHLET_PLUS) {
+            const float sw = s1 * wc;
+            ws = (1.0f + wdf / sw) * (1.0f + s2 / sw);
+        } else if (s.id == XT_SCHEME_LM_ABS) {
+            ws = fmaxf(wdf - s1, 0.0f) / ln + (s1 * wc * uniq) / ln;
+        } else {     // two_stage
+            ws = oms1 * (wdf + s2 * wc) / (ln + s2) + s1 * wc;
+        }
+        const float product = ws * p[3];
+        return (wdf > 0.0f && product > 1.0f)
+                   ? tc0 * logf(fmaxf(product, 1.0f)) : 0.0f;
+    }
+    default:     // BM25 takes scheme_sumpart's other instance
+        return 0.0f;
+    }
+}
+
+// A term's weight times its scoring flag. A non-scoring term (scoring 0:
+// OP_SYNONYM's members, filter terms) has constants of 0, where PL2,
+// PL2Plus, DLH, DPH, BB2 and LM dirichlet_plus are NaN; JAX multiplies
+// that by 0 and keeps the NaN in the doc's sum (ROADMAP queue 3). The
+// port weighs such a term 0. BM25 is finite there, and keeps its code.
+template <bool GENERIC>
+__device__ __forceinline__ float scored(float w, float sc) {
+    return (GENERIC && sc == 0.0f) ? 0.0f : w * sc;
+}
+
+// The kernels' one entry to a scheme: GENERIC false is BM25 inline, the
+// code of every BM25 launch as it was before the other schemes; true
+// switches on the launch-uniform id.
+template <bool GENERIC>
+__device__ __forceinline__ float scheme_sumpart(const SchemeSpec& s,
+                                                float wdf, float dl,
+                                                const float* tc, float uniq) {
+    if (!GENERIC)
+        return bm25_sumpart(wdf, dl, tc[0], Bm25Params{s.p[0], s.p[1], s.p[2],
+                                                       s.p[3], s.p[4]});
+    return scheme_sumpart_generic(s, wdf, dl, tc, uniq);
+}
+
 // leftmost i in [0, n) with a[i] >= x (a ascending): K15, xapiand_tpu/ops/
 // executor.py lower_bound 192-205 and lower_bound_sorted 208-224. The TPU
 // sort-joined an ascending query vector because its gathers serialise; on

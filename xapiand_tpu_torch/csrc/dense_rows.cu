@@ -4,7 +4,12 @@
 // the masks group_leaf 1276-1280 reads: d = arange(ND+1), live = not
 // deleted and not the pad doc, and per term a scatter of its posting block
 // over the doc axis (.at[idt].max for the group mask, .at[idt].add for the
-// BM25 weight), the pad doc's score set to 0.
+// scheme's weight, 1262-1271), the pad doc's score set to 0.
+//
+// The weight is the query's scheme (common.cuh scheme_sumpart; BM25 the
+// GENERIC = false instance, as before the other schemes), tconst
+// f32[B, T, C], with uniq[d] (f32[ND+1], nullptr when the scheme reads
+// none) for DiceCoeff and LM absolute discount.
 //
 // The TPU scattered because each term block is a contiguous slice; on the
 // H100 a float scatter-add means float atomics, whose order is not fixed.
@@ -29,15 +34,17 @@
 // of T binary searches per row into posting blocks that stay in L2.
 #include "common.cuh"
 
+template <bool GENERIC>
 __global__ void dense_rows_kernel(
     const int* __restrict__ post_docids, const float* __restrict__ post_wdf,
     const float* __restrict__ post_doclen, long long n_post,
     const int* __restrict__ offsets, const int* __restrict__ lens,
     const float* __restrict__ tconst, const float* __restrict__ scoring,
     const int* __restrict__ bits, const int* __restrict__ classes, int T,
-    const unsigned char* __restrict__ deleted, int ND1, Bm25Params p,
-    int* __restrict__ ids, float* __restrict__ scores,
-    int* __restrict__ orbits, unsigned char* __restrict__ live) {
+    const unsigned char* __restrict__ deleted, int ND1, SchemeSpec sp, int C,
+    const float* __restrict__ uniq, int* __restrict__ ids,
+    float* __restrict__ scores, int* __restrict__ orbits,
+    unsigned char* __restrict__ live) {
     const int b = blockIdx.y;
     const int d = blockIdx.x * blockDim.x + threadIdx.x;
     if (d >= ND1) return;
@@ -45,6 +52,7 @@ __global__ void dense_rows_kernel(
     unsigned ob = 0;
     const bool real = d < ND1 - 1;
     if (real) {
+        const float u = (GENERIC && uniq != nullptr) ? uniq[d] : 1.0f;
         for (int t = 0; t < T; ++t) {
             const int bt = b * T + t;
             const int W = classes[t];
@@ -57,9 +65,11 @@ __global__ void dense_rows_kernel(
             const int* blk = post_docids + start;
             const int pos = lower_bound_i32(blk, ln, d);
             if (pos < ln && blk[pos] == d) {
-                const float w = bm25_sumpart(post_wdf[start + pos],
-                                             post_doclen[start + pos],
-                                             tconst[bt], p) * scoring[bt];
+                const float* tc = tconst + (long long)bt * (GENERIC ? C : 1);
+                const float w = scored<GENERIC>(
+                    scheme_sumpart<GENERIC>(sp, post_wdf[start + pos],
+                                            post_doclen[start + pos], tc, u),
+                    scoring[bt]);
                 s = s + w;
                 ob |= (unsigned)bits[bt];
             }
@@ -77,17 +87,19 @@ extern "C" int xt_dense_rows(
     long long n_post, const void* offsets, const void* lens,
     const void* tconst, const void* scoring, const void* bits,
     const void* classes, int B, int T, const void* deleted, int ND1,
-    float lf, float k1, float b, float one_minus_b, float min_normlen,
-    void* ids, void* scores, void* orbits, void* live, void* stream) {
+    int scheme, const float* params, int C, const void* uniq, void* ids,
+    void* scores, void* orbits, void* live, void* stream) {
     if (B == 0 || ND1 == 0) return 0;
-    Bm25Params p{lf, k1, b, one_minus_b, min_normlen};
+    const SchemeSpec sp = make_spec(scheme, params);
+    auto kernel = scheme == XT_SCHEME_BM25 ? dense_rows_kernel<false>
+                                           : dense_rows_kernel<true>;
     dim3 grid((ND1 + 255) / 256, B);
-    dense_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
         (const int*)post_docids, (const float*)post_wdf,
         (const float*)post_doclen, n_post, (const int*)offsets,
         (const int*)lens, (const float*)tconst, (const float*)scoring,
         (const int*)bits, (const int*)classes, T,
-        (const unsigned char*)deleted, ND1, p, (int*)ids, (float*)scores,
-        (int*)orbits, (unsigned char*)live);
+        (const unsigned char*)deleted, ND1, sp, C, (const float*)uniq,
+        (int*)ids, (float*)scores, (int*)orbits, (unsigned char*)live);
     return (int)cudaGetLastError();
 }

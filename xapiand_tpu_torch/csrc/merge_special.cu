@@ -16,7 +16,10 @@
 //   3. per synonym group i, in order: ssum = the raw wdf of the doc's
 //      postings of the terms whose bit lies in syn_groups[i], in term
 //      order; where ssum > 0, sumpart(ssum, dl, syn_tconst[b, i]) is added,
-//      dl the doc's length (1 where it is 0).
+//      dl the doc's length (1 where it is 0), in the query's scheme
+//      (common.cuh scheme_sumpart; BM25 the GENERIC = false instance, as
+//      before the other schemes), syn_tconst f32[B, NS, C], with the doc's
+//      uniqterms (uniq[min(d, ND)], 807-811) where the scheme reads it.
 // A row finds its doc in another term's block by binary search, as
 // merge_docs does; the hit's position is also the posting's index past the
 // block's clamped start, where post_wdf and post_doclen are read (the rows
@@ -48,14 +51,15 @@ struct SpecialRow {
     }
 };
 
+template <bool GENERIC>
 __global__ void merge_special_kernel(
     const int* __restrict__ ids, const float* __restrict__ w,
     const int* __restrict__ widths, const int* __restrict__ row_off, int T,
     int R, const int* __restrict__ bits, const int* __restrict__ offsets,
     const float* __restrict__ post_wdf, const float* __restrict__ post_doclen,
     long long n_post, const int* __restrict__ spec,
-    const float* __restrict__ syn_tconst, int NS, Bm25Params p,
-    float* __restrict__ sums) {
+    const float* __restrict__ syn_tconst, int NS, SchemeSpec sp, int C,
+    const float* __restrict__ uniq, int nd1, float* __restrict__ sums) {
     const int b = blockIdx.y;
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
@@ -117,6 +121,8 @@ __global__ void merge_special_kernel(
         if (st < 0) st = 0;
         float dl = post_doclen[st + (r - row_off[row.t])];
         if (!(dl > 0.0f)) dl = 1.0f;
+        const float u = (GENERIC && uniq != nullptr)
+                            ? uniq[min(row.d, nd1 - 1)] : 1.0f;
         for (int i = 0; i < n_syn; ++i) {
             const unsigned m = (unsigned)spec[syn_at + 1 + i];
             float ssum = 0.0f;
@@ -130,8 +136,10 @@ __global__ void merge_special_kernel(
                 ssum = ssum + post_wdf[su + pos];
             }
             if (ssum > 0.0f)
-                s = s + bm25_sumpart(ssum, dl,
-                                     syn_tconst[(long long)b * NS + i], p);
+                s = s + scheme_sumpart<GENERIC>(
+                    sp, ssum, dl,
+                    syn_tconst + ((long long)b * NS + i) * (GENERIC ? C : 1),
+                    u);
         }
     }
     sums[row.base + r] = s;
@@ -141,16 +149,19 @@ extern "C" int xt_merge_special(
     const void* ids, const void* w, const void* widths, const void* row_off,
     int B, int T, int R, const void* bits, const void* offsets,
     const void* post_wdf, const void* post_doclen, long long n_post,
-    const void* spec, const void* syn_tconst, int NS, float lf, float k1,
-    float b, float one_minus_b, float min_normlen, void* sums,
+    const void* spec, const void* syn_tconst, int NS, int scheme,
+    const float* params, int C, const void* uniq, int nd1, void* sums,
     void* stream) {
     if (B == 0 || R == 0) return 0;
-    Bm25Params p{lf, k1, b, one_minus_b, min_normlen};
+    const SchemeSpec sp = make_spec(scheme, params);
+    auto kernel = scheme == XT_SCHEME_BM25 ? merge_special_kernel<false>
+                                           : merge_special_kernel<true>;
     dim3 grid((R + 255) / 256, B);
-    merge_special_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
         (const int*)ids, (const float*)w, (const int*)widths,
         (const int*)row_off, T, R, (const int*)bits, (const int*)offsets,
         (const float*)post_wdf, (const float*)post_doclen, n_post,
-        (const int*)spec, (const float*)syn_tconst, NS, p, (float*)sums);
+        (const int*)spec, (const float*)syn_tconst, NS, sp, C,
+        (const float*)uniq, nd1, (float*)sums);
     return (int)cudaGetLastError();
 }

@@ -2,6 +2,12 @@
 //
 // Replaces (TPU): xapiand_tpu/ops/executor.py _prefix_topk 959-997.
 //
+// The rescore weighs each hit with the query's scheme (common.cuh
+// scheme_sumpart; BM25 the GENERIC = false instance, as before the other
+// schemes). Only impact-separable schemes reach prefix mode (BM25 and
+// BM25Plus, whose impact order is BM25's); uniq, read at min(docid, ND)
+// as JAX reads it (975-978), is nullptr for them.
+//
 // Input: the top K+1 owner rows of each query (topk_rows), read from the
 // impact prefixes. Each of the first K candidates is rescored exactly: a
 // binary search for its docid in every term's full docid-ordered postings
@@ -21,6 +27,7 @@
 // work is tiny, so the kernel is one short launch.
 #include "common.cuh"
 
+template <bool GENERIC>
 __global__ void prefix_certify_kernel(
     const int* __restrict__ post_docids, const float* __restrict__ post_wdf,
     const float* __restrict__ post_doclen, long long n_post,
@@ -28,7 +35,8 @@ __global__ void prefix_certify_kernel(
     const float* __restrict__ tconst, const float* __restrict__ scoring,
     const int* __restrict__ classes, const float* __restrict__ tail, int T,
     const int* __restrict__ cand_d, const float* __restrict__ cand_v, int K,
-    int k, Bm25Params p, int* __restrict__ out_d, float* __restrict__ out_s,
+    int k, SchemeSpec sp, int C, const float* __restrict__ uniq, int nd1,
+    int* __restrict__ out_d, float* __restrict__ out_s,
     unsigned char* __restrict__ certified) {
     __shared__ float s_neg[256];
     __shared__ int s_d[256];
@@ -39,6 +47,8 @@ __global__ void prefix_certify_kernel(
     float exact = 0.0f;
     if (i < K) {
         d = cand_d[b * K1 + i];
+        const float u = (GENERIC && uniq != nullptr) ? uniq[min(d, nd1 - 1)]
+                                                     : 1.0f;
         for (int t = 0; t < T; ++t) {
             const int bt = b * T + t;
             const int ln = min(lens[bt], classes[t]);
@@ -52,9 +62,10 @@ __global__ void prefix_certify_kernel(
             long long pp = off + lo;
             if (pp > n_post - 1) pp = n_post - 1;
             if (lo < ln && post_docids[pp] == d) {
-                const float w = bm25_sumpart(post_wdf[pp], post_doclen[pp],
-                                             tconst[bt], p);
-                exact = exact + w * scoring[bt];
+                const float w = scheme_sumpart<GENERIC>(
+                    sp, post_wdf[pp], post_doclen[pp],
+                    tconst + (long long)bt * (GENERIC ? C : 1), u);
+                exact = exact + scored<GENERIC>(w, scoring[bt]);
             }
         }
         if (d == XT_SENTINEL) exact = __int_as_float(0xff800000);   // -inf
@@ -96,18 +107,19 @@ extern "C" int xt_prefix_certify(
     long long n_post, const void* offsets, const void* lens,
     const void* tconst, const void* scoring, const void* classes,
     const void* tail, int B, int T, const void* cand_d, const void* cand_v,
-    int K, int k, float lf, float k1, float b, float one_minus_b,
-    float min_normlen, void* out_d, void* out_s, void* certified,
-    void* stream) {
+    int K, int k, int scheme, const float* params, int C, const void* uniq,
+    int nd1, void* out_d, void* out_s, void* certified, void* stream) {
     if (B == 0) return 0;
-    Bm25Params p{lf, k1, b, one_minus_b, min_normlen};
+    const SchemeSpec sp = make_spec(scheme, params);
+    auto kernel = scheme == XT_SCHEME_BM25 ? prefix_certify_kernel<false>
+                                           : prefix_certify_kernel<true>;
     const int threads = ((K + 31) / 32) * 32;
-    prefix_certify_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+    kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
         (const int*)post_docids, (const float*)post_wdf,
         (const float*)post_doclen, n_post, (const int*)offsets,
         (const int*)lens, (const float*)tconst, (const float*)scoring,
         (const int*)classes, (const float*)tail, T, (const int*)cand_d,
-        (const float*)cand_v, K, k, p, (int*)out_d, (float*)out_s,
-        (unsigned char*)certified);
+        (const float*)cand_v, K, k, sp, C, (const float*)uniq, nd1,
+        (int*)out_d, (float*)out_s, (unsigned char*)certified);
     return (int)cudaGetLastError();
 }

@@ -390,6 +390,7 @@ class Segment:
 # (xapiand_tpu/models/segment.py:386-532), as torch tensors on one device, so
 # a tree exported from either side feeds the other (device_segment_from_numpy).
 
+import dataclasses  # noqa: E402
 import threading  # noqa: E402
 
 import torch  # noqa: E402
@@ -425,6 +426,17 @@ def _host_tree(seg: Segment) -> dict:
         "values": values,
         "geo": geo,
     }
+
+
+def terms_from(table) -> dict:
+    """term -> TermInfo of another package's term table: a TermTable of raw
+    tuples (the native inverter builds one) or a dict of term records (the
+    pure-Python inverter's, where the native library did not load)."""
+    if hasattr(table, "raw_items"):
+        return {t: TermInfo(*raw) for t, raw in table.raw_items()}
+    names = [f.name for f in dataclasses.fields(TermInfo)]
+    return {t: TermInfo(*(getattr(ti, n) for n in names))
+            for t, ti in table.items()}
 
 
 def device_segment_from_numpy(tree: dict, device: torch.device) -> dict:

@@ -4,8 +4,9 @@
 ExecConfig against one segment, through the kernels of ``kernels.py``,
 step for step as the JAX ``execute`` (825-932) runs its predicate half:
 
-  1. score_slices: each (query, term) posting span, BM25-scored, each term
-     block docid-ascending (prefix blocks sorted in the kernel);
+  1. score_slices: each (query, term) posting span, weighed by the
+     query's scheme (any of the JAX package's 16, K18), each term block
+     docid-ascending (prefix blocks sorted in the kernel);
   2. merge_docs: per-doc sums and OR of group bits by binary-search join
      across the term blocks (the TPU's global docid sort + run merge is
      not needed here: gathers do not serialise on the H100), one owner
@@ -56,7 +57,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from xapiand_tpu_torch.models.weights import BM25, CollectionStats
+from xapiand_tpu_torch.models.weights import CollectionStats
 from xapiand_tpu_torch.ops import aggs, kernels, phrase
 
 SENTINEL = kernels.SENTINEL
@@ -111,10 +112,7 @@ SORT_KINDS = tuple(k for k in kernels.SORT_KINDS if k != "docid")
 
 def check_supported(cfg: ExecConfig, scheme):
     """Raise NotImplementedError, naming the ROADMAP item that ports it,
-    for a plan outside the ported slices."""
-    if type(scheme) is not BM25:
-        raise NotImplementedError(f"not ported yet: weight scheme "
-                                  f"{scheme.key()!r} (ROADMAP queue 2, K18)")
+    for a plan outside the ported slices. Every weight scheme is ported."""
     special = bool(cfg.syn_groups or cfg.max_specs)
     # a dense plan reads neither drive nor join (execute 643-648)
     checks = (
@@ -233,7 +231,8 @@ def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
                                                          cfg.k, tie)
 
 
-def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, params) -> dict:
+def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, spec,
+                   uniq) -> dict:
     """The dense path for match-all roots (_execute_dense 1237-1308): every
     doc is a row (dense_rows, K12), then the leaves and the tree over all
     rows, the aggregations over the matches with the scores as their sums,
@@ -244,7 +243,7 @@ def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, params) -> dict:
     ids, scores, orbits, live = kernels.dense_rows(
         (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]),
         batch["offsets"], batch["lens"], batch["tconst"], batch["scoring"],
-        batch["group_bits"], cfg.term_classes(), seg["deleted"], params)
+        batch["group_bits"], cfg.term_classes(), seg["deleted"], spec, uniq)
     geobits = None
     if cfg.geo_specs:
         geobits = kernels.geo_leaves(
@@ -269,22 +268,31 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     """B queries of one config against one segment.
 
     seg: DeviceSegment.arrays_pytree() (torch tensors, + imp.* in prefix
-    mode); batch: {offsets i32[B,T], lens i32[B,T], tconst f32[B,T],
-    scoring f32[B,T], group_bits i32[B,T], fparams i32[B,F,4] with
-    filters, geo_queries [i32[B,QR,2] per geo leaf] with geo leaves,
-    syn_tconst f32[B,NS] with synonym groups, sort_targets f32[B,S,2] and
-    sort_strtabs {si: f32[B,nb]} with a sort} on the same device; stats:
-    {"N", "avg_doclen", ...} numbers (BM25 reads these two; the others are
-    the other schemes', ROADMAP queue 2, K18).
-    cfg.phrase_carry is admitted and changes nothing (ops/phrase.py)."""
+    mode); batch: {offsets i32[B,T], lens i32[B,T], tconst f32[B,T] (or
+    f32[B,T,C] for a scheme of C constants a term), scoring f32[B,T],
+    group_bits i32[B,T], fparams i32[B,F,4] with filters, geo_queries
+    [i32[B,QR,2] per geo leaf] with geo leaves, syn_tconst f32[B,NS(,C)]
+    with synonym groups, sort_targets f32[B,S,2] and sort_strtabs {si:
+    f32[B,nb]} with a sort} on the same device; stats: {"N", "avg_doclen",
+    "doclen_lower", "doclen_upper", "total_len"} numbers and, from
+    SegmentSearcher.execute only, "query_length" (the bound plan's qlen,
+    JAX execute 636-641; the batch path stacks no qlen, so there it is 1,
+    as in JAX). cfg.phrase_carry is admitted and changes nothing
+    (ops/phrase.py)."""
     check_supported(cfg, scheme)
     if "sort_cat_remap" in batch:
         raise NotImplementedError("not ported yet: mesh category remaps "
                                   "(ROADMAP queue 2, K19)")
-    params = scheme.kernel_params(CollectionStats(
-        doc_count=float(stats["N"]), avg_doclen=float(stats["avg_doclen"])))
+    spec = scheme.kernel_spec(CollectionStats(
+        doc_count=float(stats["N"]), avg_doclen=float(stats["avg_doclen"]),
+        doclen_lower=float(stats.get("doclen_lower", 1.0)),
+        doclen_upper=float(stats.get("doclen_upper", 1.0)),
+        total_len=float(stats.get("total_len", 0.0)),
+        query_length=float(stats.get("query_length", 1.0))))
+    # DiceCoeff and LM absolute discount read the doc's distinct terms
+    uniq = seg["uniqterms"] if spec.needs_uniq else None
     if cfg.dense:
-        return _execute_dense(seg, batch, cfg, params)
+        return _execute_dense(seg, batch, cfg, spec, uniq)
     T = cfg.T
     classes = cfg.term_classes()
     # impact-prefix mode reads the first prefix[t] rows of the impact-
@@ -300,7 +308,7 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     tconst, scoring = batch["tconst"], batch["scoring"]
 
     ids, w, tail = kernels.score_slices(post, imp, offsets, lens, tconst,
-                                        scoring, widths, prefix, params)
+                                        scoring, widths, prefix, spec, uniq)
     R = ids.shape[1]
     values = seg["values"]
     # the tree over group bits only matters beyond a single group leaf
@@ -322,7 +330,7 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
             sums = kernels.merge_special(
                 ids, w, widths, bits, offsets, seg["post_wdf"],
                 seg["post_doclen"], cfg.max_specs, cfg.syn_groups,
-                batch.get("syn_tconst"), params)
+                batch.get("syn_tconst"), spec, uniq)
         return sums, mask, count, orbits
 
     # phrase leaves read every owner row: no precompaction (execute
@@ -386,7 +394,7 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
         out["docids"], out["scores"], out["certified"] = \
             kernels.prefix_certify(post, offsets, lens, tconst, scoring,
                                    classes, tail, cand_d, cand_v, cfg.k,
-                                   params)
+                                   spec, uniq)
     else:
         _rank_and_topk(cfg, values, batch, ids, sums, eligible, out, fast)
     return out

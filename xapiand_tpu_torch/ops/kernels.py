@@ -5,7 +5,8 @@ Sixteen kernels carry batch search (sources in ``../csrc``; each file's
 header names the TPU function it replaces, what bounds it on the H100 and
 what its design does about that):
 
-  score_slices    K1     per-(query, term) posting slice + BM25 score
+  score_slices    K1     per-(query, term) posting slice + the scheme's
+                  +K18   weight (BM25 or any of the other 15 schemes)
   merge_docs      K2+K3  per-doc sums and OR of group bits by binary-search
                   +K6    join; owner & not deleted & boolean tree; count
   topk_rows       K4     exact top-k by (score desc, docid asc)
@@ -69,7 +70,8 @@ from pathlib import Path
 
 import torch
 
-from xapiand_tpu_torch.models.weights import bm25_sumpart
+from xapiand_tpu_torch.models.weights import (SCHEME_PARAMS, SchemeSpec,
+                                              scheme_sumpart)
 
 SENTINEL = 2**31 - 1
 I32MAX = 2**31 - 1
@@ -197,18 +199,19 @@ def build() -> Path:
     return so
 
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# a scheme: its id, its SCHEME_PARAMS floats (host memory), its C constants
+# a term, the uniqterms column (0: none) and its rows
+_SPEC = [_I, ctypes.POINTER(ctypes.c_float), _I, _P]
 _SIGNATURES = {
     "xt_score_slices": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                        _P, _P, _P, _P],
+                        _P, _P, _P, _I, _I, _I, _I, *_SPEC, _I, _P, _P, _P,
+                        _P],
     "xt_merge_docs": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _LL, _P, _I, _P,
                       _P, _P, _P, _P],
     "xt_topk_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "xt_prefix_certify": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P,
-                          _P],
+                          _P, _P, _I, _I, *_SPEC, _I, _P, _P, _P, _P],
     "xt_compact_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "xt_filter_leaves": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                          _P, _P, _P],
@@ -226,9 +229,9 @@ _SIGNATURES = {
     "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _P, _LL,
                          _P, _P, _P, _P, _LL, _P, _P, _P, _P],
     "xt_dense_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                      _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+                      _I, *_SPEC, _P, _P, _P, _P, _P],
     "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
-                         _P, _P, _I, _F, _F, _F, _F, _F, _P, _P],
+                         _P, _P, _I, *_SPEC, _I, _P, _P],
     "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _P, _P, _LL, _P, _LL, _P,
                         _P, _P],
 }
@@ -292,6 +295,50 @@ def _ints(vals: tuple, device, dtype=torch.int32) -> torch.Tensor:
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def _spec_args(spec: SchemeSpec, C: int, uniq) -> tuple:
+    """A scheme's arguments of a C entry point (``_SPEC``)."""
+    if len(spec.params) > SCHEME_PARAMS:
+        raise ValueError(f"scheme {spec.sid}: more than {SCHEME_PARAMS} "
+                         "parameters")
+    params = (ctypes.c_float * SCHEME_PARAMS)(*spec.params)
+    return spec.sid, params, C, _ptr(uniq)
+
+
+def _constants(name: str, tconst, lead: tuple) -> int:
+    """Check a term-constant array: f32[*lead] (one constant a term) or
+    f32[*lead, C] with C in (1, 2). -> C."""
+    C = tconst.shape[-1] if tconst.dim() == len(lead) + 1 else 1
+    _check(name, tconst, torch.float32, lead + ((C,) if tconst.dim() ==
+                                                len(lead) + 1 else ()))
+    if C not in (1, 2):
+        raise ValueError(f"{name}: {C} constants a term (at most 2)")
+    return C
+
+
+def _check_uniq(name: str, spec: SchemeSpec, uniq):
+    """uniqterms f32[ND+1] where the scheme reads it, else None."""
+    if not spec.needs_uniq:
+        return None
+    if uniq is None:
+        raise ValueError(f"{name}: scheme {spec.sid} reads uniqterms")
+    _check(f"{name}.uniq", uniq, torch.float32)
+    return uniq
+
+
+def _scored(w, scoring):
+    """w * scoring, 0 where the term does not score (csrc/common.cuh
+    scored: JAX keeps the NaN of a scheme at constants of 0 there)."""
+    return torch.where(scoring != 0, w * scoring, 0.0)
+
+
+def _tc(tconst, t):
+    """Term t's constants, each [B, 1] (tconst [B, T] or [B, T, C]): the
+    tc tuple of scheme_sumpart."""
+    if tconst.dim() == 2:
+        return (tconst[:, t:t + 1],)
+    return tuple(tconst[:, t:t + 1, c] for c in range(tconst.shape[2]))
 
 
 def absent_column(device) -> dict:
@@ -385,13 +432,15 @@ def row_offsets(widths) -> tuple:
 # --------------------------------------------------------------------------
 
 def score_slices(post, imp, offsets, lens, tconst, scoring, widths,
-                 is_prefix, params):
-    """Slice + score every (query, term) posting span.
+                 is_prefix, spec, uniq=None):
+    """Slice + weigh every (query, term) posting span.
 
     post / imp: (docids i32[P], wdf f32[P], doclen f32[P]); imp may be None
-    when no term is in prefix mode. offsets/lens i32[B,T], tconst/scoring
-    f32[B,T]. widths[t] rows are read for term t - the first widths[t]
-    impact-ordered rows when is_prefix[t]. params = BM25.kernel_params.
+    when no term is in prefix mode. offsets/lens i32[B,T], scoring f32[B,T],
+    tconst f32[B,T] or f32[B,T,C]. widths[t] rows are read for term t - the
+    first widths[t] impact-ordered rows when is_prefix[t]. spec: the
+    scheme's SchemeSpec (models/weights.py kernel_spec); uniq: uniqterms
+    f32[ND+1], read where the scheme needs it.
     -> ids i32[B,R] (each term block docid-ascending, SENTINEL-padded),
        w f32[B,R], tail f32[B,T] (unread-tail bound, 0 off prefix)."""
     B, T = offsets.shape
@@ -408,15 +457,18 @@ def score_slices(post, imp, offsets, lens, tconst, scoring, widths,
                          f"{MAX_PREFIX_ROWS} rows (one block's shared memory)")
     for name, t, dt in (("offsets", offsets, torch.int32),
                         ("lens", lens, torch.int32),
-                        ("tconst", tconst, torch.float32),
                         ("scoring", scoring, torch.float32)):
         _check(f"score_slices.{name}", t, dt, (B, T))
+    C = _constants("score_slices.tconst", tconst, (B, T))
+    uniq = _check_uniq("score_slices", spec, uniq)
     src = list(post) + (list(imp) if imp is not None else [])
     for t, dt in zip(src, (torch.int32, torch.float32, torch.float32) * 2):
         _check("score_slices.postings", t, dt)
-    if not _on_cuda("score_slices", offsets, lens, tconst, scoring, *src):
+    opt = [uniq] if uniq is not None else []
+    if not _on_cuda("score_slices", offsets, lens, tconst, scoring, *src,
+                    *opt):
         return _score_slices_plain(post, imp, offsets, lens, tconst, scoring,
-                                   widths, is_prefix, params)
+                                   widths, is_prefix, spec, uniq)
     dev = offsets.device
     ro = row_offsets(widths)
     R = ro[-1]
@@ -435,13 +487,18 @@ def score_slices(post, imp, offsets, lens, tconst, scoring, widths,
             offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
             scoring.data_ptr(), _ints(widths, dev).data_ptr(),
             _ints(tuple(int(p) for p in is_prefix), dev).data_ptr(),
-            _ints(ro, dev).data_ptr(), B, T, R, smem, *params,
-            ids.data_ptr(), w.data_ptr(), tail.data_ptr(), _stream())
+            _ints(ro, dev).data_ptr(), B, T, R, smem,
+            *_spec_args(spec, C, uniq), _nd1(uniq), ids.data_ptr(),
+            w.data_ptr(), tail.data_ptr(), _stream())
     return ids, w, tail
 
 
+def _nd1(uniq) -> int:
+    return 0 if uniq is None else uniq.shape[0]
+
+
 def _score_slices_plain(post, imp, offsets, lens, tconst, scoring, widths,
-                        is_prefix, params):
+                        is_prefix, spec, uniq=None):
     B, T = offsets.shape
     dev = offsets.device
     ids_parts, w_parts, tails = [], [], []
@@ -455,18 +512,21 @@ def _score_slices_plain(post, imp, offsets, lens, tconst, scoring, widths,
         idx = start[:, None] + torch.arange(W, device=dev)
         inl = torch.arange(W, device=dev)[None, :] < lens[:, t:t + 1]
         d = torch.where(inl, src[0][idx], SENTINEL)
-        w = bm25_sumpart(src[1][idx], src[2][idx], tconst[:, t:t + 1],
-                         params) * scoring[:, t:t + 1]
+        # the doc's uniqterms at min(docid, ND) (executor.py:716-721)
+        u = uniq[d.clamp(max=uniq.shape[0] - 1)] if uniq is not None \
+            else None
+        w = _scored(scheme_sumpart(spec, src[1][idx], src[2][idx],
+                                   _tc(tconst, t), u), scoring[:, t:t + 1])
         w = torch.where(inl, w, 0.0)
         tail = torch.zeros(B, dtype=torch.float32, device=dev)
         if pref:
             d, order = torch.sort(d, dim=1, stable=True)
             w = torch.gather(w, 1, order)
             bpos = (off + W).clamp(max=n - 1)
-            gb = bm25_sumpart(imp[1][bpos], imp[2][bpos], tconst[:, t],
-                              params)
-            tail = torch.where(lens[:, t] > W,
-                               torch.clamp_min(gb * scoring[:, t], 0.0), 0.0)
+            gb = scheme_sumpart(spec, imp[1][bpos][:, None],
+                                imp[2][bpos][:, None], _tc(tconst, t))[:, 0]
+            tail = torch.where(lens[:, t] > W, torch.clamp_min(
+                _scored(gb, scoring[:, t]), 0.0), 0.0)
         ids_parts.append(d)
         w_parts.append(w)
         tails.append(tail)
@@ -621,10 +681,12 @@ def _topk_rows_plain(scores, ids, owner, k, tie=None):
 # --------------------------------------------------------------------------
 
 def prefix_certify(post, offsets, lens, tconst, scoring, classes, tail,
-                   cand_d, cand_v, k: int, params):
+                   cand_d, cand_v, k: int, spec, uniq=None):
     """Exact rescore of the top K of K+1 prefix candidates (cand_d/cand_v
     i32/f32[B,K+1] from topk_rows) by binary search in every term's full
     postings (ln = min(lens, classes[t])), re-sort, certificate.
+    tconst f32[B,T] or f32[B,T,C]; spec and uniq as score_slices takes
+    them.
     -> docids i32[B,kk], scores f32[B,kk], certified bool[B]; kk =
     min(k, K)."""
     B, T = offsets.shape
@@ -633,23 +695,25 @@ def prefix_certify(post, offsets, lens, tconst, scoring, classes, tail,
     classes = tuple(int(c) for c in classes)
     for name, t, dt, shp in (("offsets", offsets, torch.int32, (B, T)),
                              ("lens", lens, torch.int32, (B, T)),
-                             ("tconst", tconst, torch.float32, (B, T)),
                              ("scoring", scoring, torch.float32, (B, T)),
                              ("tail", tail, torch.float32, (B, T)),
                              ("cand_d", cand_d, torch.int32, (B, K + 1)),
                              ("cand_v", cand_v, torch.float32, (B, K + 1))):
         _check(f"prefix_certify.{name}", t, dt, shp)
+    C = _constants("prefix_certify.tconst", tconst, (B, T))
+    uniq = _check_uniq("prefix_certify", spec, uniq)
     for t, dt in zip(post, (torch.int32, torch.float32, torch.float32)):
         _check("prefix_certify.postings", t, dt)
     if len(classes) != T:
         raise ValueError(f"prefix_certify: {T} terms, classes {classes}")
     if not (0 < kk and K <= MAX_TOPK):
         raise ValueError(f"prefix_certify: K={K}, k={k} unsupported")
+    opt = [uniq] if uniq is not None else []
     if not _on_cuda("prefix_certify", offsets, lens, tconst, scoring, tail,
-                    cand_d, cand_v, *post):
+                    cand_d, cand_v, *post, *opt):
         return _prefix_certify_plain(post, offsets, lens, tconst, scoring,
                                      classes, tail, cand_d, cand_v, kk,
-                                     params)
+                                     spec, uniq)
     dev = offsets.device
     out_d = torch.empty((B, kk), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, kk), dtype=torch.float32, device=dev)
@@ -659,18 +723,20 @@ def prefix_certify(post, offsets, lens, tconst, scoring, classes, tail,
             post[0].shape[0], offsets.data_ptr(), lens.data_ptr(),
             tconst.data_ptr(), scoring.data_ptr(),
             _ints(classes, dev).data_ptr(), tail.data_ptr(), B, T,
-            cand_d.data_ptr(), cand_v.data_ptr(), K, kk, *params,
-            out_d.data_ptr(), out_s.data_ptr(), cert.data_ptr(), _stream())
+            cand_d.data_ptr(), cand_v.data_ptr(), K, kk,
+            *_spec_args(spec, C, uniq), _nd1(uniq), out_d.data_ptr(),
+            out_s.data_ptr(), cert.data_ptr(), _stream())
     return out_d, out_s, cert
 
 
 def _prefix_certify_plain(post, offsets, lens, tconst, scoring, classes,
-                          tail, cand_d, cand_v, kk, params):
+                          tail, cand_d, cand_v, kk, spec, uniq=None):
     B, T = offsets.shape
     K = cand_d.shape[1] - 1
     cd = cand_d[:, :K]
     n = post[0].shape[0]
     exact = torch.zeros(cd.shape, dtype=torch.float32, device=cd.device)
+    u = uniq[cd.clamp(max=uniq.shape[0] - 1)] if uniq is not None else None
     for t in range(T):
         Lc = classes[t]
         ln = torch.clamp_max(lens[:, t:t + 1], Lc)
@@ -682,9 +748,10 @@ def _prefix_certify_plain(post, offsets, lens, tconst, scoring, classes,
             pos = torch.where((c2 <= ln) & (probe < cd), c2, pos)
         ppos = (off + pos).clamp(max=n - 1)
         found = (pos < ln) & (post[0][ppos] == cd)
-        w = bm25_sumpart(post[1][ppos], post[2][ppos], tconst[:, t:t + 1],
-                         params)
-        exact = exact + torch.where(found, w * scoring[:, t:t + 1], 0.0)
+        w = scheme_sumpart(spec, post[1][ppos], post[2][ppos],
+                           _tc(tconst, t), u)
+        exact = exact + torch.where(found, _scored(w, scoring[:, t:t + 1]),
+                                    0.0)
     exact = torch.where(cd != SENTINEL, exact, float("-inf"))
     cd_s, o1 = torch.sort(cd, dim=1, stable=True)
     ex_s = torch.gather(exact, 1, o1)
@@ -1494,15 +1561,16 @@ def _collapse_rows_plain(ids, sums, eligible, col, cmax):
 # --------------------------------------------------------------------------
 
 def dense_rows(post, offsets, lens, tconst, scoring, bits, classes, deleted,
-               params):
+               spec, uniq=None):
     """The rows of the dense match-all path (executor.py _execute_dense
     1242-1280): one per (query, doc) over all ND+1 docs.
 
     post: (docids i32[P], wdf f32[P], doclen f32[P]); offsets / lens /
-    bits i32[B,T], tconst / scoring f32[B,T]; classes[t]: the rows of term
-    t's slice, of which the first min(lens, classes[t]) count (a plan
-    without terms has every lens 0); deleted bool[ND+1], the last doc the
-    pad doc; params = BM25.kernel_params.
+    bits i32[B,T], scoring f32[B,T], tconst f32[B,T] or f32[B,T,C];
+    classes[t]: the rows of term t's slice, of which the first min(lens,
+    classes[t]) count (a plan without terms has every lens 0); deleted
+    bool[ND+1], the last doc the pad doc; spec and uniq (read at the doc)
+    as score_slices takes them.
     -> ids i32[B,ND+1] (the row index), scores f32[B,ND+1] (the doc's
        weights added in term order; the pad doc 0), orbits i32[B,ND+1]
        (the OR of the group bits of the terms holding the doc), live
@@ -1515,17 +1583,22 @@ def dense_rows(post, offsets, lens, tconst, scoring, bits, classes, deleted,
     for name, t, dt in (("offsets", offsets, torch.int32),
                         ("lens", lens, torch.int32),
                         ("bits", bits, torch.int32),
-                        ("tconst", tconst, torch.float32),
                         ("scoring", scoring, torch.float32)):
         _check(f"dense_rows.{name}", t, dt, (B, T))
+    C = _constants("dense_rows.tconst", tconst, (B, T))
+    uniq = _check_uniq("dense_rows", spec, uniq)
     for t, dt in zip(post, (torch.int32, torch.float32, torch.float32)):
         _check("dense_rows.postings", t, dt)
     _check("dense_rows.deleted", deleted, torch.bool)
     nd1 = deleted.shape[0]
+    if uniq is not None and uniq.shape[0] != nd1:
+        raise ValueError(f"dense_rows: uniq has {uniq.shape[0]} rows, not "
+                         f"{nd1}")
+    opt = [uniq] if uniq is not None else []
     if not _on_cuda("dense_rows", offsets, lens, tconst, scoring, bits,
-                    deleted, *post):
+                    deleted, *post, *opt):
         return _dense_rows_plain(post, offsets, lens, tconst, scoring, bits,
-                                 classes, deleted, params)
+                                 classes, deleted, spec, uniq)
     dev = offsets.device
     ids = torch.empty((B, nd1), dtype=torch.int32, device=dev)
     scores = torch.empty((B, nd1), dtype=torch.float32, device=dev)
@@ -1536,13 +1609,13 @@ def dense_rows(post, offsets, lens, tconst, scoring, bits, classes, deleted,
             offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
             scoring.data_ptr(), bits.data_ptr(),
             _ints(classes, dev).data_ptr(), B, T, deleted.data_ptr(), nd1,
-            *params, ids.data_ptr(), scores.data_ptr(), orbits.data_ptr(),
-            live.data_ptr(), _stream())
+            *_spec_args(spec, C, uniq), ids.data_ptr(), scores.data_ptr(),
+            orbits.data_ptr(), live.data_ptr(), _stream())
     return ids, scores, orbits, live
 
 
 def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
-                      deleted, params):
+                      deleted, spec, uniq=None):
     """_execute_dense's scatters: per term the slice's docids (the pad doc
     past lens) scatter the weight into the scores and the group bit into
     the masks; each term holds a doc once, so the adds of one doc follow
@@ -1559,8 +1632,10 @@ def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
         idx = start[:, None] + torch.arange(W, device=dev)
         inl = torch.arange(W, device=dev)[None, :] < lens[:, t:t + 1]
         d = torch.where(inl, post[0][idx], nd1 - 1).long()
-        w = bm25_sumpart(post[1][idx], post[2][idx], tconst[:, t:t + 1],
-                         params) * scoring[:, t:t + 1]
+        # the doc's uniqterms (executor.py:1266-1269)
+        u = uniq[d] if uniq is not None else None
+        w = _scored(scheme_sumpart(spec, post[1][idx], post[2][idx],
+                                   _tc(tconst, t), u), scoring[:, t:t + 1])
         scores.scatter_add_(1, d, torch.where(inl, w, 0.0))
         hit = torch.zeros_like(orbits).scatter_reduce_(
             1, d, inl.to(torch.int32), "amax")
@@ -1579,7 +1654,7 @@ def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
 # --------------------------------------------------------------------------
 
 def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
-                  max_specs, syn_groups, syn_tconst, params):
+                  max_specs, syn_groups, syn_tconst, spec, uniq=None):
     """The per-doc sums of a plan with OP_MAX or OP_SYNONYM (executor.py
     execute 746-756, 787-812), on merge_docs' rows.
 
@@ -1587,8 +1662,9 @@ def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
     widths per term; bits / offsets i32[B,T]; post_wdf / post_doclen
     f32[P]; max_specs: ExecConfig.max_specs (per spec its branch masks
     over group bits); syn_groups: ExecConfig.syn_groups (one mask each);
-    syn_tconst f32[B,NS], NS >= len(syn_groups) (None without synonyms);
-    params = BM25.kernel_params.
+    syn_tconst f32[B,NS] or f32[B,NS,C], NS >= len(syn_groups) (None
+    without synonyms); spec and uniq (read at the row's doc) as
+    score_slices takes them.
     -> sums f32[B,R], on every real row of a doc, 0 on SENTINEL rows: the
        doc's weights in term order without the terms of any branch mask;
        plus per max spec the maximum over its branches of the branch
@@ -1612,35 +1688,39 @@ def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
     _check("merge_special.post_doclen", post_doclen, torch.float32,
            post_wdf.shape)
     opt = []
-    NS = 0
+    NS = C = 0
+    uniq_used = None
     if syn_groups:
-        if syn_tconst is None or syn_tconst.dim() != 2 or \
+        if syn_tconst is None or syn_tconst.dim() not in (2, 3) or \
                 syn_tconst.shape[1] < len(syn_groups):
             raise ValueError("merge_special: synonym groups need syn_tconst "
-                             f"f32[B, >= {len(syn_groups)}]")
+                             f"f32[B, >= {len(syn_groups)}(, C)]")
         NS = syn_tconst.shape[1]
-        _check("merge_special.syn_tconst", syn_tconst, torch.float32,
-               (B, NS))
+        C = _constants("merge_special.syn_tconst", syn_tconst, (B, NS))
         opt.append(syn_tconst)
+        uniq_used = _check_uniq("merge_special", spec, uniq)
+        if uniq_used is not None:
+            opt.append(uniq_used)
     if not _on_cuda("merge_special", ids, w, bits, offsets, post_wdf,
                     post_doclen, *opt):
         return _merge_special_plain(ids, w, widths, bits, offsets, post_wdf,
                                     post_doclen, max_specs, syn_groups,
-                                    syn_tconst, params)
+                                    syn_tconst, spec, uniq_used)
     dev = ids.device
-    spec = [len(max_specs)]
+    table = [len(max_specs)]
     for br in max_specs:
-        spec += [len(br), *(_i32(m) for m in br)]
-    spec += [len(syn_groups), *(_i32(m) for m in syn_groups)]
+        table += [len(br), *(_i32(m) for m in br)]
+    table += [len(syn_groups), *(_i32(m) for m in syn_groups)]
     sums = torch.empty((B, R), dtype=torch.float32, device=dev)
     _launch("merge_special", "xt_merge_special", ids.data_ptr(),
             w.data_ptr(), _ints(widths, dev).data_ptr(),
             _ints(row_offsets(widths), dev).data_ptr(), B, T, R,
             bits.data_ptr(), offsets.data_ptr(), post_wdf.data_ptr(),
             post_doclen.data_ptr(), post_wdf.shape[0],
-            _ints(tuple(spec), dev).data_ptr(), _ptr(syn_tconst if syn_groups
-                                                     else None), NS,
-            *params, sums.data_ptr(), _stream())
+            _ints(tuple(table), dev).data_ptr(),
+            _ptr(syn_tconst if syn_groups else None), NS,
+            *_spec_args(spec, C, uniq_used), _nd1(uniq_used),
+            sums.data_ptr(), _stream())
     return sums
 
 
@@ -1653,7 +1733,7 @@ def _i32(m: int) -> int:
 
 def _merge_special_plain(ids, w, widths, bits, offsets, post_wdf,
                          post_doclen, max_specs, syn_groups, syn_tconst,
-                         params):
+                         spec, uniq=None):
     B, R = ids.shape
     dev = ids.device
     ro = row_offsets(widths)
@@ -1693,9 +1773,12 @@ def _merge_special_plain(ids, w, widths, bits, offsets, post_wdf,
     if syn_groups:
         dl = torch.cat(dl_parts, 1)
         dl = torch.where(dl > 0, dl, 1.0)
+        # the doc's uniqterms at min(docid, ND) (executor.py:807-811)
+        u = uniq[ids.clamp(max=uniq.shape[0] - 1)] if uniq is not None \
+            else None
         for i, m in enumerate(syn_groups):
             ssum = masked_sum(wdft, m)
-            sw = bm25_sumpart(ssum, dl, syn_tconst[:, i:i + 1], params)
+            sw = scheme_sumpart(spec, ssum, dl, _tc(syn_tconst, i), u)
             sums = sums + torch.where(ssum > 0, sw, 0.0)
     return torch.where(real, sums, 0.0)
 

@@ -69,8 +69,10 @@ class SegmentSearcher:
         """One bound plan (query/plan.py bind) against the segment: the
         single-query entry point, and the only one that collapses
         (``bind(collapse_slot=...)``). stats: {"N", "avg_doclen",
-        "doclen_lower", "doclen_upper", "total_len"}, of which BM25 reads
-        the first two. -> numpy arrays without a query axis: docids i32[k],
+        "doclen_lower", "doclen_upper", "total_len"}; the scheme's query
+        length is the bound plan's ``qlen``, as JAX's execute reads it
+        (xapiand_tpu/ops/executor.py:636-641). -> numpy arrays without a
+        query axis: docids i32[k],
         scores f32[k], count i32[()] (taken before a collapse), aggs with
         aggregations, certified bool[()] where the plan certifies.
 
@@ -93,6 +95,7 @@ class SegmentSearcher:
         if "sort_strtabs" in arrays:
             batch["sort_strtabs"] = {si: up(t) for si, t in
                                      arrays["sort_strtabs"].items()}
+        stats = {**stats, "query_length": float(arrays.get("qlen", 1.0))}
         out = execute_batch(self.device_segment.arrays_pytree(), batch, cfg,
                             stats, scheme)
         return _tree_map(lambda a: a[0].cpu().numpy(), out)
