@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its six main paths.
+"""Smoke test of the torch port on one CUDA card: its seven main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -64,7 +64,7 @@ w)" by relevance and 64 dense plans by price desc. Kernels: collapse_rows
 score_slices, merge_docs, filter_leaves, sort_topk, topk_rows (with the
 collapse's tie ranks), agg_metrics, agg_buckets. Every one of them is held
 against its plain version inside a run of the path itself, at every launch
-it gets (``Held``), twice bit for bit.
+it gets (``Held``), twice bit for bit, and timed at its widest launch.
 
 Schemes path - every weight scheme of the JAX package (K18) through the
 serving paths, over the relevance path's corpus (its docs' distinct terms
@@ -77,10 +77,10 @@ defaults, LM's four other smoothings, BM25) each over 64 of bench.py's
 ORs (the draw continued past its 1,024: 1,280 queries) through
 BatchSearcher(prefix_cap=8192, k=10) - BM25 and BM25Plus in impact-prefix
 mode with its exact re-runs, the others on the exact path - and the
-catalogue, 32 N (dense; its right side scores nothing), 32 D (dense and
+catalogue, 16 N (dense; its right side scores nothing), 16 D (dense and
 scored: AND_MAYBE(match_all, OR(w, w)) on N's words, ranked by docid as
 JAX ranks a dense plan without a sort, its scores held to the oracle, and
-dense_rows must return nonzero scores), 32 S (synonym), 32 X (OP_MAX)
+dense_rows must return nonzero scores), 16 S (synonym), 16 X (OP_MAX)
 queries of utils/synth_browse.py (seed 13) through BatchSearcher.run and
 32 relevance C calls of SegmentSearcher.execute with their collapse, under
 TfIdf, PL2, DiceCoeff and LM absolute discount, and C alone under every
@@ -91,6 +91,25 @@ every launch (``Held``), bit for bit (max abs err 0.0), twice; every answer
 is held to utils/synth_schemes.py's float64 oracle at each scheme's
 derived tolerance (counts exact, an impact-prefix answer's count the docs
 of the rows it read); every scheme but Bool returns a nonzero score.
+
+Database path - the port's own Database (xapiand_tpu_torch/database.py)
+at full width over utils/synth_docs.py's bank / netlog corpus: 200k JSON
+documents (docs/EXAMPLES.md's /bank and /netlog shapes: text, numbers,
+dates, IPv4 / IPv6 addresses, 10% of docs with several, geo points)
+indexed through Database.index_document in 4 commits, then 1% deleted and
+0.5% replaced; 512 Database.search calls in 8 families of 64 (H
+histograms, R ranges + median, F filter + percentiles, N terms >
+histogram > median, I ip_range + geo_ip, G geo_trixels + geo_distance, M
+match-all count-only carrying 3-4 bundles: the dense path, P modes and
+medians) and 256 plain term queries, which the native host scorer answers
+(XT_HOST_PATH at its default; the earlier paths run with it 0, the device
+path). The counted run's launches, routes, host ms a call and bind ms;
+every answer against synth_docs' float64 oracle (in forked numpy workers);
+one profiled window's device-busy share; then every K17c launch
+(agg_buckets' code modes, agg_ranges, agg_hist, agg_filter) of the 512
+searches held against its plain version, each kernel timed at its widest
+launch beside its bound and its library yardstick (torch.bincount for
+agg_buckets' counts and agg_hist, torch.searchsorted for agg_filter).
 
 The geo path ends with an aggregation run: the 256 T queries again through
 a BatchSearcher with ``_geo_bounds`` of loc and ``_cardinality`` of ts
@@ -147,8 +166,11 @@ the one that dominates; library_ms: for geo_leaves the torch.searchsorted
 calls of its two counts, for topk_rows torch.topk of the masked scores
 (ties in no fixed order), for dense_rows one scatter_add_ of the term
 weights, for agg_distinct torch.unique of the batch's packed keys plus
-scatter_reduce_(amax) of the registers, null elsewhere: no single PyTorch
-call computes any of the other functions); the last line is {"ok": true,
+scatter_reduce_(amax) of the registers, for agg_buckets (its K17c modes)
+and agg_hist torch.bincount of the rows' bucket (and bin) codes, for
+agg_filter torch.searchsorted of the rows' docids in each term's postings,
+null elsewhere: no single PyTorch call computes any of the other
+functions); the last line is {"ok": true,
 "device": {...}}.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
@@ -172,8 +194,12 @@ FACETED_DOCS, FACETED_PER_FAMILY = 1_000_000, 256
 POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
 GEO_DOCS, GEO_P, GEO_T = 1_000_000, 1024, 256
 BROWSE_M, BROWSE_N, BROWSE_S, BROWSE_X, BROWSE_C = 256, 128, 256, 256, 128
+DB_DOCS, DB_COMMITS, DB_EACH, DB_TERMS = 200_000, 4, 64, 256
 MAX_BATCH, PREFIX_CAP = 256, 8192
-SCHEME_RELEVANCE, SCHEME_CATALOGUE = 64, 32   # queries a scheme
+# queries a scheme; the catalogue's float64 oracles are the schemes path's
+# largest cost (PERF.md section 5), so its depth is 16 a family since the
+# Database path came in (32 before it)
+SCHEME_RELEVANCE, SCHEME_CATALOGUE = 64, 16
 ORACLE_RTOL = 1e-5        # float32 device sums vs the float64 oracle
 KERNEL_RTOL = 1e-6        # kernel vs plain version: same float32 op order
 AGG_RTOL = 1e-5           # aggregation sums: float32, another add order
@@ -212,6 +238,12 @@ SOURCES = {
                       "xapiand_tpu/ops/executor.py:746"),
     "agg_distinct": ("xapiand_tpu_torch/csrc/agg_distinct.cu",
                      "xapiand_tpu/ops/aggs.py:424"),
+    "agg_ranges": ("xapiand_tpu_torch/csrc/agg_ranges.cu",
+                   "xapiand_tpu/ops/aggs.py:396"),
+    "agg_hist": ("xapiand_tpu_torch/csrc/agg_hist.cu",
+                 "xapiand_tpu/ops/aggs.py:52"),
+    "agg_filter": ("xapiand_tpu_torch/csrc/agg_filter.cu",
+                   "xapiand_tpu/ops/aggs.py:199"),
 }
 RELEVANCE_KERNELS = ("score_slices", "merge_docs", "topk_rows",
                      "prefix_certify")
@@ -223,6 +255,11 @@ POSITIONAL_KERNELS = ("score_slices", "merge_docs", "phrase_leaves",
 GEO_KERNELS = ("score_slices", "merge_docs", "geo_leaves", "filter_leaves",
                "sort_topk")
 GEO_AGG_KERNELS = GEO_KERNELS + ("agg_metrics", "agg_distinct")
+K17C_KERNELS = ("agg_buckets", "agg_ranges", "agg_hist", "agg_filter")
+# the kernels the Database path launches: the text ORs' relevance path,
+# the match-all family's dense path, and every aggregation kernel
+DATABASE_KERNELS = ("score_slices", "merge_docs", "topk_rows", "dense_rows",
+                    "filter_leaves", "agg_metrics") + K17C_KERNELS
 BROWSE_KERNELS = ("score_slices", "merge_docs", "filter_leaves", "sort_topk",
                   "topk_rows", "agg_metrics", "agg_buckets", "collapse_rows",
                   "dense_rows", "merge_special", "agg_distinct")
@@ -253,8 +290,10 @@ def max_err(a, b):
 
     a, b = a.double(), b.double()
     fin = torch.isfinite(a) & torch.isfinite(b)
+    # the non-finite values equal, a NaN equal to a NaN
     if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or \
-            not torch.equal(a[~fin], b[~fin]):
+            not torch.equal(a[~fin].isnan(), b[~fin].isnan()) or \
+            not torch.equal(a[~fin].nan_to_num(0.0), b[~fin].nan_to_num(0.0)):
         return float("inf")
     return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
 
@@ -283,15 +322,23 @@ def max_ulps(got, want):
             iy = y.view(torch.int32).long()
             ix = torch.where(ix < 0, -2**31 - ix, ix)
             iy = torch.where(iy < 0, -2**31 - iy, iy)
-            ulps = max(ulps, int((ix - iy).abs().max()))
+            both = x.isnan() & y.isnan()   # a NaN is a NaN, any payload
+            ulps = max(ulps, int(torch.where(both, 0, (ix - iy).abs())
+                                 .max()))
     return ulps
 
 
 def check_equal(name, a, b):
+    """Equal tensors, a NaN equal to a NaN (the scores of the schemes that
+    are NaN at a non-scoring term's constants, as JAX's are)."""
     import torch
 
-    if (a is None) != (b is None) or (a is not None and
-                                      not torch.equal(a, b)):
+    if (a is None) != (b is None) or (a is not None and not (
+            torch.equal(a, b) or (a.is_floating_point() and
+                                  a.shape == b.shape and
+                                  torch.equal(a.isnan(), b.isnan()) and
+                                  torch.equal(a.nan_to_num(0.0),
+                                              b.nan_to_num(0.0))))):
         raise AssertionError(f"{name}: kernel and plain version differ")
 
 
@@ -361,11 +408,6 @@ class Recorder:
         self.line[name] = (round(ms, 4), round(plain_ms, 4),
                            round(max(b_ms, o_ms), 4)) + (
             (round(library_ms, 4),) if library_ms is not None else ())
-
-    def worst(self, name, err):
-        """A further comparison of an already timed shape: its error."""
-        self.rec[name]["max_abs_err"] = max(self.rec[name]["max_abs_err"],
-                                            err)
 
     def flush(self, what):
         log(f"[kernels] {what}: kernel/plain/bound(/library) ms "
@@ -1245,24 +1287,209 @@ def held_geo(a):
             lambda: searchsorted_ms(cols, specs, queries, ids))
 
 
-def held_buckets(a):
+# bytes a bucket code reads per eligible row, by agg_buckets mode
+CODE_BYTES = {"terms": 4, "missing": 1, "mask": 1, "histogram": 5,
+              "range": 5, "trixels": 12}
+
+
+def _code_rows(mode, codes):
+    """The rows of the column(s) a bucket mode reads by docid, or None."""
+    if mode == "mask" or codes is None:
+        return None
+    if isinstance(codes, dict):
+        return (codes["doc_off"] if mode == "trixels"
+                else codes["fval"]).shape[0]
+    return codes.shape[0]
+
+
+def held_buckets(a, **kw):
+    """agg_buckets: terms / missing (K17a) and the K17c modes (histogram,
+    a nested level, geo_trixels, the filter mask)."""
     from xapiand_tpu_torch.ops import kernels as kn
 
     ids, elig, mode, codes, nb = a[:5]
-    subs = a[5] if len(a) > 5 else ()
+    subs = a[5] if len(a) > 5 else kw.get("subs", ())
+    prev, size = kw.get("prev"), kw.get("size") or nb
+    want_codes, clamp = kw.get("want_codes", False), kw.get("sub_clamp", 0)
+
+    def plain():
+        return kn._agg_buckets_plain(ids, elig, mode, codes, nb, subs, prev,
+                                     size, want_codes, clamp)
 
     def check(got, want):
         check_equal("agg_buckets counts", got[0], want[0])
+        if want_codes:
+            check_equal("agg_buckets codes", got[2], want[2])
         return check_stats("agg_buckets", got[1], want[1]) if subs else 0.0
 
     B, R = ids.shape
     n_val = sum(c is not None for c in subs)
-    return (lambda: kn._agg_buckets_plain(ids, elig, mode, codes, nb, subs),
-            check, f"B={B} R={R} {mode} nb={nb} subs={len(subs)}",
-            lambda: work_selected(B, R, 5, n_true(elig), 4 + 5 * n_val,
-                                  4 * B * nb * (1 + 5 * len(subs)),
-                                  codes.shape[0] if codes is not None
-                                  else None), None)
+
+    def work():
+        # eligible flag and docid a row (the mask a row in mask mode), the
+        # code's column bytes and each value sub's fval and flag per
+        # eligible row; the counts and statistics out. A nested level's
+        # codes, written for the next level and read back by it, are the
+        # chain's own intermediates, not the function's
+        per_sel = CODE_BYTES[mode] + 5 * n_val
+        out = 4 * B * size * (1 + 5 * len(subs)) + \
+            (4 * B * nb if mode == "trixels" else 0)
+        per_row = 5 + (1 if mode == "mask" else 0)
+        return work_selected(B, R, per_row, n_true(elig), per_sel, out,
+                             _code_rows(mode, codes))
+
+    def library():
+        # torch.bincount of each eligible row's (query, bucket) code: the
+        # counts, not the sub statistics
+        import torch
+
+        code = kn._agg_buckets_plain(ids, elig, mode, codes, nb, (), prev,
+                                     size, True)[2]
+        flat = (code + size * torch.arange(B, device=ids.device)[:, None])
+        flat = flat[code >= 0]
+        return cuda_ms(lambda: torch.bincount(flat, minlength=B * size),
+                       reps=5)
+
+    return (plain, check,
+            f"B={B} R={R} {mode} nb={nb} size={size} subs={len(subs)}",
+            work, library if mode not in ("terms", "missing") else None)
+
+
+def held_ranges(a, **kw):
+    """agg_ranges (K17c): range, geodist_range, key_range, geo_ip."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, mode, col, bounds, nb = a[:6]
+    subs = a[6] if len(a) > 6 else kw.get("subs", ())
+    vmax, assign, origin = kw.get("vmax", 1), kw.get("assign"), \
+        kw.get("origin")
+    want_member = kw.get("want_member", False)
+
+    def plain():
+        return kn._agg_ranges_plain(ids, elig, mode, col, bounds, nb, subs,
+                                    vmax, assign, origin, want_member)
+
+    def check(got, want):
+        check_equal("agg_ranges counts", got[0], want[0])
+        if want_member:
+            check_equal("agg_ranges member", got[2], want[2])
+        return check_stats("agg_ranges", got[1], want[1]) if subs else 0.0
+
+    B, R = ids.shape
+    n_val = sum(c is not None for c in subs)
+    nr = bounds.shape[1]
+
+    def work():
+        # per eligible row its value(s): fval (+ fval2) or four key words
+        # and, for a doc of several values, its per-value keys, and each
+        # value sub's fval and flag; a test per range (geo_ip: per
+        # interval); the counts and statistics out. The byte a (row,
+        # range) of membership that the kernel writes for its subs pass
+        # and reads back is the design's intermediate, not the function's
+        keyed = mode in ("key", "geo_ip")
+        per_sel = 4 + 1 + (16 if keyed else (8 if mode == "geodist" else 4))
+        sel = n_true(elig)
+        mv = 0
+        if keyed and vmax > 1 and "mv_len" in col:
+            d = ids[elig].clamp(max=col["mv_len"].shape[0] - 1).long()
+            mv = 8 * int(col["mv_len"][d].sum())
+        out = 4 * B * nb * (1 + 5 * len(subs)) + 5 * n_val * sel
+        b, o = work_selected(B, R, 1, sel, per_sel,
+                             out + mv + bounds.numel() * 4,
+                             col["present"].shape[0])
+        return b, o + sel * nr * (20 if mode == "geodist" else 2)
+
+    return (plain, check,
+            f"B={B} R={R} {mode} nr={nr} nb={nb} vmax={vmax} "
+            f"subs={len(subs)}", work, None)
+
+
+def held_hist(a, **kw):
+    """agg_hist (K17c): order-statistic histograms."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, fval, present, params, nbins = a[:6]
+    codes, member, nb = kw.get("codes"), kw.get("member"), kw.get("nb", 1)
+    if member is not None:
+        nb = member.shape[2]
+
+    def plain():
+        return kn._agg_hist_plain(ids, elig, fval, present, params, nbins,
+                                  codes, member, nb)
+
+    def check(got, want):
+        check_equal("agg_hist", got, want)
+        return 0.0
+
+    B, R = ids.shape
+
+    def work():
+        sel = n_true(elig)
+        per_sel = 4 + 5 + (4 if codes is not None else 0) + \
+            (nb if member is not None else 0)
+        b, o = work_selected(B, R, 1, sel, per_sel, 4 * B * nb * nbins,
+                             fval.shape[0])
+        return b, o + 3 * sel
+
+    def library():
+        # torch.bincount of each counted row's (query, bucket, bin) index
+        d = ids.clamp(max=fval.shape[0] - 1).long()
+        m = elig & present[d]
+        vb = kn.value_bins(fval[d], params, nbins)
+        if member is not None:
+            bi, ri, ji = (member & m[:, :, None]).nonzero(as_tuple=True)
+        else:
+            c = torch.zeros_like(vb) if codes is None else codes.long()
+            bi, ri = (m & (c >= 0)).nonzero(as_tuple=True)
+            ji = c[bi, ri]
+        flat = (bi * nb + ji) * nbins + vb[bi, ri]
+        return cuda_ms(lambda: torch.bincount(flat,
+                                              minlength=B * nb * nbins),
+                       reps=5)
+
+    mode = "codes" if codes is not None else \
+        ("member" if member is not None else "one")
+    return (plain, check, f"B={B} R={R} {mode} nb={nb} bins={nbins}", work,
+            library)
+
+
+def held_afilter(a):
+    """agg_filter (K17c): the filter bucket's posting lookups."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, elig, post, spans, Lf = a[:5]
+
+    def plain():
+        return kn._agg_filter_plain(ids, elig, post, spans, Lf)
+
+    def check(got, want):
+        check_equal("agg_filter", got, want)
+        return 0.0
+
+    B, R = ids.shape
+    nt = spans.shape[1]
+
+    def work():
+        sel = n_true(elig)
+        span = int(spans[..., 1].sum())
+        b, o = work_selected(B, R, 2, sel, 4 * nt, B * R + 4 * span)
+        return b, o + sel * nt * log2c(Lf)
+
+    def library():
+        # torch.searchsorted of every row's docid in each term's span
+        sp = spans.cpu().tolist()
+
+        def run():
+            for b in range(B):
+                for off, ln in sp[b]:
+                    torch.searchsorted(post[off:off + ln], ids[b])
+        return cuda_ms(run, reps=5)
+
+    return (plain, check, f"B={B} R={R} terms={nt} Lf={Lf}", work, library)
 
 
 def held_sort(a):
@@ -1313,18 +1540,21 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_metrics": held_metrics, "score_slices": held_slices,
         "merge_docs": held_merge, "compact_rows": held_compact,
         "filter_leaves": held_filter, "geo_leaves": held_geo,
-        "agg_buckets": held_buckets, "prefix_certify": held_certify}
+        "agg_buckets": held_buckets, "prefix_certify": held_certify,
+        "agg_ranges": held_ranges, "agg_hist": held_hist,
+        "agg_filter": held_afilter}
 
 
 class Held:
     """Inside the block, every call the port makes to one of ``names`` (a
     wrapper of ops/kernels.py) is held against the kernel's plain version
     on the call's own tensors: the kernel is launched twice (bit for bit
-    the same), compared, and - the first time a shape is seen - timed
-    beside the plain version, its bound and its library yardstick. The
-    call then returns the kernel's result, so the run goes on as the port
-    runs it. ``calls`` counts the calls held, per kernel, and ``nonzero``
-    the nonzero floats the kernel returned over them."""
+    the same) and compared, and the call returns the kernel's result, so
+    the run goes on as the port runs it. After the block each kernel is
+    timed at its widest launch (the most bytes of its bound), beside the
+    plain version, its bound and its library yardstick. ``calls`` counts
+    the calls held, per kernel, and ``nonzero`` the nonzero floats the
+    kernel returned over them."""
 
     def __init__(self, rec, tag, names, exact=False):
         """exact: every float the kernel returns must be the plain
@@ -1332,7 +1562,7 @@ class Held:
         self.rec, self.tag, self.exact = rec, tag, exact
         self.calls = {n: 0 for n in names}
         self.nonzero = {n: 0 for n in names}
-        self.timed: set = set()
+        self.widest: dict = {}
         self.saved: dict = {}
 
     def __enter__(self):
@@ -1348,11 +1578,19 @@ class Held:
 
         for name, fn in self.saved.items():
             setattr(kn, name, fn)
+        if exc[0] is None:
+            for name, (_b, err, key, run, plain, work, library) in \
+                    self.widest.items():
+                self.rec.note(name, err, cuda_ms(run, reps=5),
+                              cuda_ms(plain, reps=2), work,
+                              library() if library else None)
+                self.rec.flush(f"{self.tag} widest {key}")
+        self.widest.clear()
 
     def hold(self, name, kernel):
-        def held(*args):
-            plain, check, key, work, library = HELD[name](args)
-            got = twice(name, lambda: kernel(*args))
+        def held(*args, **kw):
+            plain, check, key, work, library = HELD[name](args, **kw)
+            got = twice(name, lambda: kernel(*args, **kw))
             want = plain()
             err = check(got, want)
             if self.exact and err != 0.0:
@@ -1363,15 +1601,15 @@ class Held:
             self.nonzero[name] += sum(int(x.count_nonzero())
                                       for x in leaves(got)
                                       if x.is_floating_point())
-            if (name, key) in self.timed:
-                self.rec.worst(name, err)
+            w = work()
+            best = self.widest.get(name)
+            err = max(err, best[1] if best else 0.0)
+            if best is None or w[0] > best[0]:
+                self.widest[name] = (w[0], err, key,
+                                     lambda: kernel(*args, **kw), plain, w,
+                                     library)
             else:
-                self.timed.add((name, key))
-                self.rec.note(name, err,
-                              cuda_ms(lambda: kernel(*args), reps=5),
-                              cuda_ms(plain, reps=2), work(),
-                              library() if library else None)
-                self.rec.flush(f"{self.tag} {key}")
+                self.widest[name] = best[:1] + (err,) + best[2:]
             return got
 
         return held
@@ -1531,8 +1769,8 @@ def browse_path(dev, rec, smi, corpus, searcher) -> dict:
         run_all()
     torch.cuda.empty_cache()
     log(f"[kernels] browse: every launch equal to its plain version, the "
-        f"kernels twice bit for bit: {held.calls} launches held, "
-        f"{len(held.timed)} shapes timed ({time.time() - t0:.1f} s)")
+        f"kernels twice bit for bit: {held.calls} launches held, each "
+        f"kernel timed at its widest ({time.time() - t0:.1f} s)")
     if not all(held.calls.values()):
         raise AssertionError(f"a browse kernel was never held: {held.calls}")
 
@@ -2667,8 +2905,8 @@ def geo_aggregations(searcher, corpus, qs, want, stats, rec) -> dict:
         bs.run(irs, stats=stats)
         torch.cuda.synchronize()
     log(f"[kernels] geo aggregations: every launch equal to its plain "
-        f"version, twice bit for bit: {held.calls} launches held, "
-        f"{len(held.timed)} shapes timed")
+        f"version, twice bit for bit: {held.calls} launches held, each "
+        f"kernel timed at its widest")
     if not all(held.calls[n] for n in GEO_AGG_KERNELS):
         raise AssertionError(f"a geo aggregation kernel was never held: "
                              f"{held.calls}")
@@ -2716,6 +2954,215 @@ def geo_aggregations(searcher, corpus, qs, want, stats, rec) -> dict:
     return counts
 
 
+_ORACLE: dict = {}
+
+
+def _oracle_job(i):
+    """The oracle's verdict on result i of the Database path (a forked
+    worker's job): None, or what differs."""
+    from xapiand_tpu_torch.utils import synth_docs as sd
+
+    db, truth, qs, terms, results = _ORACLE["state"]
+    r = results[i]
+    if i >= len(qs):
+        err = sd.check_hits(db, r, sd.oracle_search(db, truth,
+                                                    terms[i - len(qs)]), K)
+        return err[:200] if err else None
+    _fam, q, aggs, count_only = qs[i]
+    want = sd.oracle_search(db, truth, q, aggs=aggs, count_only=count_only)
+    err = sd.compare_aggs(r.aggregations, want["aggregations"])
+    if not err and count_only and r.total != want["total"]:
+        err = f"total {r.total} != {want['total']}"
+    if not err and not count_only:
+        err = sd.check_hits(db, r, want, K)
+    return err[:300] if err else None
+
+
+def database_path(dev, rec, smi) -> dict:
+    """Slice 8: the port's Database at full width - the bank / netlog
+    corpus of utils/synth_docs.py indexed through Database.index_document
+    in DB_COMMITS commits, 1% deleted and 0.5% replaced after the last,
+    then DB_EACH aggregated searches of each of its 8 families and DB_TERMS
+    plain term queries (host-routed), gated by its float64 oracle."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch import database as dbm
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.search import SegmentSearcher
+    from xapiand_tpu_torch.utils import synth_docs as sd
+
+    os.environ["XT_HOST_PATH"] = "1"   # the default: Database routes
+    t0 = time.time()
+    corpus = sd.build_corpus(DB_DOCS, seed=7)
+    docs = [corpus.doc(i) for i in range(DB_DOCS)]
+    log(f"[corpus] database: {DB_DOCS} bank / netlog docs "
+        f"{time.time() - t0:.1f} s")
+    db = dbm.Database(device=dev)
+    t_index = t_commit = 0.0
+    per = DB_DOCS // DB_COMMITS
+    commits = [range(c * per, DB_DOCS if c == DB_COMMITS - 1
+                     else (c + 1) * per) for c in range(DB_COMMITS)]
+    for rows in commits:
+        t0 = time.perf_counter()
+        for i in rows:
+            db.index_document(docs[i], doc_id=str(i))
+        t1 = time.perf_counter()
+        db.commit()
+        t_index += t1 - t0
+        t_commit += time.perf_counter() - t1
+    rng = np.random.Generator(np.random.PCG64(5))
+    gone = rng.choice(DB_DOCS, DB_DOCS // 100, replace=False)
+    for i in gone:
+        db.delete_document(str(i))
+    commits.append(rng.choice(np.setdiff1d(np.arange(DB_DOCS), gone),
+                              DB_DOCS // 200, replace=False))
+    for i in commits[-1]:
+        db.index_document(docs[int(i)], doc_id=str(i))
+    t1 = time.perf_counter()
+    db.commit()
+    t_commit += time.perf_counter() - t1
+    log(f"[index] database: {DB_DOCS / t_index} doc/s through "
+        f"index_document ({t_index:.2f} s); commits {t_commit:.3f} s in all "
+        f"({DB_COMMITS} + 1); segments "
+        f"{[s.segment.num_docs for s in db._searchers]}, live "
+        f"{db.doc_count}")
+    qs, terms = sd.queries(corpus, n_each=DB_EACH, n_terms=DB_TERMS,
+                           seed=11)
+
+    # routes and bind time, counted by wrapping the Database's entries
+    routes = {"host": 0, "device": 0}
+    bind_s = [0.0]
+    orig = (dbm.Database._search_host, SegmentSearcher.execute, dbm.bind)
+
+    def search_host(self, cqs, *a, **kw):
+        routes["host"] += len(cqs)
+        return orig[0](self, cqs, *a, **kw)
+
+    def execute(self, *a, **kw):
+        routes["device"] += 1
+        return orig[1](self, *a, **kw)
+
+    def timed_bind(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return orig[2](*a, **kw)
+        finally:
+            bind_s[0] += time.perf_counter() - t
+
+    dbm.Database._search_host = search_host
+    SegmentSearcher.execute = execute
+    dbm.bind = timed_bind
+
+    try:
+        # warm: the segments' uploads, one search of each family
+        for fam in sd.FAMILIES:
+            _f, q, aggs, count_only = next(x for x in qs if x[0] == fam)
+            db.search(q, k=K, aggs=aggs, count_only=count_only)
+        db.search(terms[0], k=K)
+        torch.cuda.synchronize()
+        kn.reset_launches()
+        routes.update(host=0, device=0)
+        bind_s[0] = 0.0
+        call_ms = []
+        results = []
+        for _fam, q, aggs, count_only in qs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results.append(db.search(q, k=K, aggs=aggs,
+                                     count_only=count_only))
+            torch.cuda.synchronize()
+            call_ms.append(1e3 * (time.perf_counter() - t))
+        term_ms = []
+        for q in terms:
+            t = time.perf_counter()
+            results.append(db.search(q, k=K))
+            term_ms.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        counts = dict(kn.launches)
+        n_exec = routes["device"]
+        log(f"[routes] database: {len(qs)} aggregated searches, "
+            f"{n_exec} SegmentSearcher.execute calls "
+            f"({len(db._searchers)} segments a search); {len(terms)} term "
+            f"queries, {routes['host']} answered by the native host "
+            f"scorer (Database._search_host)")
+        if routes["host"] != len(terms):
+            raise AssertionError(f"database: {routes['host']} of "
+                                 f"{len(terms)} term queries took the host "
+                                 "route")
+        if not all(counts[n] for n in DATABASE_KERNELS):
+            raise AssertionError(f"database launches {counts}")
+        cm, tm = sorted(call_ms), sorted(term_ms)
+        log(f"[latency] database: Database.search host ms a call (fenced), "
+            f"aggregated median {cm[len(cm) // 2]} p99 "
+            f"{cm[int(len(cm) * 0.99)]} max {cm[-1]}; term queries median "
+            f"{tm[len(tm) // 2]} p99 {tm[int(len(tm) * 0.99)]}; bind "
+            f"{1e3 * bind_s[0] / max(n_exec, 1)} ms a call over {n_exec} "
+            f"execute calls; on {smi}")
+        fam_ms = {f: sorted(m for (ff, *_x), m in zip(qs, call_ms)
+                            if ff == f) for f in sd.FAMILIES}
+        log("[latency] database: median ms a call by family " + str(
+            {f: round(m[len(m) // 2], 3) for f, m in fam_ms.items()}))
+
+        # the oracle, in forked workers (numpy on the corpus and the
+        # host's data only; they touch no CUDA state), joined before the
+        # path goes on
+        t0 = time.time()
+        import multiprocessing
+
+        _ORACLE["state"] = (db, sd.Truth(corpus, db, commits, gone), qs,
+                            terms, results)
+        n_proc = max(1, min(8, os.cpu_count() or 1) - 1)
+        with multiprocessing.get_context("fork").Pool(n_proc) as pool:
+            errs = pool.map(_oracle_job, range(len(results)), chunksize=4)
+        _ORACLE.clear()
+        bad = [(qs[i][0], i, e) for i, e in enumerate(errs[:len(qs)]) if e]
+        n_ok = len(qs) - len(bad)
+        bad_t = [(terms[i], e) for i, e in enumerate(errs[len(qs):]) if e]
+        log(f"[parity] database: {n_ok}/{len(qs)} aggregated searches and "
+            f"{len(terms) - len(bad_t)}/{len(terms)} routed term queries "
+            f"equal to the float64 oracle (hits as tie groups, scores "
+            f"within float32 tolerance, counts exact, sums within "
+            f"synth_docs.SUM_RTOL, medians and percentiles exact); oracle "
+            f"{time.time() - t0:.1f} s in {n_proc} processes")
+        if bad or bad_t:
+            raise AssertionError(f"database oracle: {bad[:4]} {bad_t[:4]}")
+
+        # device busy over 64 aggregated searches
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        window = [x for x in qs if x[0] != "M"][:48] + \
+            [x for x in qs if x[0] == "M"][:16]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("smoke.run"):
+                for _fam, q, aggs, count_only in window:
+                    db.search(q, k=K, aggs=aggs, count_only=count_only)
+                torch.cuda.synchronize()
+        busy, span = device_busy(prof, "smoke.run")
+        log(f"[trace] database: {len(window)} searches (48 text, 16 "
+            f"match-all): " + (
+                f"device busy {busy} ms of {span} ms ({100 * busy / span} %)"
+                if busy is not None else
+                f"{span} ms; device busy not measured (no device events)"))
+
+        # every K17c launch of the aggregated searches held against its
+        # plain version; each kernel timed at its widest launch
+        with Held(rec, "database", K17C_KERNELS) as held:
+            for _fam, q, aggs, count_only in qs:
+                db.search(q, k=K, aggs=aggs, count_only=count_only)
+            torch.cuda.synchronize()
+        log(f"[held] database: K17c launches held against their plain "
+            f"versions (twice bit for bit, counts and codes exact, sums "
+            f"within rtol {AGG_RTOL}): {held.calls}")
+        if not all(held.calls.values()):
+            raise AssertionError(f"database held {held.calls}")
+    finally:
+        dbm.Database._search_host, SegmentSearcher.execute, dbm.bind = orig
+        os.environ["XT_HOST_PATH"] = "0"
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2753,6 +3200,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rec = Recorder()
+    # the earlier paths time the device path of BatchSearcher.run; the
+    # Database path routes as the JAX package does (XT_HOST_PATH=1)
+    os.environ["XT_HOST_PATH"] = "0"
     t0 = time.time()
     rel, rel_world = relevance_path(dev, rec, smi)
     torch.cuda.empty_cache()
@@ -2777,13 +3227,17 @@ def main() -> int:
     t0 = time.time()
     geo = geo_path(dev, rec, smi)
     log(f"[time] geo path and its aggregation run {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    dbp = database_path(dev, rec, smi)
+    log(f"[time] database path {time.time() - t0:.1f} s")
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")
 
     print(json.dumps({"kernels": [
         rec.record(name, sum(c.get(name, 0)
-                             for c in (rel, fac, bro, sch, pos, geo)))
+                             for c in (rel, fac, bro, sch, pos, geo, dbp)))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

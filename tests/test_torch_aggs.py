@@ -190,7 +190,7 @@ def test_compute_aggs_vs_jax(world, name):
         jnp.zeros(d.shape, jnp.float32))))(jnp.asarray(ids),
                                            jnp.asarray(elig)))
     paggs.check_aggs(specs)
-    got = paggs.compute_aggs(parr, specs,
+    got = paggs.compute_aggs({"values": parr}, specs,
                              torch.from_numpy(ids), torch.from_numpy(elig))
     got = jax.tree_util.tree_map(lambda t: t.numpy(), got)
     _assert_aggs(got, want)

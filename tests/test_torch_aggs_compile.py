@@ -1,12 +1,11 @@
 """The port's aggregations.compile_for_segment against the JAX package's
 for the kinds whose host modules the port copies (utils/dtutils.py,
-utils/iputils.py, geo/ and native/): _date_range, _ip_range, _geo_ip,
-_geo_distance with an origin and _geo_trixels compile to the same (names,
-specs, arrays, metas), and BatchSearcher refuses them by name (their
-device aggregations are K17c). The kind whose host modules the port has
-not copied yet (_filter: query/dsl.py and the analysis chain) fails on the
-missing module, strictly, until the slice that copies them turns it into
-a pass.
+utils/iputils.py, geo/, native/, and since PR 8 query/dsl.py and the
+analysis chain): _date_range, _ip_range, _geo_ip, _geo_distance with an
+origin, _geo_trixels and _filter compile to the same (names, specs,
+arrays, metas), and BatchSearcher refuses them by name: their device
+aggregations (K17c) run on the single-query path only, as the JAX
+BatchSearcher drops their plan arrays.
 
 The segment is a JAX ``Database`` commit with a date, an IP and a numeric
 field, carried into the port's Segment as tests/test_torch_predicate.py
@@ -106,22 +105,20 @@ def test_repaired_kinds_compile_as_jax(world, kind):
 
 
 STILL_BROKEN = {
-    "filter": ({"f": {"_filter": {"_term": {"body": "w1"}}}},
-               "needs query/dsl.py and the analysis chain: Database, "
-               "ROADMAP queue 1 item 12 and queue 3"),
+    "filter": {"f": {"_filter": {"_term": {"body": "w1"}}}},
 }
 
 
-@pytest.mark.parametrize("kind", [
-    pytest.param(k, marks=pytest.mark.xfail(strict=True,
-                                            raises=ModuleNotFoundError,
-                                            reason=STILL_BROKEN[k][1]))
-    for k in sorted(STILL_BROKEN)])
+@pytest.mark.parametrize("kind", sorted(STILL_BROKEN))
 def test_kinds_without_their_host_modules(world, kind):
-    """The JAX package compiles the kind; the port lacks a module it
-    imports for it."""
+    """The kinds whose host modules the port lacked until PR 8 (_filter:
+    query/dsl.py and the analysis chain) compile as the JAX package's; the
+    port's BatchSearcher refuses them by name (K17c), as the others."""
     schema, jseg, pseg = world
-    dsl = STILL_BROKEN[kind][0]
+    dsl = STILL_BROKEN[kind]
     want = jagg.compile_for_segment(schema, jseg, dsl)
     got = pagg.compile_for_segment(schema, pseg, dsl)
     _assert_same(got, want)
+    ps = SegmentSearcher(pseg, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*K17c"):
+        BatchSearcher(ps, aggs=got[1:3])

@@ -572,6 +572,11 @@ def test_check_supported_refuses_a_collapse_in_prefix_mode():
 
 
 def test_check_aggs_admits_k17b_and_refuses_k17c():
+    """K17b runs on both paths; K17c (here percentiles) runs on the single
+    query path since PR 8 and is refused on the batch path, whose JAX
+    BatchSearcher drops its plan arrays."""
     paggs.check_aggs((("cardinality", 1), ("geo_stats", 2)))
+    paggs.check_aggs((("cardinality", 1), ("geo_stats", 2)), batched=True)
+    paggs.check_aggs((("percentiles", 1, 64),))
     with pytest.raises(NotImplementedError, match="K17c"):
-        paggs.check_aggs((("percentiles", 1, 64),))
+        paggs.check_aggs((("percentiles", 1, 64),), batched=True)

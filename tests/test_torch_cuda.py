@@ -49,6 +49,12 @@ from xapiand_tpu_torch.utils.synth import (build_synthetic_segment,
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _device_path(monkeypatch):
+    # the kernels' path: no query routed to the native host executors
+    monkeypatch.setenv("XT_HOST_PATH", "0")
+
+
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
@@ -292,6 +298,17 @@ def _twice(fn):
     return a
 
 
+def _equal(g, w):
+    """Equal tensors, a NaN equal to a NaN: a non-scoring term's weight
+    under a scheme that is NaN at its constants of 0 is NaN on both sides,
+    as JAX keeps it."""
+    if torch.equal(g, w):
+        return True
+    return g.is_floating_point() and g.shape == w.shape and \
+        torch.equal(g.isnan(), w.isnan()) and \
+        torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -326,10 +343,12 @@ def test_agg_and_fullwidth_kernels_match_plain_versions(faceted):
             sums, elig, _c, _o = kernels.merge_docs(
                 ids, w, widths, batch["group_bits"], seg["deleted"],
                 kernels.tree_program(upper_tree(cfg.tree)))
-            got = _twice(lambda: aggs.compute_aggs(values, specs, ids, elig))
+            got = _twice(lambda: aggs.compute_aggs({"values": values},
+                                                   specs, ids, elig))
             want = aggs.compute_aggs(
-                {k: {c: t.cpu() for c, t in v.items()}
-                 for k, v in values.items()}, specs, ids.cpu(), elig.cpu())
+                {"values": {k: {c: t.cpu() for c, t in v.items()}
+                            for k, v in values.items()}}, specs, ids.cpu(),
+                elig.cpu())
             _assert_aggs(got, want)
             B = ids.shape[0]
             for spec in [("value", P, True), ("value", S, False),
@@ -703,9 +722,11 @@ def test_agg_distinct_matches_plain_version(browse):
     specs = (("geo_stats", sf.SORT_TEST_SLOT), ("geo_stats", sf.PRICE_SLOT),
              ("geo_stats", 99), ("cardinality", sf.SIZE_SLOT))
     assert "fval2" not in values[sf.PRICE_SLOT]
-    got = _twice(lambda: aggs.compute_aggs(values, specs, ids, elig))
-    want = aggs.compute_aggs({k: _cpu_col(v) for k, v in values.items()},
-                             specs, ids.cpu(), elig.cpu())
+    got = _twice(lambda: aggs.compute_aggs({"values": values}, specs, ids,
+                                           elig))
+    want = aggs.compute_aggs(
+        {"values": {k: _cpu_col(v) for k, v in values.items()}}, specs,
+        ids.cpu(), elig.cpu())
     for g, w in zip(got, want):
         for key in w:
             if key in ("slat", "slon"):
@@ -813,8 +834,8 @@ def test_scheme_slices_and_certify_match_plain_versions(scheme_world, label):
                 post, imp, *args, widths, tuple(map(bool, prefix)), spec,
                 uniq)
             for g, w in zip(got, want):
-                assert torch.equal(g, w)
-            nonzero += int((got[1] != 0).sum())
+                assert _equal(g, w)
+            nonzero += int((got[1].nan_to_num(0.0) != 0).sum())
             if cfg.verify_k:
                 n_prefix += 1
                 ids, w, tail = got
@@ -826,7 +847,7 @@ def test_scheme_slices_and_certify_match_plain_versions(scheme_world, label):
                 pres = kernels._prefix_certify_plain(
                     post, *args, cfg.term_classes(), tail, d, s, cfg.k, spec)
                 for g, w in zip(res, pres):
-                    assert torch.equal(g, w)
+                    assert _equal(g, w)
     assert (n_prefix > 0) == (label in ("bm25", "bm25plus"))
     assert (nonzero > 0) == (label != "bool")
     torch.cuda.synchronize()
@@ -861,9 +882,9 @@ def test_scheme_dense_and_special_match_plain_versions(browse, label):
                     cfg.term_classes(), seg["deleted"], spec, uniq)
             got = _twice(lambda: kernels.dense_rows(*args))
             for g, w in zip(got, kernels._dense_rows_plain(*args)):
-                assert torch.equal(g, w)
+                assert _equal(g, w)
             scored = bool(batch["scoring"].any())
-            assert bool((got[1] != 0).any()) == scored
+            assert bool((got[1].nan_to_num(0.0) != 0).any()) == scored
             seen.add("dense scored" if scored else "dense")
             continue
         _p, _i, widths, prefix, _s = _inputs(searcher, cfg, batch)
@@ -874,7 +895,7 @@ def test_scheme_dense_and_special_match_plain_versions(browse, label):
                 seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
                 cfg.syn_groups, batch.get("syn_tconst"), spec, uniq)
         got = _twice(lambda: kernels.merge_special(*args))
-        assert torch.equal(got, kernels._merge_special_plain(*args))
+        assert _equal(got, kernels._merge_special_plain(*args))
         assert bool((got > 0).any())
         seen.add("syn" if cfg.syn_groups else "max")
     assert seen == {"dense", "dense scored", "syn", "max"}
@@ -911,3 +932,112 @@ def test_scheme_search_cuda_matches_oracle(scheme_world, label):
             n = ss.prefix_count(searcher.segment, imp, qs[qi], prefix[qi])
         err = ss.match_ranked(r["docids"], r["scores"], r["count"], o, 10, n)
         assert err is None, (qi, err)
+
+
+# --------------------------------------------------------------------------
+# K17c: the Database's aggregation kernels (agg_buckets' code modes,
+# agg_ranges, agg_hist, agg_filter) on the launches of real searches
+# --------------------------------------------------------------------------
+
+K17C = ("agg_buckets", "agg_ranges", "agg_hist", "agg_filter")
+
+
+@pytest.fixture(scope="module")
+def database(cuda):
+    """The bank / netlog corpus of utils/synth_docs.py in two commits, once
+    on the card and once on the CPU, and its traffic (two searches a
+    family)."""
+    from xapiand_tpu_torch.database import Database
+    from xapiand_tpu_torch.utils import synth_docs as sd
+
+    corpus = sd.build_corpus(3000, seed=7)
+    dbs = []
+    for dev in (cuda, torch.device("cpu")):
+        db = Database(device=dev)
+        for i in range(3000):
+            db.index_document(corpus.doc(i), doc_id=str(i))
+            if i == 1499:
+                db.commit()
+        db.commit()
+        for i in range(0, 3000, 97):
+            db.delete_document(str(i))
+        db.commit()
+        dbs.append(db)
+    qs, terms = sd.queries(corpus, n_each=2, n_terms=8)
+    return dbs, qs, terms
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def _calls(db, qs, names):
+    """Every call the searches make to the named kernel wrappers."""
+    saved = {n: getattr(kernels, n) for n in names}
+    calls = []
+
+    def wrap(name, fn):
+        def f(*a, **kw):
+            calls.append((name, fn, a, kw))
+            return fn(*a, **kw)
+        return f
+
+    for n, fn in saved.items():
+        setattr(kernels, n, wrap(n, fn))
+    try:
+        for _fam, q, aggs_, count_only in qs:
+            db.search(q, k=10, aggs=aggs_, count_only=count_only)
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+    return calls
+
+
+def test_k17c_kernels_match_plain_versions(database):
+    """Each K17c launch of the Database's searches against its plain
+    version on the same inputs: counts, codes, member matrices, masks and
+    histograms equal, n / min / max equal and the sums within rtol 1e-5;
+    two kernel runs bit for bit."""
+    (gdb, _cdb), qs, _terms = database
+    calls = _calls(gdb, qs, K17C)
+    assert {n for n, *_x in calls} == set(K17C)
+    for name, fn, a, kw in calls:
+        got = _twice(lambda: fn(*a, **kw))
+        want = fn(*_to_cpu(a), **_to_cpu(kw))
+        if name in ("agg_hist", "agg_filter"):
+            assert torch.equal(got.cpu(), want), name
+            continue
+        assert torch.equal(got[0].cpu(), want[0]), name
+        if got[1] is not None:
+            for st, (g, w) in enumerate(zip(got[1], want[1])):
+                if st in (1, 2):
+                    np.testing.assert_allclose(_host(g), _host(w),
+                                               rtol=1e-5)
+                else:
+                    assert torch.equal(g.cpu(), w), (name, st)
+        if len(got) > 2:
+            assert torch.equal(got[2].cpu(), want[2]), name
+
+
+def test_database_search_cuda_equals_cpu(database):
+    """The same searches through the Database on the card and on the CPU
+    (plain versions): equal totals and hits, the shaped aggregations
+    equal (sums within synth_docs.SUM_RTOL)."""
+    from xapiand_tpu_torch.utils import synth_docs as sd
+
+    (gdb, cdb), qs, terms = database
+    for _fam, q, aggs_, count_only in qs:
+        g = gdb.search(q, k=10, aggs=aggs_, count_only=count_only)
+        c = cdb.search(q, k=10, aggs=aggs_, count_only=count_only)
+        assert g.total == c.total
+        assert [h.id for h in g.hits] == [h.id for h in c.hits]
+        assert sd.compare_aggs(g.aggregations, c.aggregations) is None
+    for q in terms:
+        assert [(h.id, h.score) for h in gdb.search(q, k=10).hits] == \
+            [(h.id, h.score) for h in cdb.search(q, k=10).hits]

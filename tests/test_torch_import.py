@@ -39,7 +39,12 @@ assert {"xapiand_tpu_torch.search", "xapiand_tpu_torch.query.plan",
         "xapiand_tpu_torch.analysis.accuracy",
         "xapiand_tpu_torch.geo.cartesian", "xapiand_tpu_torch.geo.datum",
         "xapiand_tpu_torch.geo.ewkt", "xapiand_tpu_torch.geo.geospatial",
-        "xapiand_tpu_torch.geo.htm"} <= set(names), names
+        "xapiand_tpu_torch.geo.htm", "xapiand_tpu_torch.database",
+        "xapiand_tpu_torch.analysis.stem", "xapiand_tpu_torch.analysis.termgen",
+        "xapiand_tpu_torch.schema.schema", "xapiand_tpu_torch.query.dsl",
+        "xapiand_tpu_torch.models.builder", "xapiand_tpu_torch.models.merge",
+        "xapiand_tpu_torch.ops.host_scorer", "xapiand_tpu_torch.ops.host_query",
+        "xapiand_tpu_torch.utils.synth_docs"} <= set(names), names
 print("ok", len(names))
 """
 
@@ -63,14 +68,46 @@ def test_port_imports_without_jax_or_a_build():
     assert r.stdout.startswith("ok")
 
 
+DATABASE_ALONE = """
+import sys
+from xapiand_tpu_torch.database import Database
+db = Database(device="cpu")
+db.index_document({"body": "the runners were running quickly", "n": 3},
+                  doc_id="a")
+db.index_document({"body": "a runner runs", "n": 5}, doc_id="b")
+db.commit()
+r = db.search({"body": "run"}, k=5, aggs={"m": {"_median": {"_field": "n"}}})
+assert sorted(h.id for h in r.hits) == ["a", "b"], r
+assert 3.0 <= r.aggregations["m"]["_median"] <= 5.0, r.aggregations
+from xapiand_tpu_torch.query.dsl import QueryDSL
+q = QueryDSL(db.schema).parse({"body": "jumping"})
+assert q.terms and q.terms[0].endswith(".jump"), q
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "xapiand_tpu", "nltk")]
+from xapiand_tpu_torch.analysis.stem import Stem, StemError
+try:
+    Stem("french")
+except StemError as e:      # nltk does not import here
+    assert "french" in str(e) and "nltk" in str(e)
+else:                       # it does: French stems through it
+    assert "nltk" in sys.modules
+print("ok")
+"""
+
+
 def test_port_imports_without_the_analysis_chain(tmp_path):
     """Where the host analysis packages are missing (the JAX package's
     models/__init__.py needs them), the port still imports: it loads no
-    module of the JAX package."""
+    module of the JAX package. Its Database indexes English text (the
+    native Porter2), searches with a K17c aggregation and parses a query
+    there; an nltk-only language refuses by name."""
     (tmp_path / "nltk.py").write_text(
         "raise ModuleNotFoundError(\"No module named 'nltk'\", name='nltk')\n")
     r = _run(IMPORT_ALL, extra_path=str(tmp_path))
     assert r.returncode == 0, r.stderr
+    r = _run(DATABASE_ALONE, extra_path=str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
     r = _run("import xapiand_tpu.models", extra_path=str(tmp_path))
     assert r.returncode != 0 and "nltk" in r.stderr   # the stub is in effect
 
@@ -149,7 +186,7 @@ def test_port_searches_with_the_jax_package_absent(tmp_path):
     pkg.mkdir()
     (pkg / "__init__.py").write_text(
         "raise ImportError('the JAX package is not available here')\n")
-    for code in (IMPORT_ALL, SEARCH_ALONE):
+    for code in (IMPORT_ALL, SEARCH_ALONE, DATABASE_ALONE):
         r = _run(code, extra_path=str(tmp_path))
         assert r.returncode == 0, r.stderr
         assert r.stdout.startswith("ok")
@@ -176,6 +213,22 @@ HOST_COPIES = [
     ("analysis/accuracy.py", None),
     ("native/native.cpp", None),
     ("native/__init__.py", "def _build"),
+    ("utils/hashing.py", None),
+    ("utils/uuid64.py", None),
+    ("analysis/unicode_tok.py", None),
+    ("analysis/stopwords.py", None),
+    ("analysis/stem_extra.py", None),
+    ("analysis/stem_extra2.py", None),
+    ("analysis/termgen.py", None),
+    ("schema/types.py", None),
+    ("schema/schema.py", None),
+    ("schema/__init__.py", None),
+    ("query/boolparser.py", None),
+    ("query/dsl.py", None),
+    ("models/builder.py", None),
+    ("models/merge.py", None),
+    ("ops/host_scorer.py", None),
+    ("ops/host_query.py", None),
 ]
 
 

@@ -262,8 +262,9 @@ def _special_oracle(world, ps, family, words):
         return ss.Scores(np.arange(N_DOCS), np.where(ok, o, 0.0),
                          np.where(ok, t, 0.0))
     if family == "synonym":
-        return ss.or_scores([tw.syn([a, b, c], world.pseg.doclen), tw(d)],
-                            N_DOCS)
+        # the members do not score: NaN under PL2, as JAX keeps it
+        return ss.or_scores([tw.syn([a, b, c], world.pseg.doclen), tw(d)]
+                            + [tw.nonscoring(t) for t in (a, b, c)], N_DOCS)
     ids = np.union1d(np.union1d(tw(a)[0], tw(b)[0]),
                      np.intersect1d(tw(c)[0], tw(d)[0]))
     best, tol = np.zeros(len(ids)), np.zeros(len(ids))
@@ -280,11 +281,13 @@ def test_special_plans_match_jax(world, label, family):
     """dense_rows (K12) and merge_special (K13) under a scheme of two
     constants a term and under one that reads uniqterms, in a batch.
 
-    OP_SYNONYM under PL2 names a repair: the synonym's member terms do not
-    score (constants 0), PL2's weight is NaN at F = 0, and JAX multiplies
-    it by 0 and keeps the NaN in the doc's sum, so the docs holding only
-    member terms drop out of its top k. The port weighs a non-scoring term
-    0 (csrc/common.cuh scored) and returns the oracle's answer."""
+    OP_SYNONYM under PL2 mirrors a reference fault: the synonym's member
+    terms do not score (constants 0), PL2's weight is NaN at F = 0, and
+    JAX multiplies it by 0 and keeps the NaN in the doc's sum, and its
+    compiled execute ranks such a doc below every other: the docs holding
+    a member drop out of its top k, though they count. The port does the
+    same (csrc/common.cuh scored, topk_rows.cu), and so does the oracle
+    (utils/synth_schemes.py nonscoring, match_ranked)."""
     plans, words = _special_queries(world)
     ir, jir = plans[family]
     ps, got, want = world.batch_run(CONFIGS[label], [ir] * 3, [jir] * 3)
@@ -292,19 +295,15 @@ def test_special_plans_match_jax(world, label, family):
     for g, w in zip(got, want):
         assert (g["scores"][g["docids"] != ss.SENTINEL] > 0).any()
         if (label, family) == ("pl2", "synonym"):
-            assert ss.match_ranked(g["docids"], g["scores"], int(g["count"]),
-                                   oracle, K) is None
-            assert ss.match_ranked(w["docids"], w["scores"], int(w["count"]),
-                                   oracle, K) is not None
-            assert int(g["count"]) == int(w["count"])
-            continue
+            assert np.isnan(oracle.score).sum() > K   # the mirrored NaN
+            np.testing.assert_array_equal(g["docids"], w["docids"])
         check(g, w, oracle, docid_order=family == "dense")
 
 
-def test_non_scoring_terms_weigh_zero(world):
-    """The repair above at its source: JAX's PL2 is NaN at constants of
-    0; score_slices weighs a non-scoring row 0 and a scoring one as
-    sumpart."""
+def test_non_scoring_terms_keep_jax_nan(world):
+    """The mirrored fault above at its source: JAX's PL2 is NaN at
+    constants of 0, and score_slices keeps that NaN for a non-scoring row
+    (scoring 0) as JAX does, and weighs a scoring one as sumpart."""
     f32 = jnp.float32
     jst = JStats(f32(N_DOCS), f32(30.0), f32(1.0), f32(60.0), f32(1e5),
                  f32(1.0))
@@ -323,8 +322,12 @@ def test_non_scoring_terms_weigh_zero(world):
     _ids, w, _tail = kn.score_slices(
         (seg["post_docids"], seg["post_wdf"], seg["post_doclen"]), None,
         offsets, lens, tconst, scoring, (W, W), (False, False), spec)
-    assert (w[0, :W] == 0).all() and torch.isfinite(w).all()
+    assert torch.isnan(w[0, :ti.length]).all()
+    assert (w[0, ti.length:W] == 0).all()
+    assert torch.isfinite(w[0, W:]).all()
     assert (w[0, W:W + ti.length] > 0).any()
+    assert ss.nan_when_not_scoring(get_scheme("pl2"), world.stats)
+    assert not ss.nan_when_not_scoring(get_scheme("bm25"), world.stats)
 
 
 def test_batched_dicecoeff_uses_query_length_one(world):

@@ -124,7 +124,9 @@ def test_concurrent_first_access_uploads_once(synth_seg, monkeypatch):
 
 
 def test_searcher_takes_an_explicit_device(synth_seg):
-    with pytest.raises(TypeError):
-        psearch.SegmentSearcher(synth_seg)   # no default device
+    """The card unless the caller names another device (the default is
+    cuda since PR 8: nothing is uploaded until the first device-routed
+    query); an explicit device is honoured."""
+    assert psearch.SegmentSearcher(synth_seg).device == torch.device("cuda")
     ds = psearch.SegmentSearcher(synth_seg, device="cpu").device_segment
     assert ds.arrays["post_docids"].device == CPU

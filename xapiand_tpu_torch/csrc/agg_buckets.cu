@@ -1,24 +1,50 @@
 // agg_buckets: per query, bucket counts of the eligible rows and, for each
-// metric sub-aggregation, per-bucket n / sum / sum of squares / min / max.
+// metric sub-aggregation, per-bucket n / sum / sum of squares / min / max,
+// where every row falls in at most one bucket.
 //
 // Replaces (TPU): xapiand_tpu/ops/aggs.py compute_aggs, the terms branch
 // 275-303 (facet counts over category codes) and the missing branch
-// 239-248 (one bucket: the rows whose slot is absent), with their metric
-// sub-aggregations _sub_stats_bucketed 107-155 (n, s, s2, min, max; the
-// median/mode "hist2" branch is not here).
+// 239-248 (one bucket: the rows whose slot is absent) - K17a, PR 3 - and,
+// K17c: the histogram branch 304-323, the filter bucket 199-215 (its
+// posting lookups are agg_filter.cu; here the mask it gives is one
+// bucket), each level of a nested chain 216-238 with _bucket_codes
+// 163-186 (the mixed-radix composite code: terms, histogram, or the first
+// matching range, one launch a level), and geo_trixels 372-395 (the HTM
+// trixel of a doc's first range, looked up in the sorted trixel table) -
+// with their metric sub-aggregations _sub_stats_bucketed 107-155 (n, s,
+// s2, min, max; a median / mode sub's "hist2" is agg_hist.cu, fed by the
+// codes this kernel writes).
 //
-// A row r of query b counts when eligible[b, r]; with d = min(ids[b, r],
-// n - 1), its code is cats[d] (terms; -1 when the segment has no cats
-// table) or 0 when !present[d] and -1 otherwise (missing, nb = 1). Codes
-// outside [0, nb) do not count. A sub's rows are the bucket's rows whose
-// present_sub[d] holds ("count" subs: all of them, s = s2 = 0, min +inf,
-// max -inf).
+// The code of a row (BucketSrc, mode):
+//   0 terms      cats[d] (-1 when the segment has no cats table), valid in
+//                [0, radix)
+//   1 missing    0 when !present[d]
+//   2 mask       0 where mask[b, r] (the filter bucket's rows)
+//   3 histogram  floor((fval[d] - shift) / interval), a float32 division
+//                as JAX's; valid when present[d] and in [0, radix)
+//   4 range      the first j with lo_j <= fval[d] < hi_j (argmax, :184);
+//                valid when present[d] and some range holds it
+//   5 trixels    flat_start[min(doc_off[dd], nflat - 1)] >> shift with dd
+//                = min(d, ndoc - 1), looked up in the query's ascending
+//                table of radix trixels (lower_bound_i32); valid when
+//                doc_len[dd] > 0 and the table holds it
+// with d = min(ids[b, r], n - 1) for the column read. A nested level folds
+// the previous level's composite code: comp = prev * radix + code, valid
+// only where prev >= 0; counts are over `size` buckets (the product of the
+// radices so far, <= 4096). codes_out (optional) receives each eligible
+// row's composite code or -1 (prefilled with -1 by the wrapper). A sub
+// reads the row's docid, clamped to sub_clamp - 1 first where sub_clamp >
+// 0 (geo_trixels' subs read the clamped d, :393).
+//
+// A row r of query b counts when eligible[b, r] and its code is valid. A
+// sub's rows are the bucket's rows whose present_sub[d] holds ("count"
+// subs: all of them, s = s2 = 0, min +inf, max -inf).
 //
 // Grid (G, B), 256 threads: G blocks split one query's rows into ranges of
 // 16-row groups; each thread reads one group's eligible flags with one
-// 16-byte load and gathers codes for the set bits only.
+// 16-byte load and computes codes for the set bits only.
 //   counts  a shared-memory histogram (int atomics, order-free), added
-//           into the zeroed output with int atomics: nb <= 4096 ints,
+//           into the zeroed output with int atomics: size <= 4096 ints,
 //           16 KB of shared memory at the widest spec;
 //   subs    deterministic float sums without float atomics: per tile of
 //           4096 rows the block packs its in-bucket rows, in row order,
@@ -27,7 +53,7 @@
 //           rows at a time, gathers the sub's value per lane, groups the
 //           lanes by code (__match_any_sync), sums each group in lane
 //           order and adds it to the bucket's partial in the block's
-//           scratch [B][G][S][nb] x 5, so every bucket's sum runs in row
+//           scratch [B][G][S][size] x 5, so every bucket's sum runs in row
 //           order however skewed the codes are (config 3's A queries
 //           hold one category: a thread per bucket walks all of them
 //           alone, 70 ms a launch at the widest group on an NVIDIA H100
@@ -37,30 +63,96 @@
 // 41 KB of static shared memory in all, below the 48 KB static limit.
 //
 // Bound on the H100: the eligible flags (one byte a row), then one code
-// gather per eligible row, and per sub one pass over the rows again with
-// two gathers per in-bucket row, the sub's part by a single warp of each
-// block (32 rows a step). Config 3's terms spec has no subs.
+// computation per eligible row (one or two gathers; a range code scans the
+// query's ranges, a trixel code binary-searches its table), and per sub
+// one pass over the rows again with two gathers per in-bucket row, the
+// sub's part by a single warp of each block (32 rows a step).
 #include "common.cuh"
 
 #define AB_THREADS 256
 #define AB_MAXNB 4096
 #define AB_TILE (AB_THREADS * 16)
 
-// the code of row d: mode 0 terms (codes = cats or null), 1 missing
-// (codes = the missing slot's present flags)
-__device__ __forceinline__ int row_code(int mode, const void* codes,
-                                        long long ncode, long long d) {
-    if (ncode <= 0 || codes == nullptr) return mode == 0 ? -1 : 0;
-    const long long dd = d < ncode - 1 ? d : ncode - 1;
-    if (mode == 0) return ((const int*)codes)[dd];
-    return ((const unsigned char*)codes)[dd] ? -1 : 0;
+struct BucketSrc {
+    int mode;             // 0 terms, 1 missing, 2 mask, 3 histogram,
+                          // 4 range, 5 trixels
+    const void* p0;       // cats | present | mask | fval | fval | doc_off
+    const void* p1;       // present (histogram, range) | doc_len
+    const int* p2;        // flat_start (trixels)
+    long long n0;         // rows of p0 / p1 (mask: R)
+    long long n1;         // rows of flat_start
+    const float* fpar;    // [B][fstride]: (interval, shift) | ranges
+    const int* ipar;      // [B][radix]: the trixel tables
+    int fstride;          // floats a query (range: 2 x the ranges)
+    int radix;            // this level's buckets
+    int shift;            // trixels: 2 x (13 - level)
+    const int* prev;      // [B][R] the previous level's codes, or null
+    long long sub_clamp;  // > 0: subs read min(d, sub_clamp - 1)
+};
+
+// the composite code of row (b, row) with docid d, or -1
+__device__ __forceinline__ int row_code(const BucketSrc& s, int b,
+                                        long long R, long long row, int d) {
+    int code = -1;
+    const long long n = s.n0;
+    const long long dd = (long long)d < n - 1 ? d : n - 1;
+    switch (s.mode) {
+    case 0: {
+        const int c = (s.p0 != nullptr && n > 0) ? ((const int*)s.p0)[dd]
+                                                 : -1;
+        code = (c >= 0 && c < s.radix) ? c : -1;
+        break;
+    }
+    case 1:
+        code = (s.p0 != nullptr && n > 0 &&
+                ((const unsigned char*)s.p0)[dd]) ? -1 : 0;
+        break;
+    case 2:
+        code = ((const unsigned char*)s.p0)[(long long)b * R + row] ? 0 : -1;
+        break;
+    case 3: {
+        if (!((const unsigned char*)s.p1)[dd]) break;
+        const float* fp = s.fpar + (long long)b * s.fstride;
+        const float q = floorf(__fdiv_rn(((const float*)s.p0)[dd] - fp[1],
+                                         fp[0]));
+        code = (q >= 0.0f && q < (float)s.radix) ? (int)q : -1;
+        break;
+    }
+    case 4: {
+        if (!((const unsigned char*)s.p1)[dd]) break;
+        const float v = ((const float*)s.p0)[dd];
+        const float* fp = s.fpar + (long long)b * s.fstride;
+        for (int j = 0; j < s.radix; ++j)
+            if (v >= fp[2 * j] && v < fp[2 * j + 1]) { code = j; break; }
+        break;
+    }
+    case 5: {
+        const long long e = (long long)d < n - 1 ? d : n - 1;
+        if (((const int*)s.p1)[e] <= 0) break;
+        long long off = ((const int*)s.p0)[e];
+        if (off > s.n1 - 1) off = s.n1 - 1;
+        const int tri = s.p2[off] >> s.shift;
+        const int* tab = s.ipar + (long long)b * s.radix;
+        const int c = lower_bound_i32(tab, s.radix, tri);
+        code = (c < s.radix && tab[c] == tri) ? c : -1;
+        break;
+    }
+    }
+    if (code < 0 || s.prev == nullptr) return code;
+    const int pc = s.prev[(long long)b * R + row];
+    return pc < 0 ? -1 : pc * s.radix + code;
+}
+
+// the docid a sub reads for row docid d
+__device__ __forceinline__ long long sub_row(const BucketSrc& s, int d) {
+    return (s.sub_clamp > 0 && d > s.sub_clamp - 1) ? s.sub_clamp - 1 : d;
 }
 
 __global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
     const int* __restrict__ ids, const unsigned char* __restrict__ elig,
-    long long R, int G, int mode, const void* codes, long long ncode,
-    int nb, int S, const long long* __restrict__ subs,
-    int* __restrict__ counts, float* __restrict__ part) {
+    long long R, int G, const BucketSrc src, int nb, int S,
+    const long long* __restrict__ subs, int* __restrict__ counts,
+    int* __restrict__ codes_out, float* __restrict__ part) {
     __shared__ int hist[AB_MAXNB];
     __shared__ int ent_d[AB_TILE];
     __shared__ short ent_c[AB_TILE];
@@ -78,9 +170,11 @@ __global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
         while (msk) {
             const int j = __ffs(msk) - 1;
             msk &= msk - 1;
-            const int c = row_code(mode, codes, ncode,
-                                   ids[base + gi * 16 + j]);
+            const long long row = gi * 16 + j;
+            const int c = row_code(src, b, R, row, ids[base + row]);
             if (c >= 0 && c < nb) atomicAdd(&hist[c], 1);
+            if (codes_out != nullptr)
+                codes_out[base + row] = (c >= 0 && c < nb) ? c : -1;
         }
     }
     __syncthreads();
@@ -105,8 +199,8 @@ __global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
                                           : 0u;
             int mine = 0;
             for (unsigned msk = msk0; msk; msk &= msk - 1) {
-                const int c = row_code(mode, codes, ncode,
-                                       ids[base + gi * 16 + __ffs(msk) - 1]);
+                const long long row = gi * 16 + __ffs(msk) - 1;
+                const int c = row_code(src, b, R, row, ids[base + row]);
                 mine += c >= 0 && c < nb;
             }
             scan[t] = mine;
@@ -120,10 +214,11 @@ __global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
             const int total = scan[AB_THREADS - 1];
             int pos = scan[t] - mine;
             for (unsigned msk = msk0; msk; msk &= msk - 1) {
-                const int d = ids[base + gi * 16 + __ffs(msk) - 1];
-                const int c = row_code(mode, codes, ncode, d);
+                const long long row = gi * 16 + __ffs(msk) - 1;
+                const int d = ids[base + row];
+                const int c = row_code(src, b, R, row, d);
                 if (c >= 0 && c < nb) {
-                    ent_d[pos] = d;
+                    ent_d[pos] = (int)sub_row(src, d);
                     ent_c[pos] = (short)c;
                     ++pos;
                 }
@@ -204,20 +299,43 @@ __global__ void __launch_bounds__(AB_THREADS) agg_buckets_fold(
 }
 
 // subs: int64 [S][3] = (fval pointer or 0 for a count sub, present
-// pointer, rows); counts i32[B][nb] zeroed by the wrapper; part f32
-// [B*G*S*nb*5] scratch; out f32[S][5][B][nb]
+// pointer, rows); counts i32[B][nb] zeroed by the wrapper; codes_out
+// i32[B][R] prefilled with -1, or null; part f32 [B*G*S*nb*5] scratch;
+// out f32[S][5][B][nb]. nb is the count width (`size`), radix the level's
+// buckets (both the spec's buckets outside a nested chain).
 extern "C" int xt_agg_buckets(const void* ids, const void* elig, int B,
-                              long long R, int G, int mode,
-                              const void* codes, long long ncode, int nb,
-                              int S, const void* subs, void* counts,
-                              void* part, void* out, void* stream) {
+                              long long R, int G, int mode, const void* p0,
+                              const void* p1, const void* p2, long long n0,
+                              long long n1, const void* fpar,
+                              const void* ipar, int fstride, int radix,
+                              int shift, const void* prev,
+                              long long sub_clamp, int nb, int S,
+                              const void* subs, void* counts,
+                              void* codes_out, void* part, void* out,
+                              void* stream) {
     if (B == 0) return 0;
-    if (nb < 1 || nb > AB_MAXNB || G < 1 || S < 0)
+    if (nb < 1 || nb > AB_MAXNB || G < 1 || S < 0 || radix < 1 ||
+        mode < 0 || mode > 5)
         return (int)cudaErrorInvalidValue;
+    BucketSrc src;
+    src.mode = mode;
+    src.p0 = p0;
+    src.p1 = p1;
+    src.p2 = (const int*)p2;
+    src.n0 = n0;
+    src.n1 = n1;
+    src.fpar = (const float*)fpar;
+    src.ipar = (const int*)ipar;
+    src.fstride = fstride;
+    src.radix = radix;
+    src.shift = shift;
+    src.prev = (const int*)prev;
+    src.sub_clamp = sub_clamp;
     cudaStream_t st = (cudaStream_t)stream;
     agg_buckets_part<<<dim3(G, B), AB_THREADS, 0, st>>>(
-        (const int*)ids, (const unsigned char*)elig, R, G, mode, codes,
-        ncode, nb, S, (const long long*)subs, (int*)counts, (float*)part);
+        (const int*)ids, (const unsigned char*)elig, R, G, src, nb, S,
+        (const long long*)subs, (int*)counts, (int*)codes_out,
+        (float*)part);
     int rc = (int)cudaGetLastError();
     if (rc || S == 0) return rc;
     agg_buckets_fold<<<B, AB_THREADS, 0, st>>>(B, G, S, nb,

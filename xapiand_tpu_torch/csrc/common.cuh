@@ -197,14 +197,15 @@ __device__ __forceinline__ float scheme_sumpart_generic(
     }
 }
 
-// A term's weight times its scoring flag. A non-scoring term (scoring 0:
-// OP_SYNONYM's members, filter terms) has constants of 0, where PL2,
-// PL2Plus, DLH, DPH, BB2 and LM dirichlet_plus are NaN; JAX multiplies
-// that by 0 and keeps the NaN in the doc's sum (ROADMAP queue 3). The
-// port weighs such a term 0. BM25 is finite there, and keeps its code.
+// A term's weight times its scoring flag (executor.py:722). A non-scoring
+// term (scoring 0: OP_SYNONYM's members, filter terms) has constants of 0,
+// where PL2, PL2Plus, DLH, DPH, BB2 and LM dirichlet_plus are NaN; JAX
+// multiplies that by 0 and keeps the NaN in the doc's sum, and so does the
+// port (ROADMAP queue 3, reference faults mirrored). One operation for
+// both instances: BM25 is finite there.
 template <bool GENERIC>
 __device__ __forceinline__ float scored(float w, float sc) {
-    return (GENERIC && sc == 0.0f) ? 0.0f : w * sc;
+    return w * sc;
 }
 
 // The kernels' one entry to a scheme: GENERIC false is BM25 inline, the

@@ -19,7 +19,16 @@
 // Bound on the H100: reading 9 bytes per row once (scores, docids, owner
 // flag); the inserts are rare once a thread's list is full. One block per
 // query leaves SMs idle when B < 132 - a two-pass split over row tiles is
-// later work.
+// later work. A row whose score is NaN (a non-scoring term under a scheme
+// that is NaN at constants of 0, common.cuh scored) is left out, as the
+// JAX package's compiled execute ranks it below every other row (held by
+// tests/test_torch_schemes.py). The test sits on the insert path, after
+// the comparison with the list's last key, which every NaN key passes or
+// fails as a whole (a NaN's monotone word is above +inf or below -inf), so
+// the rows that do not enter a thread's list - nearly all - pay nothing
+// for it (a select in make() cost the tie ranks' B1 R2101376 launch 22% on an H100,
+// tools/topk_pairs.py). A returned score that is not finite comes with
+// SENTINEL for its docid, as JAX's where(isfinite(vals), ...).
 //
 // After a collapse (collapse_rows.cu) a tie is broken by the row's tie rank
 // first and its docid second, the order lax.top_k finds the collapsed rows
@@ -83,9 +92,10 @@ __global__ void topk_rows_kernel(const float* __restrict__ scores,
     int n = 0;
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
         if (!owner[base + r]) continue;
-        const Key key = Key::make(scores[base + r], ids[base + r],
-                                  tie ? tie[base + r] : 0);
+        const float s = scores[base + r];
+        const Key key = Key::make(s, ids[base + r], tie ? tie[base + r] : 0);
         if (n == k && !top[k - 1].lt(key)) continue;
+        if (isnan(s)) continue;
         int i = n < k ? n++ : k - 1;
         while (i > 0 && top[i - 1].lt(key)) {
             top[i] = top[i - 1];
@@ -122,8 +132,11 @@ __global__ void topk_rows_kernel(const float* __restrict__ scores,
                 const unsigned int hi = (unsigned int)(m.a >> 32);
                 const unsigned int bits =
                     (hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi;
-                out_d[b * k + j] = m.docid();
-                out_s[b * k + j] = __uint_as_float(bits);
+                const float s = __uint_as_float(bits);
+                // a score that is not finite reports no docid, as JAX's
+                // where(isfinite(vals), docids[idx], SENTINEL)
+                out_d[b * k + j] = isfinite(s) ? m.docid() : XT_SENTINEL;
+                out_s[b * k + j] = s;
             }
         }
     }

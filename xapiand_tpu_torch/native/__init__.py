@@ -386,11 +386,13 @@ class Inverter:
 # copied as it is (a test holds the two texts equal). Below is the port's own
 # loader. The JAX package builds at import, beside its source; the port
 # builds at the first read of ``lib`` (a module __getattr__), into the
-# gitignored xapiand_tpu_torch/_build/ keyed by a hash of the source and
+# gitignored xapiand_tpu_torch/_build/ keyed by a hash of the sources and
 # flags, and moves the finished library into place with os.replace, so
 # processes building at once never load a half-written file. ``lib`` is
 # None when the build fails, and every caller falls back to pure Python, as
-# in the JAX package; build_info says what happened.
+# in the JAX package; build_info says what happened. The library is built
+# from stem_export.cpp, which includes native.cpp and exports its English
+# stemmer per word (``stem_english``; analysis/stem.py).
 
 import hashlib  # noqa: E402
 import time  # noqa: E402
@@ -399,6 +401,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # the JAX package's g++ flags: -ffp-contract=off keeps the HTM cover
 # bit-identical to the Python htm.cover
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+_EXPORTS = os.path.join(_HERE, "stem_export.cpp")
 build_info: dict = {}
 _state: dict = {}
 
@@ -406,8 +409,10 @@ _state: dict = {}
 def build() -> str:
     """Compile native.cpp into _build/native-<hash>/libxapiand_native.so
     (once per source hash) and return its path; raises when g++ fails."""
-    with open(_SRC, "rb") as f:
-        h = hashlib.sha256(" ".join(_FLAGS).encode() + f.read())
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in (_SRC, _EXPORTS):
+        with open(path, "rb") as f:
+            h.update(f.read())
     out_dir = os.path.join(_BUILD_DIR, "native-" + h.hexdigest()[:16])
     so = os.path.join(out_dir, "libxapiand_native.so")
     if os.path.exists(so):
@@ -418,7 +423,7 @@ def build() -> str:
                                 f"{threading.get_ident()}.tmp.so")
     t0 = time.time()
     try:
-        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC], check=True,
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _EXPORTS], check=True,
                        capture_output=True, timeout=300)
         os.replace(tmp, so)
     finally:
@@ -432,7 +437,12 @@ def _load():
     with _lock:
         if "lib" not in _state:
             try:
-                _state["lib"] = NativeLib(ctypes.CDLL(build()))
+                cdll = ctypes.CDLL(build())
+                cdll.xt_stem_english.restype = ctypes.c_int64
+                cdll.xt_stem_english.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                    ctypes.c_int64]
+                _state["lib"] = NativeLib(cdll)
             except (OSError, subprocess.SubprocessError) as e:
                 build_info["error"] = str(e)
                 _state["lib"] = None
@@ -443,3 +453,19 @@ def __getattr__(name):
     if name == "lib":
         return _load()
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def stem_english(word: str) -> str:
+    """The Porter2 stem of one lowercase word, by native.cpp's stemmer (the
+    one the inverter stems with); raises when the library did not build."""
+    nl = _load()
+    if nl is None:
+        raise RuntimeError("the native library did not build: "
+                           + build_info.get("error", "unknown error"))
+    raw = word.encode("utf-8")
+    cap = len(raw) + 8
+    buf = ctypes.create_string_buffer(cap)
+    n = nl._c.xt_stem_english(raw, len(raw), buf, cap)
+    if n < 0:
+        raise ValueError(f"stem of {word!r} longer than {cap} bytes")
+    return buf.raw[:n].decode("utf-8", errors="surrogateescape")

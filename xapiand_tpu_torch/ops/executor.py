@@ -209,6 +209,13 @@ def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
     ties by the collapsed position), then the fullwidth window, the
     multi-key sort, or the relevance top-k."""
     unweighted = cfg.unweighted if unweighted is None else unweighted
+    if cfg.k == 0:
+        # a search for the count and aggregations alone (Database.search
+        # with k=0): lax.top_k of width 0, no launch
+        B = ids.shape[0]
+        out["docids"] = ids.new_empty((B, 0))
+        out["scores"] = sums.new_empty((B, 0))
+        return
     tie = None
     if cfg.collapse_slot is not None:
         eligible, tie = kernels.collapse_rows(
@@ -256,7 +263,8 @@ def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, spec,
         orbits, kernels.tree_program(cfg.tree), None, geobits)
     out = {"count": count}
     if cfg.with_aggs:
-        out["aggs"] = aggs.compute_aggs(values, cfg.with_aggs, ids, match)
+        out["aggs"] = aggs.compute_aggs(seg, cfg.with_aggs, ids, match,
+                                        batch)
     if not cfg.count_only:
         _rank_and_topk(cfg, values, batch, ids, scores, match, out,
                        unweighted=cfg.unweighted or not cfg.sort)
@@ -384,8 +392,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     # the count is taken before a collapse (execute 881)
     out = {"count": count}
     if cfg.with_aggs:
-        out["aggs"] = aggs.compute_aggs(values, cfg.with_aggs, ids,
-                                        eligible)
+        out["aggs"] = aggs.compute_aggs(seg, cfg.with_aggs, ids,
+                                        eligible, batch)
     if cfg.count_only:
         return out
     if cfg.verify_k and any(prefix):

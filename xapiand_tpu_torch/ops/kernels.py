@@ -1,7 +1,7 @@
 """The port's device kernels: ctypes-bound CUDA launchers, their plain
 PyTorch versions, and launch counters.
 
-Sixteen kernels carry batch search (sources in ``../csrc``; each file's
+Nineteen kernels carry search (sources in ``../csrc``; each file's
 header names the TPU function it replaces, what bounds it on the H100 and
 what its design does about that):
 
@@ -39,6 +39,18 @@ what its design does about that):
   agg_distinct    K17b   cardinality: the exact distinct count of value
                          keys and 1024 HyperLogLog registers (geo_stats,
                          K17b's other half, is two columns of agg_metrics)
+
+  agg_buckets     K17c   (the same kernel) the single-code bucket kinds
+                         that read plan arrays: histogram, each level of a
+                         nested chain, geo_trixels, the filter bucket;
+                         and each row's bucket code for agg_hist
+  agg_ranges      K17c   range, geodist_range, key_range and geo_ip: the
+                         ranges a row lies in (several at once), their
+                         counts and metric subs
+  agg_hist        K17c   the fixed-grid order-statistic histograms of
+                         median, mode, percentiles and median / mode subs
+  agg_filter      K17c   the filter bucket's rows: each docid looked up in
+                         each filter term's posting window
 
 The boolean tree (K6) is compiled on the host into a short postfix
 program (``tree_program``) that merge_docs and filter_leaves evaluate per
@@ -84,7 +96,8 @@ MAX_TREE_DEPTH = 32       # the tree program's bit stack is one register
 FULLWIDTH_WINDOW = 64     # K9's tie window (executor.py:428)
 MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
 MAX_AGG_METRICS = 8       # agg_metrics per-thread partials per launch
-MAX_AGG_BUCKETS = 4096    # agg_buckets shared-memory histogram
+MAX_AGG_BUCKETS = 4096    # agg_buckets / agg_ranges shared-memory histogram
+MAX_HIST_BINS = 2048      # agg_hist's shared histogram (ORDER_STAT_BINS)
 SPLIT_BLOCKS = 528        # split-row kernels: B x G ~ 4 blocks an SM
 MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
 MAX_PHRASE_TERMS = 16     # phrase_leaves: per-thread position-list table
@@ -106,7 +119,8 @@ SOURCES = ("common.cuh", "score_slices.cu", "merge_docs.cu", "topk_rows.cu",
            "sort_topk.cu", "fullwidth_topk.cu", "agg_metrics.cu",
            "agg_buckets.cu", "phrase_leaves.cu", "geo_leaves.cu",
            "collapse_rows.cu", "dense_rows.cu", "merge_special.cu",
-           "agg_distinct.cu")
+           "agg_distinct.cu", "agg_ranges.cu", "agg_hist.cu",
+           "agg_filter.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -115,7 +129,8 @@ launches = {"score_slices": 0, "merge_docs": 0, "topk_rows": 0,
             "sort_topk": 0, "fullwidth_topk": 0, "agg_metrics": 0,
             "agg_buckets": 0, "phrase_leaves": 0, "geo_leaves": 0,
             "collapse_rows": 0, "dense_rows": 0, "merge_special": 0,
-            "agg_distinct": 0}
+            "agg_distinct": 0, "agg_ranges": 0, "agg_hist": 0,
+            "agg_filter": 0}
 build_info: dict = {}
 
 _lib = None
@@ -220,8 +235,14 @@ _SIGNATURES = {
     "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
                           _P, _P, _P, _P, _P],
     "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
-    "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _LL, _I, _I, _P, _P,
-                       _P, _P, _P],
+    "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _LL, _LL, _P,
+                       _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P, _P, _P,
+                       _P],
+    "xt_agg_ranges": [_P, _P, _I, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _I,
+                      _I, _I, _P, _P, _P, _P, _P, _P],
+    "xt_agg_hist": [_P, _P, _I, _LL, _I, _P, _P, _LL, _P, _I, _P, _P, _I,
+                    _I, _P, _P, _P],
+    "xt_agg_filter": [_P, _P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P],
     "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _P, _P, _P],
     "xt_geo_leaves": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -328,9 +349,9 @@ def _check_uniq(name: str, spec: SchemeSpec, uniq):
 
 
 def _scored(w, scoring):
-    """w * scoring, 0 where the term does not score (csrc/common.cuh
-    scored: JAX keeps the NaN of a scheme at constants of 0 there)."""
-    return torch.where(scoring != 0, w * scoring, 0.0)
+    """w * scoring (csrc/common.cuh scored): NaN where a non-scoring term's
+    weight is NaN at constants of 0, as JAX keeps it (executor.py:722)."""
+    return w * scoring
 
 
 def _tc(tconst, t):
@@ -347,6 +368,8 @@ def absent_column(device) -> dict:
     present. Cached per device."""
     return {"fval": _ints((0.0,), device, torch.float32),
             "hi": _ints((0,), device), "lo": _ints((0,), device),
+            "max_hi": _ints((I32MAX,), device),
+            "max_lo": _ints((I32MAX,), device),
             "present": _ints((False,), device, torch.bool)}
 
 
@@ -626,7 +649,8 @@ def _merge_docs_plain(ids, w, widths, bits=None, deleted=None, prog=None,
 def topk_rows(scores, ids, owner, k: int, tie=None):
     """Top-k owner rows per query by (score desc, docid asc); with tie
     i32[B,R] (collapse_rows' tie ranks, >= 0) by (score desc, tie asc,
-    docid asc).
+    docid asc). A row whose score is NaN is left out, as the JAX package's
+    compiled execute ranks it below every other row.
     -> docids i32[B,k] (SENTINEL past the owner count), scores f32[B,k]
     (-inf there)."""
     B, R = scores.shape
@@ -656,6 +680,7 @@ def topk_rows(scores, ids, owner, k: int, tie=None):
 
 
 def _topk_rows_plain(scores, ids, owner, k, tie=None):
+    owner = owner & ~scores.isnan()   # a NaN score ranks below every row
     masked = torch.where(owner, scores, float("-inf"))
     d = torch.where(owner, ids, SENTINEL)
     d_sorted, order = torch.sort(d, dim=1, stable=True)
@@ -1372,35 +1397,61 @@ def _agg_metrics_plain(ids, eligible, cols):
     return (count,) + tuple(torch.stack(x) for x in zip(*outs))
 
 
-def agg_buckets(ids, eligible, mode: str, codes, nb: int, subs=()):
-    """Per query the bucket counts of compute_aggs' terms (mode "terms",
-    ops/aggs.py 275-303) or missing (mode "missing", 239-248) branch, and
-    per metric sub-aggregation the per-bucket sufficient statistics of
-    _sub_stats_bucketed (107-155, without hist2).
+BUCKET_MODES = {"terms": 0, "missing": 1, "mask": 2, "histogram": 3,
+                "range": 4, "trixels": 5}
 
-    ids i32[B,R], eligible bool[B,R]; codes: the slot's cats i32[n]
-    (terms; None: every row -1) or its present flags bool[n] (missing: a
-    row is in bucket 0 where its flag is False; nb must be 1); read at d =
-    min(id, n - 1); codes outside [0, nb) do not count. subs: per sub
+
+def agg_buckets(ids, eligible, mode: str, codes, nb: int, subs=(), *,
+                prev=None, size=None, want_codes=False, sub_clamp=0):
+    """Per query the bucket counts of one single-code bucket aggregation of
+    compute_aggs, and per metric sub-aggregation the per-bucket sufficient
+    statistics of _sub_stats_bucketed (ops/aggs.py 107-155, without
+    hist2: agg_hist). Every row is in at most one bucket; its code by mode:
+
+      "terms"      codes = the slot's cats i32[n] (None: every row -1),
+                   valid in [0, nb) (275-303; a nested terms level)
+      "missing"    codes = the slot's present bool[n]; bucket 0 where it
+                   is False; nb must be 1 (239-248)
+      "mask"       codes = a row mask bool[B,R] (agg_filter's); bucket 0
+                   where it is True; nb must be 1 (199-215)
+      "histogram"  codes = {fval f32[n], present bool[n], params f32[B,2]
+                   (interval, shift)}: floor((v - shift) / interval),
+                   valid when present and in [0, nb) (304-323, 172-178)
+      "range"      codes = {fval, present, bounds f32[B,nb,2]}: the first
+                   range with lo <= v < hi (a nested range level, 179-185)
+      "trixels"    codes = {doc_off, doc_len i32[n], flat_start i32[m],
+                   table i32[B,nb], shift}: the doc's first range >> shift
+                   looked up in the ascending table (372-395)
+
+    read at d = min(id, n - 1). A nested level passes ``prev`` i32[B,R],
+    the previous level's composite codes (-1: not in a bucket), and
+    ``size``, the count width: the code is prev * nb + code (216-238).
+    ``want_codes`` also returns each row's (composite) code or -1, i32
+    [B,R]. A sub reads min(id, sub_clamp - 1) where sub_clamp > 0
+    (geo_trixels' subs read the clamped doc, :393). subs: per sub
     (fval f32[n], present bool[n]) or None for a count sub.
-    -> counts i32[B,nb], and per sub n, s, s2, min, max f32[S,B,nb] (None
-    without subs)."""
+    -> counts i32[B,size], per sub n, s, s2, min, max f32[S,B,size] (None
+    without subs)[, codes]."""
     B, R = ids.shape
     S = len(subs)
-    if mode not in ("terms", "missing") or \
-            (mode == "missing" and (codes is None or nb != 1)):
+    size = nb if size is None else size
+    if mode not in BUCKET_MODES or \
+            (mode in ("missing", "mask") and (codes is None or nb != 1)):
         raise ValueError(f"agg_buckets: mode {mode!r}, nb {nb}")
-    if not 0 < nb <= MAX_AGG_BUCKETS:
-        raise ValueError(f"agg_buckets: {nb} buckets (1..{MAX_AGG_BUCKETS})")
+    if not 0 < size <= MAX_AGG_BUCKETS or nb < 1:
+        raise ValueError(f"agg_buckets: {size} buckets "
+                         f"(1..{MAX_AGG_BUCKETS})")
     _check("agg_buckets.ids", ids, torch.int32, (B, R))
     _check("agg_buckets.eligible", eligible, torch.bool, (B, R))
     opt = _check_cols("agg_buckets", [c for c in subs if c is not None])
-    if codes is not None:
-        _check("agg_buckets.codes", codes,
-               torch.int32 if mode == "terms" else torch.bool)
-        opt.append(codes)
+    src = _bucket_src("agg_buckets", mode, codes, B, R, nb)
+    opt += [t for t in src if isinstance(t, torch.Tensor)]
+    if prev is not None:
+        _check("agg_buckets.prev", prev, torch.int32, (B, R))
+        opt.append(prev)
     if not _on_cuda("agg_buckets", ids, eligible, *opt):
-        return _agg_buckets_plain(ids, eligible, mode, codes, nb, subs)
+        return _agg_buckets_plain(ids, eligible, mode, codes, nb, subs,
+                                  prev, size, want_codes, sub_clamp)
     dev = ids.device
     G = _split(B, R)
     table = _ints(tuple(x for c in subs
@@ -1408,48 +1459,141 @@ def agg_buckets(ids, eligible, mode: str, codes, nb: int, subs=()):
                                    c[0].shape[0]) if c is not None
                                   else (0, 0, 0))),
                   dev, torch.int64) if subs else None
-    counts = torch.zeros((B, nb), dtype=torch.int32, device=dev)
-    part = torch.empty(max(B * G * S * nb * 5, 1), dtype=torch.float32,
+    counts = torch.zeros((B, size), dtype=torch.int32, device=dev)
+    out_codes = torch.full((B, R), -1, dtype=torch.int32, device=dev) \
+        if want_codes else None
+    part = torch.empty(max(B * G * S * size * 5, 1), dtype=torch.float32,
                        device=dev)
-    out = torch.empty((S, 5, B, nb), dtype=torch.float32, device=dev)
+    out = torch.empty((S, 5, B, size), dtype=torch.float32, device=dev)
+    p0, p1, p2, n0, n1, fpar, ipar, fstride, shift = src
     _launch("agg_buckets", "xt_agg_buckets", ids.data_ptr(),
-            eligible.data_ptr(), B, R, G, 0 if mode == "terms" else 1,
-            _ptr(codes), codes.shape[0] if codes is not None else 0, nb, S,
-            _ptr(table), counts.data_ptr(), part.data_ptr(), out.data_ptr(),
-            _stream())
-    return counts, (tuple(out.transpose(0, 1)) if S else None)
+            eligible.data_ptr(), B, R, G, BUCKET_MODES[mode], _ptr(p0),
+            _ptr(p1), _ptr(p2), n0, n1, _ptr(fpar), _ptr(ipar), fstride, nb,
+            shift, _ptr(prev), sub_clamp, size, S, _ptr(table),
+            counts.data_ptr(), _ptr(out_codes), part.data_ptr(),
+            out.data_ptr(), _stream())
+    res = (counts, tuple(out.transpose(0, 1)) if S else None)
+    return res + (out_codes,) if want_codes else res
 
 
-def _agg_buckets_plain(ids, eligible, mode, codes, nb, subs):
+def _bucket_src(name, mode, codes, B, R, nb) -> tuple:
+    """(p0, p1, p2, n0, n1, fpar, ipar, fstride, shift) of a bucket mode,
+    checked: the kernel's BucketSrc."""
+    if mode == "terms":
+        if codes is None:
+            return None, None, None, 0, 0, None, None, 0, 0
+        _check(f"{name}.cats", codes, torch.int32)
+        return codes, None, None, codes.shape[0], 0, None, None, 0, 0
+    if mode == "missing":
+        _check(f"{name}.present", codes, torch.bool)
+        return codes, None, None, codes.shape[0], 0, None, None, 0, 0
+    if mode == "mask":
+        _check(f"{name}.mask", codes, torch.bool, (B, R))
+        return codes, None, None, R, 0, None, None, 0, 0
+    if mode in ("histogram", "range"):
+        fval, present = codes["fval"], codes["present"]
+        _check(f"{name}.fval", fval, torch.float32)
+        _check(f"{name}.present", present, torch.bool, fval.shape)
+        key = "params" if mode == "histogram" else "bounds"
+        fp = codes[key]
+        _check(f"{name}.{key}", fp, torch.float32,
+               (B, 2) if mode == "histogram" else (B, nb, 2))
+        return (fval, present, None, fval.shape[0], 0, fp, None,
+                2 if mode == "histogram" else 2 * nb, 0)
+    off, ln, fs, tab = (codes["doc_off"], codes["doc_len"],
+                        codes["flat_start"], codes["table"])
+    _check(f"{name}.doc_off", off, torch.int32)
+    _check(f"{name}.doc_len", ln, torch.int32, off.shape)
+    _check(f"{name}.flat_start", fs, torch.int32)
+    _check(f"{name}.table", tab, torch.int32, (B, nb))
+    if fs.shape[0] < 1:
+        raise ValueError(f"{name}: an empty flat_start")
+    return (off, ln, fs, off.shape[0], fs.shape[0], None, tab, 0,
+            int(codes["shift"]))
+
+
+def _bucket_code_plain(mode, codes, ids, nb):
+    """(code i64[B,R], valid bool[B,R]) of a bucket mode, eligibility not
+    applied (ops/aggs.py _bucket_codes 163-186 and the top-level kinds)."""
+    if mode == "mask":
+        return torch.zeros_like(ids, dtype=torch.int64), codes
+    if mode == "terms":
+        if codes is None:
+            c = torch.full_like(ids, -1)
+        else:
+            c = codes[ids.clamp(max=codes.shape[0] - 1).long()]
+        return c.clamp(0, nb - 1).long(), (c >= 0) & (c < nb)
+    if mode == "missing":
+        pres = codes[ids.clamp(max=codes.shape[0] - 1).long()]
+        return torch.zeros_like(ids, dtype=torch.int64), ~pres
+    if mode in ("histogram", "range"):
+        fval = codes["fval"]
+        d = ids.clamp(max=fval.shape[0] - 1).long()
+        v, pres = fval[d], codes["present"][d]
+        if mode == "histogram":
+            prm = codes["params"]
+            # a float32 division by a tensor, as jnp's (a Python scalar
+            # divisor would become a reciprocal multiply)
+            b = torch.floor((v - prm[:, 1:2]) / prm[:, 0:1])
+            valid = pres & (b >= 0) & (b < nb)
+            return b.clamp(0, nb - 1).long(), valid
+        bnd = codes["bounds"]
+        inr = (v[:, :, None] >= bnd[:, None, :, 0]) & \
+            (v[:, :, None] < bnd[:, None, :, 1])
+        return inr.to(torch.int8).argmax(2), pres & inr.any(2)
+    off, ln, fs, tab = (codes["doc_off"], codes["doc_len"],
+                        codes["flat_start"], codes["table"])
+    dd = ids.clamp(max=off.shape[0] - 1).long()
+    o = off[dd].clamp(max=fs.shape[0] - 1).long()
+    tri = fs[o] >> int(codes["shift"])
+    code = torch.searchsorted(tab, tri.contiguous())
+    hit = tab.gather(1, code.clamp(max=nb - 1)) == tri
+    return code, (ln[dd] > 0) & hit & (code < nb)
+
+
+def _agg_buckets_plain(ids, eligible, mode, codes, nb, subs, prev=None,
+                       size=None, want_codes=False, sub_clamp=0):
     B, R = ids.shape
     dev = ids.device
-    if codes is None:
-        code = torch.full_like(ids, -1)
-    else:
-        c = codes[ids.clamp(max=codes.shape[0] - 1).long()]
-        code = c if mode == "terms" else torch.where(c, -1, 0).to(torch.int32)
-    m = eligible & (code >= 0) & (code < nb)
+    size = nb if size is None else size
+    code, valid = _bucket_code_plain(mode, codes, ids, nb)
+    if prev is not None:
+        valid = valid & (prev >= 0)
+        code = prev.long() * nb + code
+    m = eligible & valid
     bi, ri = m.nonzero(as_tuple=True)
-    flat = bi * nb + code[bi, ri].long()
-    counts = torch.zeros(B * nb, dtype=torch.int32, device=dev).index_add_(
-        0, flat, torch.ones_like(flat, dtype=torch.int32)).view(B, nb)
-    if not subs:
-        return counts, None
+    flat = bi * size + code[bi, ri]
+    counts = torch.zeros(B * size, dtype=torch.int32, device=dev).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32)).view(B, size)
+    out_codes = torch.where(m, code, -1).to(torch.int32)
+    stats = None
+    if subs:
+        sub_ids = ids[bi, ri]
+        if sub_clamp > 0:
+            sub_ids = sub_ids.clamp(max=sub_clamp - 1)
+        stats = _sub_stats_plain(sub_ids, flat, B * size, counts.view(-1),
+                                 subs, (B, size))
+    return (counts, stats, out_codes) if want_codes else (counts, stats)
+
+
+def _sub_stats_plain(sub_ids, flat, nflat, counts, subs, shape):
+    """Per sub the n, s, s2, min, max of the (row, bucket) pairs (sub_ids,
+    flat) stacked to [S, *shape]: n, s, s2 add in float64 and round once
+    (index_add_ adds in no fixed order, atomics on the card, and a float32
+    chain over a 100k-row bucket drifts past 1e-5 of the sum)."""
+    dev = sub_ids.device
     inf = float("inf")
     outs = []
     for sub in subs:
-        # n, s, s2 add in float64 and round once: index_add_ adds in no
-        # fixed order (atomics on the card), and a float32 chain over a
-        # 100k-row bucket drifts past 1e-5 of the sum
-        n = torch.zeros(B * nb, dtype=torch.float64, device=dev)
+        n = torch.zeros(nflat, dtype=torch.float64, device=dev)
         s, s2 = torch.zeros_like(n), torch.zeros_like(n)
-        mn = torch.full((B * nb,), inf, dtype=torch.float32, device=dev)
+        mn = torch.full((nflat,), inf, dtype=torch.float32, device=dev)
         mx = torch.full_like(mn, -inf)
         if sub is None:   # a count sub: the bucket's rows
-            n = counts.view(-1)
+            n = counts
         else:
             fval, present = sub
-            d = ids[bi, ri].clamp(max=fval.shape[0] - 1).long()
+            d = sub_ids.clamp(max=fval.shape[0] - 1).long()
             keep = present[d]
             f, v = flat[keep], fval[d][keep]
             n.index_add_(0, f, torch.ones_like(v, dtype=torch.float64))
@@ -1457,9 +1601,282 @@ def _agg_buckets_plain(ids, eligible, mode, codes, nb, subs):
             s2.index_add_(0, f, (v * v).double())
             mn.scatter_reduce_(0, f, v, "amin")
             mx.scatter_reduce_(0, f, v, "amax")
-        outs.append(tuple(x.to(torch.float32).view(B, nb)
+        outs.append(tuple(x.to(torch.float32).view(shape)
                           for x in (n, s, s2, mn, mx)))
-    return counts, tuple(torch.stack(x) for x in zip(*outs))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# K17c: agg_ranges, agg_hist, agg_filter
+# --------------------------------------------------------------------------
+
+RANGE_MODES = {"range": 0, "geodist": 1, "key": 2, "geo_ip": 3}
+_KEY_CH = ("hi", "lo", "max_hi", "max_lo", "present")
+_MV_CH = ("mv_off", "mv_len", "mv_hi", "mv_lo")
+
+
+def agg_ranges(ids, eligible, mode: str, col: dict, bounds, nb: int,
+               subs=(), *, vmax=1, assign=None, origin=None,
+               want_member=False):
+    """Per query the counts of compute_aggs' multi-match range kinds and
+    per metric sub-aggregation the per-range sufficient statistics
+    (_sub_stats_bucketed 107-155, without hist2). A row may lie in several
+    ranges (ops/aggs.py 324-423):
+
+      "range"    col {fval, present}, bounds f32[B,nb,2]: lo <= v < hi
+      "geodist"  col {fval, present[, fval2]}, origin f32[B,2] (lat, lon),
+                 bounds f32[B,nb,2] on the _haversine distance
+      "key"      col {hi, lo, max_hi, max_lo, present[, mv_*]}, bounds
+                 i32[B,nb,4]: _key_ranges_membership at vmax
+      "geo_ip"   as "key" over nr = bounds.shape[1] intervals, assign
+                 i32[B,nr] each interval's bucket: a row is in bucket j when
+                 an interval of j holds it
+
+    ids i32[B,R], eligible bool[B,R]; columns read at min(id, n - 1); a row
+    counts when eligible and present. subs as agg_buckets'.
+    -> counts i32[B,nb], per sub n, s, s2, min, max f32[S,B,nb] (None
+    without subs)[, member bool[B,R,nb] with want_member]."""
+    B, R = ids.shape
+    S = len(subs)
+    if mode not in RANGE_MODES or not 0 < nb <= MAX_AGG_BUCKETS:
+        raise ValueError(f"agg_ranges: mode {mode!r}, nb {nb}")
+    _check("agg_ranges.ids", ids, torch.int32, (B, R))
+    _check("agg_ranges.eligible", eligible, torch.bool, (B, R))
+    opt = _check_cols("agg_ranges", [c for c in subs if c is not None])
+    keyed = mode in ("key", "geo_ip")
+    nr = bounds.shape[1] if bounds.dim() == 3 else 0
+    _check("agg_ranges.bounds", bounds,
+           torch.int32 if keyed else torch.float32,
+           (B, nr, 4 if keyed else 2))
+    if nr < 1 or (mode != "geo_ip" and nr != nb):
+        raise ValueError(f"agg_ranges: {nr} ranges for {nb} buckets")
+    opt.append(bounds)
+    chans = (_KEY_CH + (_MV_CH if vmax > 1 and "mv_hi" in col else ())) \
+        if keyed else ("fval", "present") + \
+        (("fval2",) if mode == "geodist" and "fval2" in col else ())
+    n = col["present"].shape[0]
+    for ch in chans:
+        if ch in ("mv_hi", "mv_lo"):
+            _check(f"agg_ranges.{ch}", col[ch], torch.int32)
+        else:
+            _check(f"agg_ranges.{ch}", col[ch],
+                   torch.bool if ch == "present" else
+                   (torch.float32 if ch.startswith("fval") else torch.int32),
+                   (n,))
+        opt.append(col[ch])
+    if mode == "geo_ip":
+        _check("agg_ranges.assign", assign, torch.int32, (B, nr))
+        opt.append(assign)
+    if mode == "geodist":
+        _check("agg_ranges.origin", origin, torch.float32, (B, 2))
+        opt.append(origin)
+    if not _on_cuda("agg_ranges", ids, eligible, *opt):
+        return _agg_ranges_plain(ids, eligible, mode, col, bounds, nb, subs,
+                                 vmax, assign, origin, want_member)
+    dev = ids.device
+    # blocks of 256 rows: the subs kernel walks a block's rows with one
+    # thread a (sub, range), so its parallelism is G x S x nb
+    G = max(1, min(SPLIT_BLOCKS // max(B, 1), -(-R // 256)))
+    ptrs = tuple(_ptr(col[ch]) if ch in chans else 0
+                 for ch in ("fval", "fval2", "present", "hi", "lo",
+                            "max_hi", "max_lo") + _MV_CH)
+    nmv = col["mv_hi"].shape[0] if "mv_hi" in chans else 0
+    # read by the C entry on the host, which builds the kernel's RangeSrc
+    cols = torch.tensor(ptrs + (n, nmv), dtype=torch.int64)
+    table = _ints(tuple(x for c in subs
+                        for x in ((c[0].data_ptr(), c[1].data_ptr(),
+                                   c[0].shape[0]) if c is not None
+                                  else (0, 0, 0))),
+                  dev, torch.int64) if subs else None
+    counts = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    member = torch.empty((B, R, nb), dtype=torch.bool, device=dev) \
+        if (S or want_member) else None
+    part = torch.empty(max(B * G * S * nb * 5, 1), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((S, 5, B, nb), dtype=torch.float32, device=dev)
+    _launch("agg_ranges", "xt_agg_ranges", ids.data_ptr(),
+            eligible.data_ptr(), B, R, G, RANGE_MODES[mode],
+            cols.data_ptr(), vmax if "mv_hi" in chans else 1,
+            _ptr(bounds) if not keyed else 0, _ptr(bounds) if keyed else 0,
+            _ptr(assign), _ptr(origin), nr, nb, S, _ptr(table),
+            counts.data_ptr(), _ptr(member), part.data_ptr(),
+            out.data_ptr(), _stream())
+    res = (counts, tuple(out.transpose(0, 1)) if S else None)
+    return res + (member,) if want_member else res
+
+
+def _agg_ranges_plain(ids, eligible, mode, col, bounds, nb, subs, vmax=1,
+                      assign=None, origin=None, want_member=False):
+    B, R = ids.shape
+    n = col["present"].shape[0]
+    d = ids.clamp(max=n - 1).long()
+    m = eligible & col["present"][d]
+    if mode in ("range", "geodist"):
+        if mode == "range":
+            v = col["fval"][d]
+        else:
+            lon = col["fval2"][d] if "fval2" in col else \
+                torch.zeros_like(col["fval"][d])
+            v = haversine(col["fval"][d], lon, origin[:, 0:1],
+                          origin[:, 1:2])
+        inr = (v[:, :, None] >= bounds[:, None, :, 0]) & \
+            (v[:, :, None] < bounds[:, None, :, 1])
+    else:
+        inr = _key_membership_plain(col, d, bounds, vmax)    # [B,R,nr]
+        if mode == "geo_ip":
+            onehot = assign[:, :, None] == torch.arange(
+                nb, device=ids.device)[None, None, :]         # [B,nr,nb]
+            inr = (inr[:, :, :, None] & onehot[:, None]).any(2)
+    inr = inr & m[:, :, None]
+    counts = inr.sum(1, dtype=torch.int32)
+    stats = None
+    if subs:
+        bi, ri, ji = inr.nonzero(as_tuple=True)
+        stats = _sub_stats_plain(ids[bi, ri], bi * nb + ji, B * nb,
+                                 counts.view(-1), subs, (B, nb))
+    return (counts, stats, inr) if want_member else (counts, stats)
+
+
+def _key_membership_plain(col, d, b, vmax):
+    """_key_ranges_membership (ops/aggs.py 77-104) of rows d [B,R] against
+    each query's key intervals b i32[B,nr,4] -> bool[B,R,nr]."""
+    bh0, bl0 = b[:, None, :, 0], b[:, None, :, 1]
+    bh1, bl1 = b[:, None, :, 2], b[:, None, :, 3]
+    inr = _lex_ge(col["max_hi"][d][:, :, None], col["max_lo"][d][:, :, None],
+                  bh0, bl0) & \
+        _lex_le(col["hi"][d][:, :, None], col["lo"][d][:, :, None], bh1, bl1)
+    if vmax > 1 and "mv_hi" in col:
+        off, cnt = col["mv_off"][d], col["mv_len"][d]
+        ar = torch.arange(vmax, device=d.device)
+        vidx = (off[:, :, None] + ar).clamp(max=col["mv_hi"].shape[0] - 1)
+        vh = col["mv_hi"][vidx.long()][..., None]           # [B,R,vmax,1]
+        vl = col["mv_lo"][vidx.long()][..., None]
+        valid = (ar < cnt[:, :, None])[..., None]
+        hit = (_lex_ge(vh, vl, bh0[:, :, None], bl0[:, :, None])
+               & _lex_le(vh, vl, bh1[:, :, None], bl1[:, :, None]) & valid)
+        inr = inr & ((cnt == 0)[:, :, None] | hit.any(2))
+    return inr
+
+
+def agg_hist(ids, eligible, fval, present, params, nbins: int, *,
+             codes=None, member=None, nb=1):
+    """Fixed-grid order-statistic histograms (ops/aggs.py _value_hist
+    52-59 and the subs' hist2 141-153): a row counts when eligible and
+    present, in bin clip(floor((v - lo) * scale), 0, nbins - 1), in its
+    bucket codes[b, r] (>= 0; agg_buckets' codes) or every bucket of
+    member[b, r] (agg_ranges' member matrix), or in the one bucket when
+    neither is given.
+
+    ids i32[B,R], eligible bool[B,R]; fval f32[n], present bool[n], read at
+    min(id, n - 1); params f32[B,2] = (lo, scale).
+    -> f32[B,nb,nbins] (integer counts)."""
+    B, R = ids.shape
+    if codes is not None and member is not None:
+        raise ValueError("agg_hist: codes or member, not both")
+    if member is not None:
+        nb = member.shape[2]
+    _check("agg_hist.ids", ids, torch.int32, (B, R))
+    _check("agg_hist.eligible", eligible, torch.bool, (B, R))
+    opt = _check_cols("agg_hist", [(fval, present)])
+    _check("agg_hist.params", params, torch.float32, (B, 2))
+    opt.append(params)
+    if codes is not None:
+        _check("agg_hist.codes", codes, torch.int32, (B, R))
+        opt.append(codes)
+    if member is not None:
+        _check("agg_hist.member", member, torch.bool, (B, R, nb))
+        opt.append(member)
+    if not 0 < nbins <= MAX_HIST_BINS or nb < 1 or \
+            (codes is None and member is None and nb != 1):
+        raise ValueError(f"agg_hist: {nb} buckets of {nbins} bins")
+    if not _on_cuda("agg_hist", ids, eligible, *opt):
+        return _agg_hist_plain(ids, eligible, fval, present, params, nbins,
+                               codes, member, nb)
+    dev = ids.device
+    mode = 0 if codes is None and member is None else \
+        (1 if codes is not None else 2)
+    counts = torch.zeros((B, nb, nbins), dtype=torch.int32, device=dev)
+    out = torch.empty((B, nb, nbins), dtype=torch.float32, device=dev)
+    _launch("agg_hist", "xt_agg_hist", ids.data_ptr(), eligible.data_ptr(),
+            B, R, _split(B, R), fval.data_ptr(), present.data_ptr(),
+            fval.shape[0], params.data_ptr(), mode, _ptr(codes),
+            _ptr(member), nb, nbins, counts.data_ptr(), out.data_ptr(),
+            _stream())
+    return out
+
+
+def value_bins(v, params, nbins: int):
+    """clip(floor((v - lo) * scale), 0, nbins - 1) (ops/aggs.py 56) of
+    v f32[B,R] under params f32[B,2] -> i64[B,R]."""
+    f = torch.floor((v - params[:, 0:1]) * params[:, 1:2])
+    return f.clamp(0, nbins - 1).long()
+
+
+def _agg_hist_plain(ids, eligible, fval, present, params, nbins,
+                    codes=None, member=None, nb=1):
+    B, R = ids.shape
+    d = ids.clamp(max=fval.shape[0] - 1).long()
+    m = eligible & present[d]
+    vb = value_bins(fval[d], params, nbins)
+    if member is not None:
+        bi, ri, ji = (member & m[:, :, None]).nonzero(as_tuple=True)
+    else:
+        c = torch.zeros_like(vb) if codes is None else codes.long()
+        bi, ri = (m & (c >= 0) & (c < nb)).nonzero(as_tuple=True)
+        ji = c[bi, ri]
+    flat = (bi * nb + ji) * nbins + vb[bi, ri]
+    out = torch.zeros(B * nb * nbins, dtype=torch.int32, device=ids.device)
+    out.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return out.view(B, nb, nbins).to(torch.float32)
+
+
+def agg_filter(ids, eligible, post_docids, spans, Lf: int):
+    """The rows of a _filter bucket (ops/aggs.py 199-215): eligible rows
+    whose docid JAX's lower_bound finds in each term's window of Lf
+    postings (dynamic_slice's start, clamped to fit the array; entries past
+    the span's length read as INT32_MAX), every span non-empty.
+
+    ids i32[B,R], eligible bool[B,R], post_docids i32[P], spans
+    i32[B,n_terms,2] (offset, length). -> mask bool[B,R]."""
+    B, R = ids.shape
+    P = post_docids.shape[0]
+    _check("agg_filter.ids", ids, torch.int32, (B, R))
+    _check("agg_filter.eligible", eligible, torch.bool, (B, R))
+    _check("agg_filter.post_docids", post_docids, torch.int32)
+    nt = spans.shape[1] if spans.dim() == 3 else 0
+    _check("agg_filter.spans", spans, torch.int32, (B, nt, 2))
+    if nt < 1 or Lf < 1 or P < Lf:
+        # dynamic_slice refuses a window wider than the array (JAX raises)
+        raise ValueError(f"agg_filter: {nt} terms, a window of {Lf} in "
+                         f"{P} postings")
+    if not _on_cuda("agg_filter", ids, eligible, post_docids, spans):
+        return _agg_filter_plain(ids, eligible, post_docids, spans, Lf)
+    mask = torch.empty((B, R), dtype=torch.bool, device=ids.device)
+    _launch("agg_filter", "xt_agg_filter", ids.data_ptr(),
+            eligible.data_ptr(), B, R, post_docids.data_ptr(), P,
+            spans.data_ptr(), nt, Lf, mask.data_ptr(), _stream())
+    return mask
+
+
+def _agg_filter_plain(ids, eligible, post_docids, spans, Lf):
+    B, R = ids.shape
+    P = post_docids.shape[0]
+    ar = torch.arange(Lf, device=ids.device)
+    bits = max((Lf - 1).bit_length(), 1)
+    m = eligible.clone()
+    for t in range(spans.shape[1]):
+        off, ln = spans[:, t, 0].long(), spans[:, t, 1].long()
+        start = off.clamp(max=P - Lf).clamp(min=0)
+        win = post_docids[(start[:, None] + ar).long()]          # [B, Lf]
+        win = torch.where(ar[None, :] < ln[:, None], win, I32MAX)
+        pos = torch.zeros_like(ids, dtype=torch.int64)
+        for sbit in reversed(range(bits)):
+            cand = pos + (1 << sbit)
+            probe = win.gather(1, (cand - 1).clamp(max=Lf - 1))
+            pos = torch.where((cand <= Lf) & (probe < ids), cand, pos)
+        found = win.gather(1, pos.clamp(max=Lf - 1)) == ids
+        m = m & found & (ln > 0)[:, None]
+    return m
 
 
 # --------------------------------------------------------------------------

@@ -4,6 +4,13 @@
 PyTorch runs eagerly, so there is no compilation cache: ``batched(cfg)``
 returns a plain callable over a batch whose leading axis is the query
 axis (the JAX package's ``jit(vmap(execute))``).
+
+A ``SegmentSearcher`` runs on the card unless the caller names another
+device (``device=torch.device("cpu")`` in the tests, where every kernel
+wrapper runs its plain version). Its native host executors
+(``host_scorer``, ``host_query``: pinned copies of the JAX package's
+``ops/host_scorer.py`` and ``ops/host_query.py``) answer the queries the
+JAX package routes to the host, as ``BatchSearcher.run`` routes them.
 """
 
 from __future__ import annotations
@@ -27,15 +34,19 @@ from xapiand_tpu_torch.ops.kernels import MAX_PREFIX_ROWS
 
 _BATCH_KEYS = ("offsets", "lens", "tconst", "scoring", "group_bits",
                "fparams", "syn_tconst")
+# a bound plan's aggregation arrays (query/plan.py:685-686), dicts keyed by
+# spec: ``execute`` uploads them; the JAX BatchSearcher does not stack them
+# (ROADMAP queue 3), so a batch carries none
+_AGG_KEYS = ("agg_params", "agg_ranges", "agg_filters")
 # stacked at their own length, not padded to T (xapiand_tpu/search.py:353)
 _OWN_LENGTH = ("fparams", "syn_tconst")
 
 
 class SegmentSearcher:
     def __init__(self, seg: Segment, scheme: Optional[WeightScheme] = None,
-                 *, device: torch.device):
+                 *, device=None):
         self.segment = seg
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.scheme = scheme or get_scheme("bm25")
         self._device_segment: Optional[DeviceSegment] = None
         self._lock = threading.Lock()
@@ -52,6 +63,40 @@ class SegmentSearcher:
                     ds = self._device_segment = DeviceSegment(
                         self.segment, self.device)
         return ds
+
+    def host_scorer(self):
+        """Lazy native latency-path scorer over this segment's flat arrays
+        (ops/host_scorer.py; JAX search.py:47-55)."""
+        hs = getattr(self, "_host_scorer", None)
+        if hs is None:
+            from xapiand_tpu_torch.ops.host_scorer import HostScorer
+
+            hs = self._host_scorer = HostScorer(self.segment)
+        return hs
+
+    def host_query(self):
+        """Lazy native conjunctive executor (ops/host_query.py); None when
+        the native library is unavailable (JAX search.py:57-68)."""
+        hq = getattr(self, "_host_query", None)
+        if hq is None:
+            from xapiand_tpu_torch.native import lib
+
+            if lib is None:
+                return None
+            from xapiand_tpu_torch.ops.host_query import HostQueryExecutor
+
+            hq = self._host_query = HostQueryExecutor(self.segment)
+        return hq
+
+    def refresh_deleted(self):
+        """Re-upload the delete bitmap after host-side deletes (JAX
+        search.py:70-78); the native conjunctive executor registered a
+        has-deletes flag when it was built, so it is dropped."""
+        ds = self._device_segment
+        if ds is not None:
+            ds.arrays["deleted"] = torch.from_numpy(
+                np.array(self.segment.deleted, np.bool_)).to(self.device)
+        self.__dict__.pop("_host_query", None)
 
     def batched(self, cfg: ExecConfig, scheme: Optional[WeightScheme] = None):
         """fn(seg_arrays, batch, stats) over a leading query axis; raises
@@ -95,6 +140,9 @@ class SegmentSearcher:
         if "sort_strtabs" in arrays:
             batch["sort_strtabs"] = {si: up(t) for si, t in
                                      arrays["sort_strtabs"].items()}
+        for key in _AGG_KEYS:
+            if key in arrays:
+                batch[key] = {pk: up(a) for pk, a in arrays[key].items()}
         stats = {**stats, "query_length": float(arrays.get("qlen", 1.0))}
         out = execute_batch(self.device_segment.arrays_pytree(), batch, cfg,
                             stats, scheme)
@@ -114,12 +162,15 @@ class BatchSearcher:
     admits skip the compaction and order one sort key with the windowed
     top-k (K9); queries it cannot certify re-run on the exact path.
 
-    Every query goes to the device: the native host scorers the JAX
-    package routes small batches to are not ported yet (ROADMAP queue 1).
-    The host path is exact too, so results are the same either way.
-    Not ported: docid-range chunking (``chunk_rows`` must be 0, K21), and
-    the aggregation kinds of K17c (ops/aggs.py check_aggs), which raise
-    here at once.
+    ``run`` routes queries to the native host executors before it plans,
+    as the JAX package does (``_route_host``, JAX search.py:399-483):
+    conjunctive queries within HOST_CONJ_MAX_WORK go to the conjunctive
+    executor and a small pure-OR residue to the TAAT scorer, unless
+    XT_HOST_PATH=0; ``routed`` counts the queries each route served.
+    Not ported: docid-range chunking (``chunk_rows`` must be 0, K21). The
+    aggregation kinds of K17c raise here at once (ops/aggs.py check_aggs):
+    the JAX BatchSearcher does not stack their plan arrays (ROADMAP queue
+    3); ``SegmentSearcher.execute`` runs them.
     """
 
     def __init__(self, searcher: SegmentSearcher, k: int = 10,
@@ -129,7 +180,7 @@ class BatchSearcher:
                  sort=None, aggs=None, chunk_rows: int = 0,
                  prefix_cap: int = 0, global_tf=None, global_cf=None):
         self.aggs_specs, self.agg_arrays = aggs if aggs else ((), None)
-        check_aggs(self.aggs_specs)
+        check_aggs(self.aggs_specs, batched=True)
         if chunk_rows != 0:
             raise NotImplementedError(
                 "not ported yet: docid-range chunking (ROADMAP queue 2, K21)")
@@ -150,6 +201,7 @@ class BatchSearcher:
         self.class_groups = class_groups
         self.work_ratio = work_ratio
         self.scheme = scheme or searcher.scheme
+        self.routed = {"conj": 0, "or": 0, "device": 0}
 
     def plan(self, irs: list, stats=None) -> list:
         """Bind + bucket + pad a mixed list of Q IRs.
@@ -347,14 +399,106 @@ class BatchSearcher:
         return replace(cfg_g, prefix=prefix,
                        verify_k=max(32, 2 * self.k))
 
+    HOST_CONJ_MAX_WORK = 8_000_000
+
+    def _route_host(self, irs: list, stats=None):
+        """-> ({qi: out}, [remaining qi]): conjunctive queries served by
+        the native executor, the rest left for the device batch (JAX
+        search.py:399-483, line for line)."""
+        from xapiand_tpu_torch.ops.host_query import conj_eligible
+        from xapiand_tpu_torch.ops.host_scorer import (host_eligible,
+                                                       term_constants)
+        from xapiand_tpu_torch.query.plan import compile_ir, resolve_special
+
+        results: dict = {}
+        rem = list(range(len(irs)))
+        if os.environ.get("XT_HOST_PATH", "1") == "0":
+            return results, rem
+        hq = self.searcher.host_query()
+        if hq is None:
+            return results, rem
+        seg = self.searcher.segment
+        st = stats or CollectionStats(
+            doc_count=seg.doc_count, avg_doclen=seg.avg_doclen,
+            doclen_lower=1.0, total_len=float(seg.total_doclen))
+
+        def gtf(t):
+            ti = seg.get_term(t)
+            return ti.length if ti else 0
+
+        def gcf(t):
+            ti = seg.get_term(t)
+            return ti.collfreq if ti else 0
+
+        if self.global_tf is not None:
+            gtf = self.global_tf
+        if self.global_cf is not None:
+            gcf = self.global_cf
+        rem = []
+        or_cands: list = []   # (qi, cq) pure-OR queries, host-eligible
+        for qi, ir in enumerate(irs):
+            cq = compile_ir(resolve_special(ir, self.scheme, st, gtf, gcf),
+                            cost_fn=gtf)
+            parts = conj_eligible(cq, self.scheme, self.sort or (),
+                                  self.aggs_specs, None)
+            out = None
+            if parts is not None and \
+                    hq.driver_work(cq, parts) <= self.HOST_CONJ_MAX_WORK:
+                tc = term_constants(cq, self.scheme, st, gtf, gcf)
+                out = hq.run(cq, parts, self.scheme, st, tc, self.k,
+                             sort=self.sort or (), aggs=self.aggs_specs)
+            if out is None:
+                if host_eligible(cq, self.scheme, self.sort or (),
+                                 self.aggs_specs, None):
+                    or_cands.append((qi, cq))
+                else:
+                    rem.append(qi)
+            else:
+                results[qi] = out
+                self.routed["conj"] += 1
+        if or_cands:
+            # the whole pure-OR residue in one host call while its posting
+            # work is within the budget; past it, all of it stays on the
+            # device (JAX search.py:456-482)
+            budget = int(os.environ.get("XT_HOST_OR_BUDGET", "4000000"))
+            total_work = sum(gtf(pt.term) for _qi, cq in or_cands
+                             for pt in cq.terms)
+            if total_work <= budget:
+                hs = self.searcher.host_scorer()
+                plans = []
+                for _qi, cq in or_cands:
+                    offs, lens = hs.offsets_lens(cq)
+                    plans.append((offs, lens,
+                                  term_constants(cq, self.scheme, st,
+                                                 gtf, gcf)))
+                outs = hs.search_many(plans, self.scheme, st, self.k)
+                for (qi, _cq), out in zip(or_cands, outs):
+                    results[qi] = out
+                self.routed["or"] += len(or_cands)
+            else:
+                rem.extend(qi for qi, _cq in or_cands)
+                rem.sort()
+        return results, rem
+
     def run(self, irs: list, stats=None) -> list[dict]:
         """Execute a mixed batch; returns per-query dicts in input order:
         {"docids": np[k], "scores": np[k], "count": int[, "aggs": the
-        query's row of ops/aggs.py's structure, numpy]}. Every launch is
-        enqueued before the first readback; uncertified queries (prefix
-        mode, fullwidth window) re-run on the exact path (prefix_cap 0,
-        fullwidth off), and ``self.reran`` lists their indices into irs,
-        in the order they re-ran."""
+        query's row of ops/aggs.py's structure, numpy]}. Queries the host
+        executors take are routed first (``_route_host``); the rest go to
+        the device, every launch enqueued before the first readback;
+        uncertified queries (prefix mode, fullwidth window) re-run on the
+        exact path (prefix_cap 0, fullwidth off), and ``self.reran`` lists
+        their indices into the irs of the device call, in the order they
+        re-ran."""
+        host_results, rem_idx = self._route_host(irs, stats)
+        if not rem_idx:
+            return [host_results[qi] for qi in range(len(irs))]
+        if len(rem_idx) < len(irs):
+            sub = self.run([irs[qi] for qi in rem_idx], stats=stats)
+            for j, qi in enumerate(rem_idx):
+                host_results[qi] = sub[j]
+            return [host_results[qi] for qi in range(len(irs))]
+        self.routed["device"] += len(irs)
         planned = self.plan(irs, stats=stats)
         seg_arrays = self.searcher.device_segment.arrays_pytree()
         seg = self.searcher.segment
@@ -398,6 +542,7 @@ class BatchSearcher:
                                 stats=stats)
             finally:
                 self.prefix_cap, self._fullwidth = save, save_fw
+            self.routed["device"] -= len(uncertified)
             for qi, res in zip(uncertified, redo):
                 results[qi] = res
         self.reran = uncertified
@@ -406,7 +551,10 @@ class BatchSearcher:
 
 def _tree_map(fn, tree):
     """fn over the arrays of a tuple / list / dict tree (the aggs
-    structure), keeping the containers."""
+    structure), keeping the containers and their None leaves (a nested
+    level without subs), as jax.tree_util.tree_map does."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

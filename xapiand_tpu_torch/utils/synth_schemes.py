@@ -298,6 +298,18 @@ def sumpart64(scheme, wdf, dl, tc, stats: CollectionStats, uniq=None):
     raise ValueError(f"no float64 formula for scheme {name!r}")
 
 
+def nan_when_not_scoring(scheme, stats) -> bool:
+    """Whether the scheme's float32 weight is NaN at a non-scoring term's
+    constants of 0 (PL2, PL2Plus, DLH, DPH, BB2, LM dirichlet_plus): JAX
+    multiplies it by the scoring flag 0 and keeps the NaN in the doc's sum
+    (executor.py:722), and so does the port (csrc/common.cuh scored)."""
+    zero = (0.0,) * scheme.n_constants if scheme.n_constants > 1 else 0.0
+    w = scheme.sumpart(np.float32(2.0), np.float32(20.0), zero, stats,
+                       uniq=np.float32(4.0) if scheme.needs_uniqterms
+                       else None)
+    return bool(np.isnan(float(w) * 0.0))
+
+
 def doc_tolerance(S_sum, abs_sum, n_terms):
     """A doc's float32 score tolerance from its postings' summed error
     scales and magnitudes."""
@@ -344,6 +356,15 @@ class TermWeights:
             w, S = sumpart64(self.scheme, wdf, dl, tc, self.stats, u)
             self.cache[term] = (ids, w, S)
         return self.cache[term]
+
+    def nonscoring(self, term):
+        """(docids, w, S) of a term that does not score (a synonym's
+        member): w NaN under a scheme that is NaN at constants of 0
+        (nan_when_not_scoring), else 0."""
+        ids = self.postings(term)[0]
+        nan = nan_when_not_scoring(self.scheme, self.stats)
+        return ids, np.full(len(ids), np.nan if nan else 0.0), \
+            np.zeros(len(ids))
 
     def syn(self, terms, doclen):
         """OP_SYNONYM's pseudo-term (query/plan.py bind): (docids, w, S)
@@ -428,13 +449,21 @@ def match_ranked(docids, scores, count, want: Scores, k, want_count=None):
     real rows min(k, matches), distinct matched docs, each score within its
     doc's tolerance, scores non-increasing, and no other match whose
     oracle score less its tolerance lies above the last score returned.
+    Matches whose oracle score is NaN (a non-scoring term under a scheme
+    that is NaN there) count but rank below every other match, as the JAX
+    package ranks them: they are never returned.
     -> None, or what differs."""
-    real = np.asarray(docids) != SENTINEL
-    d = np.asarray(docids)[real].astype(np.int64)
-    s = np.asarray(scores)[real].astype(np.float64)
     n = len(want.ids)
     if count != (n if want_count is None else want_count):
         return f"count {count} != {n if want_count is None else want_count}"
+    keep = ~np.isnan(want.score)
+    if not keep.all():
+        return match_ranked(docids, scores, int(keep.sum()),
+                            Scores(want.ids[keep], want.score[keep],
+                                   want.tol[keep]), k)
+    real = np.asarray(docids) != SENTINEL
+    d = np.asarray(docids)[real].astype(np.int64)
+    s = np.asarray(scores)[real].astype(np.float64)
     if len(d) != min(k, n) or len(set(d.tolist())) != len(d):
         return f"{len(d)} docs returned of {n} matches"
     ok, o, tol = want.at(d)
@@ -546,7 +575,8 @@ def catalogue_answers(corpus, queries, scheme, stats, uniq) -> list:
             out.append(or_scores([tw(t) for t in words], N,
                                  ids=np.flatnonzero(live)))
         elif fam == "S":
-            out.append(or_scores([tw.syn(words[:3], doclen), tw(words[3])],
+            out.append(or_scores([tw.syn(words[:3], doclen), tw(words[3])]
+                                 + [tw.nonscoring(t) for t in words[:3]],
                                  N, live))
         elif fam == "X":
             # the max of the branch sums; a branch sums the weights of its
