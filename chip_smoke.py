@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: its ten main paths.
+"""Smoke test of the torch port on one CUDA card: its eleven main paths.
 
 Relevance path - BM25 top-10 batch search as bench.py defines it: 1M-doc
 Zipf segment (200k vocab, seed 7), 1024 three-term OR queries (seed 11,
@@ -91,6 +91,21 @@ every launch (``Held``), bit for bit (max abs err 0.0), twice; every answer
 is held to utils/synth_schemes.py's float64 oracle at each scheme's
 derived tolerance (counts exact, an impact-prefix answer's count the docs
 of the rows it read); every scheme but Bool returns a nonzero score.
+
+K21 path - the three other executors of the JAX package, after the
+schemes path, over the relevance path's 1M-doc segment and the faceted
+path's 1M-doc corpus and device segments: the 1024 relevance ORs through
+BatchSearcher(k=10, prefix_cap=0, chunk_rows=CHUNK_ROWS) - at least half
+the queries must run chunked, each group's n_chunks printed - against the
+float64 oracle and the
+unchunked exact run; faceted A and B with the pinned planner's
+SEMIJOIN_RATIO at 1 (every A query a semijoin, semijoin_rows) against the
+faceted oracle, aggregations included; join=True on the relevance exact
+groups and on faceted A against the same oracles. Every launch of
+score_slices, merge_docs, topk_rows, chunk_merge, shard_reduce,
+semijoin_rows, filter_leaves, sort_topk and the aggregation kernels in the
+three runs is held against its plain version (``Held``); each mode's QPS
+is printed beside the default path on the same queries (information).
 
 Database path - the port's own Database (xapiand_tpu_torch/database.py)
 at full width over utils/synth_docs.py's bank / netlog corpus: 100k JSON
@@ -220,7 +235,9 @@ weights, for agg_distinct torch.unique of the batch's packed keys plus
 scatter_reduce_(amax) of the registers, for agg_buckets (its K17c modes)
 and agg_hist torch.bincount of the rows' bucket (and bin) codes, for
 agg_filter torch.searchsorted of the rows' docids in each term's postings,
-for kmeans torch.matmul(X, C.T), the step's product alone,
+for kmeans torch.matmul(X, C.T), the step's product alone, for
+semijoin_rows torch.searchsorted of the drive rows' docids in each probed
+block, for chunk_merge and shard_merge torch.sort of the packed keys,
 null elsewhere: no single PyTorch call computes any of the other
 functions); the last line is {"ok": true,
 "device": {...}}.
@@ -310,6 +327,10 @@ SOURCES = {
                     "xapiand_tpu/parallel/sharded.py:341"),
     "shard_reduce": ("xapiand_tpu_torch/csrc/shard_merge.cu",
                      "xapiand_tpu/parallel/sharded.py:341"),
+    "semijoin_rows": ("xapiand_tpu_torch/csrc/semijoin_rows.cu",
+                      "xapiand_tpu/ops/executor.py:1172"),
+    "chunk_merge": ("xapiand_tpu_torch/csrc/shard_merge.cu",
+                    "xapiand_tpu/ops/executor.py:1000"),
 }
 RELEVANCE_KERNELS = ("score_slices", "merge_docs", "topk_rows",
                      "prefix_certify")
@@ -959,8 +980,9 @@ def fullwidth(flag):
         os.environ["XT_FULLWIDTH"] = "1"
 
 
-def timed_runs(runs, stats, n_queries, smi, tag, profiled=True):
-    """20 warm runs of every (BatchSearcher, irs) in ``runs``, host-clock
+def timed_runs(runs, stats, n_queries, smi, tag, profiled=True,
+               n_runs=20):
+    """n_runs warm runs of every (BatchSearcher, irs) in ``runs``, host-clock
     fenced by torch.cuda.synchronize(); each searcher's plan is wrapped on
     the instance so host planning (re-runs' plans included) is timed inside
     the same runs; then, if profiled, one run under torch.profiler.
@@ -982,7 +1004,7 @@ def timed_runs(runs, stats, n_queries, smi, tag, profiled=True):
         saved.append(plan)
         bs.plan = timed_plan
     run_s = []
-    for _ in range(20):
+    for _ in range(n_runs):
         plan_s.append(0.0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1611,12 +1633,13 @@ def held_shard_merge(a):
 
     def work():
         # each candidate's docid, score and okey (or its key words) read
-        # once, the k winners' docid and score written; the ranking's
-        # compares, a key word each, counted as operations
+        # once, the k winners' docid and score written; a comparison
+        # sort's M * ceil(log2 M) compares of the M = S * k candidates of
+        # a query, a key word each, counted as operations
         n = S * Q * k
         nw = (nu or 1) + 2
         return (n * (8 + (4 if okey is not None else 0) + 4 * nu)
-                + Q * k * 8, Q * (S * k) ** 2 * nw)
+                + Q * k * 8, Q * S * k * log2c(S * k) * nw)
 
     def library():
         # torch.sort of the gathered candidates' packed 64-bit keys
@@ -1654,6 +1677,90 @@ def held_shard_reduce(a):
     return (lambda: kn._shard_reduce_plain(x, rule), check,
             f"{rule} S={S} n={n}",
             lambda: (4 * S * n + 4 * n, S * n), library)
+
+
+def held_semijoin(a):
+    """semijoin_rows (K21c): a semijoin plan's drive rows, every other term
+    probed; held bit for bit (the sums in JAX's order on both sides)."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    post, offsets, lens, tconst, scoring, bits, classes, drive = a[:8]
+    classes = tuple(int(c) for c in classes)
+    B, T = offsets.shape
+    S = classes[drive]
+
+    def check(got, want):
+        for nm, g, w in zip(("ids", "sums", "orbits", "first", "count"),
+                            got, want):
+            check_equal(f"semijoin_rows {nm}", g, w)
+        return 0.0
+
+    def work():
+        # the real drive rows' docid, wdf and doclen read and their id,
+        # sum, orbits and flag written; per probe the posting it lands on
+        # (docid and wdf) and its rounds of compares plus the weight
+        n = int(lens[:, drive].clamp(max=S).sum())
+        rounds = sum(max(classes[t].bit_length() - 1, 1) + 1
+                     for t in range(T) if t != drive)
+        return (25 * n + 8 * n * (T - 1) + 4 * B,
+                n * (rounds + T * SCHEME_OPS[a[9].sid]))
+
+    def library():
+        # torch.searchsorted of the drive's docids in each probed block,
+        # the blocks gathered beforehand
+        import torch
+
+        n = post[0].shape[0]
+        start = offsets[:, drive].long().clamp(0, max(n - S, 0))
+        d = post[0][(start[:, None] + torch.arange(S, device=offsets.device)
+                     ).clamp(max=n - 1)].contiguous()
+        ms = 0.0
+        for t in range(T):
+            if t == drive:
+                continue
+            L = classes[t]
+            idx = (offsets[:, t:t + 1].long() +
+                   torch.arange(L, device=offsets.device)).clamp(max=n - 1)
+            blk = torch.where(torch.arange(L, device=offsets.device) <
+                              lens[:, t:t + 1], post[0][idx],
+                              kn.SENTINEL).contiguous()
+            ms += cuda_ms(lambda: torch.searchsorted(blk, d), reps=5)
+        return ms
+
+    return (lambda: kn._semijoin_rows_plain(*a), check,
+            f"B={B} S={S} T={T} drive={drive}", work, library)
+
+
+def held_chunk_merge(a):
+    """chunk_merge (K21a): the n_chunks * k finalists of each query."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    docids, scores = a[:2]
+    NC, Q, k = docids.shape
+
+    def check(got, want):
+        check_equal("chunk_merge docids", got[0], want[0])
+        check_equal("chunk_merge scores", got[1], want[1])
+        return 0.0
+
+    def library():
+        # torch.sort of the finalists' packed keys (the score's order word,
+        # then the docid), stable
+        import torch
+
+        g = scores.permute(1, 0, 2).reshape(Q, NC * k)
+        gd = docids.permute(1, 0, 2).reshape(Q, NC * k)
+        key = (kn._fkey(-g) << 31) | (kn._ikey(gd) >> 1)
+        return cuda_ms(lambda: torch.sort(key, dim=1, stable=True), reps=5)
+
+    # each finalist's docid and score read once, the k winners written;
+    # a comparison sort's M * ceil(log2 M) compares of the M = NC * k
+    # finalists of a query, 3 key words each
+    M = NC * k
+    return (lambda: kn._shard_merge_plain(docids, scores, stripe=False),
+            check, f"NC={NC} Q={Q} k={k}",
+            lambda: (8 * M * Q + 8 * Q * k, Q * M * log2c(M) * 3),
+            library)
 
 
 def held_metrics(a):
@@ -1815,7 +1922,8 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_buckets": held_buckets, "prefix_certify": held_certify,
         "agg_ranges": held_ranges, "agg_hist": held_hist,
         "agg_filter": held_afilter, "kmeans": held_kmeans,
-        "shard_merge": held_shard_merge, "shard_reduce": held_shard_reduce}
+        "shard_merge": held_shard_merge, "shard_reduce": held_shard_reduce,
+        "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge}
 
 
 class Held:
@@ -2153,7 +2261,7 @@ def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
     from xapiand_tpu_torch.utils import synth_faceted as sf
     from xapiand_tpu_torch.utils import synth_schemes as ss
 
-    seg, searcher, drawn = rel_world
+    seg, searcher, drawn = rel_world[:3]
     st = ss.real_stats(seg)
     uniq = seg.uniqterms
     log(f"[plan] schemes: relevance stats {st}; uniqterms min/median/max "
@@ -2348,6 +2456,227 @@ def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
     return counts
 
 
+# the K21 phase's chunk_rows: the largest power of two at which at least
+# half of the relevance ORs run chunked (their groups' rows decide it: at
+# 2048-16384 only the 229 queries of the widest groups chunk; PERF.md
+# section 5)
+CHUNK_ROWS = 1024
+# warm runs of each K21 mode's QPS and its default's (information only)
+K21_RUNS = 7
+K21_CHUNKED = ("score_slices", "merge_docs", "topk_rows", "chunk_merge",
+               "shard_reduce")
+K21_SEMIJOIN = ("semijoin_rows", "filter_leaves", "sort_topk", "agg_metrics",
+                "agg_buckets")
+K21_JOIN = ("score_slices", "merge_docs", "topk_rows", "sort_topk",
+            "agg_metrics", "agg_buckets")
+
+
+def join_searcher(*a, **kw):
+    """A BatchSearcher whose launch groups run as join plans: join=True set
+    on each planned group (dataclasses.replace, as a test sets it; no
+    planner chooses a join)."""
+    import dataclasses
+
+    from xapiand_tpu_torch.search import BatchSearcher
+
+    class JoinSearcher(BatchSearcher):
+        def plan(self, irs, stats=None):
+            out = []
+            for cfg, _fn, batch, chunk in super().plan(irs, stats=stats):
+                cfg = dataclasses.replace(cfg, join=True)
+                out.append((cfg, self.searcher.batched(cfg, self.scheme),
+                            batch, chunk))
+            return out
+
+    return JoinSearcher(*a, **kw)
+
+
+def k21_path(dev, rec, smi, rel_world, corpus, fac_searcher,
+             fac_gate) -> dict:
+    """Slice 11: the three other executors of the JAX package (K21) on the
+    relevance path's and the faceted path's worlds - docid-chunked
+    relevance ORs (BatchSearcher chunk_rows), semijoin faceted ANDs (the
+    pinned planner's SEMIJOIN_RATIO at 1 for the phase) and join plans
+    (relevance exact groups and faceted A) - each held launch by launch,
+    counted, held to the paths' float64 oracles, and timed beside the
+    default path on the same queries. -> the launch counts of its counted
+    runs."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.query import plan as pplan
+    from xapiand_tpu_torch.query.ir import Q
+    from xapiand_tpu_torch.search import BatchSearcher
+    from xapiand_tpu_torch.utils import synth_faceted as sf
+
+    seg, searcher, drawn, oracle = rel_world
+    qs_f, want_f, specs, arrays = fac_gate
+    queries = drawn[:N_QUERIES]
+    irs = [Q.or_terms(q) for q in queries]
+    stats = default_stats(seg)
+    fstats = default_stats(corpus.seg)
+    counts = {n: 0 for n in kn.launches}
+
+    def counted(run, names, what):
+        kn.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        for n, c in kn.launches.items():
+            counts[n] += c
+        log(f"[main] k21 {what} launches {dict(kn.launches)}")
+        if not all(kn.launches[n] for n in names):
+            raise AssertionError(f"k21 {what}: a kernel never launched")
+        return out
+
+    def relevance_gate(results, what):
+        bad = [qi for qi, (r, e) in enumerate(zip(results, oracle))
+               if not tie_group_match(r["docids"], r["scores"], e, K)]
+        log(f"[parity] k21 {what}: {N_QUERIES - len(bad)}/{N_QUERIES} match "
+            f"the float64 oracle as tie groups, rtol {ORACLE_RTOL}")
+        if bad:
+            r = results[bad[0]]
+            raise AssertionError(
+                f"k21 {what}: {len(bad)} queries differ; first {bad[0]}: "
+                f"{list(zip(r['docids'].tolist(), r['scores'].tolist()))} "
+                f"want {oracle[bad[0]][:K]}")
+
+    # 1. docid-chunked relevance ORs
+    t0 = time.time()
+    bs_c = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH, prefix_cap=0,
+                         chunk_rows=CHUNK_ROWS)
+    planned = bs_c.plan(irs, stats=stats)
+    n_eng = len({qi for c, _f, _b, ch in planned if c.n_chunks > 1
+                 for qi in ch})
+    log(f"[plan] k21 chunked: CHUNK_ROWS = {CHUNK_ROWS}, {n_eng}/"
+        f"{N_QUERIES} queries chunked; groups (R, n_chunks, chunk_classes, "
+        f"B): {[(sum(c.classes), c.n_chunks, c.chunk_classes, int(b['offsets'].shape[0])) for c, _f, b, _ch in planned]}")
+    if not n_eng:
+        raise AssertionError("k21 chunked: chunking never engaged")
+    if 2 * n_eng < N_QUERIES:
+        raise AssertionError(f"k21 chunked: {n_eng}/{N_QUERIES} queries "
+                             f"chunked, fewer than half")
+    with Held(rec, "k21 chunked", K21_CHUNKED, exact=True) as held:
+        bs_c.run(irs, stats=stats)
+    torch.cuda.synchronize()
+    log(f"[held] k21 chunked: {held.calls} launches held bit for bit")
+    chunked = counted(lambda: bs_c.run(irs, stats=stats), K21_CHUNKED,
+                      "chunked")
+    relevance_gate(chunked, "chunked")
+    bs_x = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH, prefix_cap=0)
+    exact = bs_x.run(irs, stats=stats)
+    torch.cuda.synchronize()
+    diff = [qi for qi, (a, b) in enumerate(zip(chunked, exact))
+            if a["count"] != b["count"] or
+            a["docids"].tolist() != b["docids"].tolist() or
+            not np.array_equal(a["scores"], b["scores"])]
+    log(f"[parity] k21 chunked: {N_QUERIES - len(diff)}/{N_QUERIES} equal "
+        f"to the unchunked exact run (counts, docids, scores bit for bit)")
+    if diff:
+        raise AssertionError(f"k21 chunked: {len(diff)} differ from the "
+                             f"unchunked run; first {diff[0]}")
+    bs_d = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH,
+                         prefix_cap=PREFIX_CAP)
+    # the schemes path left other schemes' impact mirrors on the segment:
+    # BM25's is rebuilt here, not inside the timed runs
+    bs_d.run(irs, stats=stats)
+    qps = {m: timed_runs([(b, irs)], stats, N_QUERIES, smi,
+                         f"k21 relevance {m}", profiled=False,
+                         n_runs=K21_RUNS)
+           for m, b in (("chunked", bs_c), ("exact", bs_x),
+                        ("default", bs_d))}
+    log(f"[time] k21 chunked: {time.time() - t0:.1f} s")
+
+    # 2. semijoin: faceted A and B with the pinned planner's ratio at 1
+    t0 = time.time()
+    ab = [i for i, (f, _q, _p) in enumerate(qs_f) if f in "AB"]
+    ab_irs = [qs_f[i][1] for i in ab]
+    ncat = len(corpus.cat_names)
+
+    def fac_bs(cls=BatchSearcher):
+        return cls(fac_searcher, k=K, max_batch=MAX_BATCH,
+                   prefix_cap=PREFIX_CAP, sort=sf.PRICE_DESC,
+                   aggs=(specs, arrays))
+
+    saved = pplan.SEMIJOIN_RATIO
+    pplan.SEMIJOIN_RATIO = 1
+    try:
+        bs_s = fac_bs()
+        planned = bs_s.plan(ab_irs, stats=fstats)
+        drive = {qi for c, _f, _b, ch in planned if c.drive >= 0
+                 for qi in ch}
+        n_a = sum(1 for i in ab if qs_f[i][0] == "A")
+        a_drive = sum(1 for j, i in enumerate(ab)
+                      if qs_f[i][0] == "A" and j in drive)
+        log(f"[plan] k21 semijoin: {len(drive)}/{len(ab)} A+B plans take "
+            f"drive >= 0 (A {a_drive}/{n_a}); groups (drive, classes, B): "
+            f"{[(c.drive, c.classes, int(b['offsets'].shape[0])) for c, _f, b, _ch in planned]}")
+        if a_drive != n_a:
+            raise AssertionError("k21 semijoin: an A query is not a semijoin")
+        with Held(rec, "k21 semijoin", K21_SEMIJOIN) as held:
+            bs_s.run(ab_irs, stats=fstats)
+        torch.cuda.synchronize()
+        log(f"[held] k21 semijoin: {held.calls} launches held "
+            f"(semijoin_rows bit for bit)")
+        semi = counted(lambda: bs_s.run(ab_irs, stats=fstats), K21_SEMIJOIN,
+                       "semijoin")
+        faceted_parity([qs_f[i] for i in ab], semi, [want_f[i] for i in ab],
+                       ncat, "k21 semijoin")
+        qps["semijoin"] = timed_runs([(bs_s, ab_irs)], fstats, len(ab), smi,
+                                     "k21 faceted A+B semijoin",
+                                     profiled=False, n_runs=K21_RUNS)
+    finally:
+        pplan.SEMIJOIN_RATIO = saved
+    qps["faceted A+B default"] = timed_runs(
+        [(fac_bs(), ab_irs)], fstats, len(ab), smi,
+        "k21 faceted A+B default", profiled=False, n_runs=K21_RUNS)
+    log(f"[time] k21 semijoin: {time.time() - t0:.1f} s")
+
+    # 3. join: the relevance exact groups and faceted A
+    t0 = time.time()
+    a_idx = [i for i in ab if qs_f[i][0] == "A"]
+    a_irs = [qs_f[i][1] for i in a_idx]
+    bs_j = join_searcher(searcher, k=K, max_batch=MAX_BATCH, prefix_cap=0)
+    bs_ja = fac_bs(join_searcher)
+    if not all(c.join for c, *_x in bs_j.plan(irs, stats=stats)):
+        raise AssertionError("k21 join: a group is not a join")
+    with Held(rec, "k21 join", K21_JOIN) as held:
+        bs_j.run(irs, stats=stats)
+        bs_ja.run(a_irs, stats=fstats)
+    torch.cuda.synchronize()
+    log(f"[held] k21 join: {held.calls} launches held")
+
+    def join_run():
+        return bs_j.run(irs, stats=stats), bs_ja.run(a_irs, stats=fstats)
+
+    joined, joined_a = counted(join_run, K21_JOIN, "join")
+    relevance_gate(joined, "join relevance")
+    faceted_parity([qs_f[i] for i in a_idx], joined_a,
+                   [want_f[i] for i in a_idx], ncat, "k21 join faceted A")
+    qps["join relevance"] = timed_runs([(bs_j, irs)], stats, N_QUERIES, smi,
+                                       "k21 relevance join", profiled=False,
+                                       n_runs=K21_RUNS)
+    qps["join faceted A"] = timed_runs([(bs_ja, a_irs)], fstats, len(a_irs),
+                                       smi, "k21 faceted A join",
+                                       profiled=False, n_runs=K21_RUNS)
+    qps["faceted A default"] = timed_runs([(fac_bs(), a_irs)], fstats,
+                                          len(a_irs), smi,
+                                          "k21 faceted A default",
+                                          profiled=False, n_runs=K21_RUNS)
+    log(f"[time] k21 join: {time.time() - t0:.1f} s")
+    log(f"[qps] k21 modes beside the default path on the same queries "
+        f"(information, no default changes): {qps}")
+    return counts
+
+
+def default_stats(seg):
+    """The stats BatchSearcher takes by default for a segment."""
+    from xapiand_tpu_torch.models.weights import CollectionStats
+
+    return CollectionStats(doc_count=seg.doc_count,
+                           avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+
+
 def relevance_path(dev, rec, smi) -> tuple:
     """Slice 1: BM25 top-10 over three-term ORs, bench.py's corpus. ->
     (launch counts, (the segment, its SegmentSearcher, the drawn queries):
@@ -2442,7 +2771,7 @@ def relevance_path(dev, rec, smi) -> tuple:
             raise AssertionError("non-finite score on a real docid")
     timed_runs([(bs, irs)], stats, N_QUERIES, smi, "relevance")
     del bs, planned
-    return counts, (seg, searcher, drawn)
+    return counts, (seg, searcher, drawn, oracle)
 
 
 def faceted_path(dev, rec, smi) -> tuple:
@@ -2592,50 +2921,8 @@ def faceted_path(dev, rec, smi) -> tuple:
     log(f"[parity] faceted oracle {time.time() - t0:.1f} s")
     ncat = len(corpus.cat_names)
 
-    def close(x, y):
-        return abs(float(x) - y) <= ORACLE_RTOL * abs(y)
-
     def parity(results, tag):
-        bad = []
-        for qi, ((fam, _q, _p), r, w) in enumerate(zip(qs, results, want)):
-            fin = np.isfinite(r["scores"])
-            ok = r["count"] == w["count"] and \
-                (r["docids"][~fin] == kn.SENTINEL).all()
-            if fam in "AB":
-                exp = w["ranked"]
-                ok = ok and r["docids"][fin].tolist() == [d for d, _ in exp] \
-                    and all(abs(s - es) <= ORACLE_RTOL * abs(es)
-                            for s, (_d, es) in zip(r["scores"][fin], exp))
-            else:
-                ok = ok and tie_group_match(r["docids"], r["scores"],
-                                            w["ranked"], K)
-            cats, st = np.asarray(r["aggs"][0]), r["aggs"][1]
-            n, s1, s2, mn, mx = w["aggs"]["price"]
-            ok = ok and (cats[:ncat] == w["aggs"]["cats"]).all() and \
-                not cats[ncat:].any() and float(st["n"]) == n and \
-                st["min"] == np.float32(mn) and st["max"] == np.float32(mx) \
-                and close(st["s"], s1) and close(st["s2"], s2)
-            if not ok:
-                bad.append(qi)
-        per_fam = {f: sum(1 for qi, (ff, *_x) in enumerate(qs)
-                          if ff == f and qi not in bad) for f in "ABCD"}
-        log(f"[parity] {tag}: {len(qs) - len(bad)}/{len(qs)} queries match "
-            f"the float64 oracle (A, B exact docid lists; C, D tie groups at "
-            f"rtol {ORACLE_RTOL}; counts exact; facet counts exact; price "
-            f"n, min, max exact, sums at rtol {ORACLE_RTOL}) per family "
-            f"{per_fam}; counts min/median/max "
-            f"{min(w['count'] for w in want)}/"
-            f"{sorted(w['count'] for w in want)[len(want) // 2]}/"
-            f"{max(w['count'] for w in want)}")
-        if bad:
-            qi = bad[0]
-            r = results[qi]
-            raise AssertionError(
-                f"{tag}: {len(bad)} queries differ; first {qi} {qs[qi][0]} "
-                f"{qs[qi][2]}: got count {r['count']} "
-                f"{list(zip(r['docids'].tolist(), r['scores'].tolist()))} "
-                f"aggs {r['aggs']} want count {want[qi]['count']} "
-                f"{want[qi]['ranked'][:K]} aggs {want[qi]['aggs']}")
+        faceted_parity(qs, results, want, ncat, tag)
 
     parity(results, "faceted")
     with fullwidth("0"):
@@ -2661,7 +2948,61 @@ def faceted_path(dev, rec, smi) -> tuple:
     log(f"[qps] faceted fullwidth on / off, median QPS: first pair (on "
         f"first) {qps[0]} / {qps[1]}, second pair (off first) {qps[3]} / "
         f"{qps[2]}")
-    return counts, corpus, searcher
+    return counts, corpus, searcher, (qs, want, specs, arrays)
+
+
+def faceted_parity(qs, results, want, ncat, tag):
+    """The faceted gate: each answer (aggregations included) against
+    synth_faceted's float64 oracle - A and B exact docid lists, C and D
+    tie groups, counts and facet counts exact, price n / min / max exact,
+    sums within ORACLE_RTOL."""
+    import numpy as np
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    def close(x, y):
+        return abs(float(x) - y) <= ORACLE_RTOL * abs(y)
+
+    bad = []
+    for qi, ((fam, _q, _p), r, w) in enumerate(zip(qs, results, want)):
+        fin = np.isfinite(r["scores"])
+        ok = r["count"] == w["count"] and \
+            (r["docids"][~fin] == kn.SENTINEL).all()
+        if fam in "AB":
+            exp = w["ranked"]
+            ok = ok and r["docids"][fin].tolist() == [d for d, _ in exp] \
+                and all(abs(s - es) <= ORACLE_RTOL * abs(es)
+                        for s, (_d, es) in zip(r["scores"][fin], exp))
+        else:
+            ok = ok and tie_group_match(r["docids"], r["scores"],
+                                        w["ranked"], K)
+        cats, st = np.asarray(r["aggs"][0]), r["aggs"][1]
+        n, s1, s2, mn, mx = w["aggs"]["price"]
+        ok = ok and (cats[:ncat] == w["aggs"]["cats"]).all() and \
+            not cats[ncat:].any() and float(st["n"]) == n and \
+            st["min"] == np.float32(mn) and st["max"] == np.float32(mx) \
+            and close(st["s"], s1) and close(st["s2"], s2)
+        if not ok:
+            bad.append(qi)
+    per_fam = {f: sum(1 for qi, (ff, *_x) in enumerate(qs)
+                      if ff == f and qi not in bad) for f in "ABCD"}
+    log(f"[parity] {tag}: {len(qs) - len(bad)}/{len(qs)} queries match "
+        f"the float64 oracle (A, B exact docid lists; C, D tie groups at "
+        f"rtol {ORACLE_RTOL}; counts exact; facet counts exact; price "
+        f"n, min, max exact, sums at rtol {ORACLE_RTOL}) per family "
+        f"{per_fam}; counts min/median/max "
+        f"{min(w['count'] for w in want)}/"
+        f"{sorted(w['count'] for w in want)[len(want) // 2]}/"
+        f"{max(w['count'] for w in want)}")
+    if bad:
+        qi = bad[0]
+        r = results[qi]
+        raise AssertionError(
+            f"{tag}: {len(bad)} queries differ; first {qi} {qs[qi][0]} "
+            f"{qs[qi][2]}: got count {r['count']} "
+            f"{list(zip(r['docids'].tolist(), r['scores'].tolist()))} "
+            f"aggs {r['aggs']} want count {want[qi]['count']} "
+            f"{want[qi]['ranked'][:K]} aggs {want[qi]['aggs']}")
 
 
 def work_phrase(ids, widths, batch, orbits, first, seg, cfg, ncand):
@@ -4246,6 +4587,7 @@ def rest_mesh_path(dev, rec, smi) -> dict:
 
 
 def main() -> int:
+    t_script = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -4290,7 +4632,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] relevance path {time.time() - t0:.1f} s")
     t0 = time.time()
-    fac, corpus, searcher = faceted_path(dev, rec, smi)
+    fac, corpus, searcher, fac_gate = faceted_path(dev, rec, smi)
     torch.cuda.empty_cache()
     log(f"[time] faceted path {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -4299,9 +4641,13 @@ def main() -> int:
     log(f"[time] browse path {time.time() - t0:.1f} s")
     t0 = time.time()
     sch = schemes_path(dev, rec, smi, rel_world, corpus, searcher)
-    del corpus, searcher, rel_world
     torch.cuda.empty_cache()
     log(f"[time] schemes path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    k21 = k21_path(dev, rec, smi, rel_world, corpus, searcher, fac_gate)
+    del corpus, searcher, rel_world, fac_gate
+    torch.cuda.empty_cache()
+    log(f"[time] k21 path {time.time() - t0:.1f} s")
     t0 = time.time()
     pos = positional_path(dev, rec, smi)
     torch.cuda.empty_cache()
@@ -4328,11 +4674,13 @@ def main() -> int:
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")
+    log(f"[time] script {time.time() - t_script:.1f} s, the kernel build "
+        f"included")
 
     print(json.dumps({"kernels": [
         rec.record(name, sum(c.get(name, 0)
-                             for c in (rel, fac, bro, sch, pos, geo, dbp,
-                                       rst, msh, rmh)))
+                             for c in (rel, fac, bro, sch, k21, pos, geo,
+                                       dbp, rst, msh, rmh)))
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -533,22 +533,53 @@ def test_zero_synonym_constant_scores_zero(world):
     assert zero["scores"][0] <= base["scores"][0]
 
 
+def _chunked(bound, seg, nc):
+    """A bound OR plan split at nc docid ranges as BatchSearcher._chunkify
+    splits it (JAX search.py:531-557): each term's chunk spans and its
+    128-lane chunk widths."""
+    arr = dict(bound.arrays)
+    T = len(arr["offsets"])
+    bpoints = (np.arange(1, nc, dtype=np.int64) * seg.doc_count) // nc
+    c_off = np.zeros((T, nc), np.int32)
+    c_len = np.zeros((T, nc), np.int32)
+    for t, (off, ln) in enumerate(zip(arr["offsets"], arr["lens"])):
+        cuts = np.searchsorted(seg.post_docids[off:off + ln], bpoints)
+        edges = np.concatenate([[0], cuts, [ln]])
+        c_off[t], c_len[t] = off + edges[:-1], np.diff(edges)
+    arr.update(c_offsets=c_off, c_lens=c_len)
+    widths = tuple(int(-(-int(m) // 128) * 128) for m in c_len.max(1))
+    return dataclasses.replace(bound, arrays=arr, cfg=dataclasses.replace(
+        bound.cfg, n_chunks=nc, chunk_classes=widths))
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("emit_sort_keys", True, None),
     ("n_chunks", 2, "K21"),
     ("join", True, "K21"),
 ])
 def test_check_supported_still_refuses(field, value, item, request):
-    """K21's shapes are refused by name; the mesh's emitted sort keys
-    (K19) are ported (item None): a sorted execute with emit_sort_keys on
-    both packages gives the same docids, scores and key words."""
+    """Nothing here is refused any more: the mesh's emitted sort keys (K19;
+    item None: a sorted execute with emit_sort_keys on both packages gives
+    the same docids, scores and key words) and K21's chunked and join
+    shapes (slice 11; item "K21": an execute of the shape on both
+    packages gives the same count, docids and scores)."""
     cfg = ExecConfig(T=1, L=128, k=10, tree=("G", 0), **{field: value})
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            check_supported(cfg, BM25())
-        return
     check_supported(cfg, BM25())
     world = request.getfixturevalue("world")
+    if item == "K21":
+        jb, pb = world.bind_both(
+            lambda Qc, t: Qc.or_terms([t(1), t(3), t(17)]), k=10)
+        if field == "n_chunks":
+            jb, pb = _chunked(jb, world.jseg, value), \
+                _chunked(pb, world.pseg, value)
+        else:
+            jb, pb = (dataclasses.replace(b, cfg=dataclasses.replace(
+                b.cfg, join=True)) for b in (jb, pb))
+        got = world.ps.execute(pb, world.stats)
+        want = world.js.execute(jb, world.stats)
+        assert int(want["count"]) > 10
+        compare(got, want, True)
+        return
     sort = (("value", world.price, True), ("value", world.size, False))
     jb, pb = world.bind_both(lambda Qc, t: Qc.or_terms([t(2), t(9)]),
                              k=20, sort=sort)

@@ -1287,3 +1287,180 @@ def test_wide_prefix_cuda_equals_cpu(cuda):
             np.asarray(w["docids"]).tolist()
         np.testing.assert_allclose(np.asarray(g["scores"]),
                                    np.asarray(w["scores"]), rtol=1e-6)
+
+
+def deep_tree(depth, n_docs):
+    """A 100-deep tree the shared planner admits (at most 31 leaf groups):
+    a chain of AND (a range first, so the old program's stack grew with
+    it) with an AND_NOT of a range every fourth level, over a term."""
+    deep = {"body": "w3"}
+    for j in range(depth):
+        rng = {"n" if j % 2 else "m": {"_from": j % 7, "_to": n_docs - j}}
+        deep = {"_and_not": [deep, {"n": {"_from": j, "_to": j + 2}}]} \
+            if j % 4 == 3 else {"_and": [rng, deep]}
+    return deep
+
+
+def _k21_world(cuda):
+    """A synthetic segment with deletes on the card and on the CPU, its
+    stats and 24 three-term queries."""
+    seg = build_synthetic_segment(30000, 2000, seed=9)
+    seg.deleted[5:2000:7] = True
+    qs = [sorted(q, key=lambda t: -seg.terms[t].length)
+          for q in sample_queries(seg, 24, 3, seed=5)]
+    return seg, qs, [SegmentSearcher(seg, device=d)
+                     for d in (cuda, torch.device("cpu"))]
+
+
+@pytest.mark.parametrize("scheme", ["bm25", "pl2", "dicecoeff"])
+def test_semijoin_rows_matches_plain_version(cuda, scheme):
+    """semijoin_rows (K21) on the card against its plain version on the
+    same card tensors (the card's log2f under PL2), bit for bit: ids,
+    sums, orbits, first and counts, with deletes, under BM25, a scheme of
+    two constants a term and one that reads uniqterms."""
+    from xapiand_tpu_torch.models.weights import CollectionStats, get_scheme
+    from xapiand_tpu_torch.query.plan import bind, compile_ir, unify_cfgs
+
+    seg, qs, (ps, _cpu) = _k21_world(cuda)
+    uniq = np.maximum(np.bincount(seg.post_docids, minlength=seg.num_docs + 1),
+                      1).astype(np.float32)
+    sch = get_scheme(scheme)
+    st = CollectionStats(doc_count=seg.doc_count, avg_doclen=seg.avg_doclen,
+                         doclen_lower=1.0, doclen_upper=200.0,
+                         total_len=float(seg.total_doclen))
+    bounds = [bind(compile_ir(Q.and_(Q.term(q[2]), Q.or_terms(q[:2]))), seg,
+                   sch, st, k=10) for q in qs]
+    cfg = unify_cfgs([b.cfg for b in bounds], k=10)
+    arrs = {key: torch.from_numpy(np.stack([np.pad(
+        b.arrays[key], [(0, cfg.T - b.arrays[key].shape[0])] +
+        [(0, 0)] * (b.arrays[key].ndim - 1)) for b in bounds]))
+        for key in ("offsets", "lens", "tconst", "scoring", "group_bits")}
+    spec = sch.kernel_spec(st)
+    post = tuple(torch.from_numpy(np.asarray(a)) for a in
+                 (seg.post_docids, seg.post_wdf, seg.post_doclen))
+    dele = torch.from_numpy(np.asarray(seg.deleted, np.bool_))
+    u = torch.from_numpy(uniq) if spec.needs_uniq else None
+    hits = 0
+    for drive in range(cfg.T):
+        args = (arrs["offsets"], arrs["lens"], arrs["tconst"],
+                arrs["scoring"], arrs["group_bits"])
+        on = (tuple(p.to(cuda) for p in post), *(a.to(cuda) for a in args),
+              cfg.term_classes(), drive, dele.to(cuda), spec,
+              u.to(cuda) if u is not None else None)
+        want = kernels._semijoin_rows_plain(*on)
+        n0 = kernels.launches["semijoin_rows"]
+        got = kernels.semijoin_rows(*on)
+        torch.cuda.synchronize()
+        assert kernels.launches["semijoin_rows"] == n0 + 1
+        for a, b in zip(got, want):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+        hits += int(want[4].sum())
+    assert hits > 0
+
+
+def test_chunk_merge_matches_plain_version(cuda):
+    """chunk_merge (K21, shard_merge.cu unstriped) on the card against its
+    plain version, bit for bit: ties, -0.0 beside 0.0, NaN, and -inf
+    finalists with SENTINEL docids."""
+    g = torch.Generator().manual_seed(21)
+    for NC, Q, k in ((2, 16, 10), (16, 40, 10), (4, 8, 80)):
+        d = torch.randint(0, 5000, (NC, Q, k), generator=g,
+                          dtype=torch.int32)
+        vals = torch.tensor([0.5, 1.0, 0.0, -0.0, float("nan"),
+                             float("-inf")])
+        s = vals[torch.randint(0, 6, (NC, Q, k), generator=g)]
+        d = torch.where(torch.isfinite(s), d, kernels.SENTINEL)
+        n0 = kernels.launches["chunk_merge"]
+        got = kernels.chunk_merge(d.to(cuda), s.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.launches["chunk_merge"] == n0 + 1
+        want = kernels.chunk_merge(d, s)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert got[1].cpu().numpy().tobytes() == want[1].numpy().tobytes()
+
+
+def test_k21_paths_cuda_equal_cpu(cuda):
+    """The three K21 executors through their entry points on the card and
+    on the CPU: BatchSearcher(chunk_rows=500), a semijoin group (the
+    pinned planner's SEMIJOIN_RATIO forced to 1) and a join group
+    (join=True on the planned groups), with deletes: the same answers,
+    and each path's kernels launched."""
+    import dataclasses
+
+    from xapiand_tpu_torch.query import plan as pplan
+
+    seg, qs, searchers = _k21_world(cuda)
+    ors = [Q.or_terms(q) for q in qs]
+    ands = [Q.and_(Q.term(q[2]), Q.or_terms(q[:2])) for q in qs]
+
+    def run(searcher, mode):
+        if mode == "chunked":
+            bs = BatchSearcher(searcher, k=10, chunk_rows=500)
+            assert any(c.n_chunks > 1 for c, *_x in bs.plan(ors))
+            return bs.run(ors)
+        bs = BatchSearcher(searcher, k=10)
+        groups = bs.plan(ands)
+        if mode == "semijoin":
+            assert all(c.drive >= 0 for c, *_x in groups)
+        out = [None] * len(ands)
+        for cfg, _fn, batch, chunk in groups:
+            if mode == "join":
+                cfg = dataclasses.replace(cfg, join=True)
+            res = searcher.batched(cfg)(
+                searcher.device_segment.arrays_pytree(), batch,
+                {"N": seg.doc_count, "avg_doclen": seg.avg_doclen})
+            for b, qi in enumerate(chunk):
+                out[qi] = {k: v[b].cpu().numpy() for k, v in res.items()}
+        return out
+
+    saved = pplan.SEMIJOIN_RATIO
+    try:
+        for mode, name in (("chunked", "chunk_merge"),
+                           ("semijoin", "semijoin_rows"),
+                           ("join", "merge_docs")):
+            pplan.SEMIJOIN_RATIO = 1 if mode == "semijoin" else None
+            n0 = kernels.launches[name]
+            got, want = (run(s, mode) for s in searchers)
+            torch.cuda.synchronize()
+            assert kernels.launches[name] > n0, mode
+            for g, w in zip(got, want):
+                assert int(g["count"]) == int(w["count"])
+                assert g["docids"].tolist() == w["docids"].tolist()
+                np.testing.assert_allclose(g["scores"], w["scores"],
+                                           rtol=1e-6)
+    finally:
+        pplan.SEMIJOIN_RATIO = saved
+
+
+def test_deep_tree_and_many_sort_keys_cuda_equal_cpu(cuda):
+    """The two limits repaired in slice 11 through the port's Database on
+    the card and on the CPU: a tree of AND / AND_NOT 100 deep (the
+    reordered program on the 64-bit stack), its negation (NOTAND), and
+    sorts of 16 and 24 value keys (wide_topk's device-memory key table):
+    the same answers."""
+    from xapiand_tpu_torch.database import Database
+    from xapiand_tpu_torch.query.dsl import parse_sort
+
+    dbs = [Database(device=cuda), Database(device="cpu")]
+    for db in dbs:
+        for i in range(300):
+            g = np.random.Generator(np.random.PCG64(i))
+            d = {"body": " ".join(f"w{int(x)}" for x in
+                                  g.integers(0, 30, 24)), "n": i, "m": i % 13}
+            d.update({f"f{j}": int(g.integers(0, 3)) for j in range(24)})
+            db.index_document(d, doc_id=str(i))
+        db.commit()
+    deep = deep_tree(100, 300)
+    n0 = kernels.launches["wide_topk"]
+    for q, nkeys in ((deep, 0), ({"_and_not": [{"n": {"_from": 0, "_to": 150}},
+                                               deep]}, 0),
+                     ({"body": "w1"}, 16), ({"body": "w2"}, 24)):
+        sort = [{f"f{j}": {"_order": "desc" if j % 2 else "asc"}}
+                for j in range(nkeys)]
+        got, want = [db.search(q, k=20, sort=parse_sort(db.schema, sort)
+                               if sort else ()) for db in dbs]
+        assert got.total == want.total > 0
+        assert [h.id for h in got.hits] == [h.id for h in want.hits]
+        np.testing.assert_allclose([h.score for h in got.hits],
+                                   [h.score for h in want.hits], rtol=1e-6)
+    assert kernels.launches["wide_topk"] >= n0 + 2

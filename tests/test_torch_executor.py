@@ -318,8 +318,10 @@ def test_execute_batch_vs_jax_batched(case):
 # sorts, unweighted, compaction, count-only) run against the JAX executor
 # in tests/test_torch_predicate.py::test_configs_inside_the_slice_run_as_jax
 OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
-    ("join", {"join": True}, "K21"),
-    ("drive", {"drive": 0}, "K21"), ("n_chunks", {"n_chunks": 2}, "K21"),
+    # K21's three executors are ported (slice 11): each case runs a launch
+    # group of both packages with the change (item "parity")
+    ("join", {"join": True}, "parity"),
+    ("drive", {"drive": 0}, "parity"), ("n_chunks", {"n_chunks": 2}, "parity"),
     # the fullwidth path (K9) and the K17a / K17b / K17c aggregations are
     # ported: their cases now carry aggregations wider than the kernels'
     # bucket tables (kernels.MAX_AGG_BUCKETS), or of an arity no compile
@@ -381,6 +383,51 @@ def _sort_vs_jax(cfg):
         assert got[2][0].numpy().view(np.uint32).tolist() == words.tolist()
 
 
+def _k21_vs_jax(change):
+    """The launch groups of 24 queries over test_batch_search.py's 30k-doc
+    segment (deletes included) with the change - join or drive 0 on
+    AND(term, OR(term, term)) groups, or the groups BatchSearcher chunks
+    at chunk_rows 500 (n_chunks) - through JAX's batched execute and the
+    port's execute_batch: counts and docids equal, scores at rtol 1e-5."""
+    from dataclasses import replace
+
+    from xapiand_tpu_torch.ops.executor import ExecConfig
+
+    seg = build_synthetic_segment(30000, 2000, seed=9)
+    seg.deleted[5:2000:7] = True
+    qs = [sorted(q, key=lambda t: -seg.terms[t].length)
+          for q in sample_queries(seg, 24, 3, seed=5)]
+    js = JSearcher(seg, JBM25())
+    if "n_chunks" in change:
+        groups = [g for g in JBatch(js, k=10, chunk_rows=500).plan(
+            [Q.or_terms(q) for q in qs]) if g[0].n_chunks > 1]
+    else:
+        groups = [(replace(cfg, **change), *g) for cfg, *g in JBatch(
+            js, k=10).plan([Q.and_(Q.term(q[2]), Q.or_terms(q[:2]))
+                            for q in qs])]
+    assert groups
+    jseg = js.device_segment.arrays_pytree()
+    pseg = device_segment_from_numpy(_tree_to_numpy(jseg),
+                                     torch.device("cpu"))
+    stats = {"N": float(seg.doc_count), "avg_doclen": float(seg.avg_doclen)}
+    for cfg, _fn, batch, _chunk in groups:
+        want = js.batched(cfg, JBM25())(
+            jseg, batch, {k: jnp.float32(v) for k, v in
+                          dict(stats, doclen_lower=1.0).items()})
+        pcfg = ExecConfig(**{f: getattr(cfg, f) for f in
+                             ExecConfig.__dataclass_fields__})
+        got = execute_batch(pseg, {k: torch.from_numpy(np.asarray(v))
+                                   for k, v in batch.items()},
+                            pcfg, stats, BM25())
+        np.testing.assert_array_equal(got["count"].numpy(),
+                                      np.asarray(want["count"]))
+        assert got["docids"].tolist() == np.asarray(want["docids"]).tolist()
+        real = got["docids"] != SENTINEL
+        np.testing.assert_allclose(got["scores"][real].numpy(),
+                                   np.asarray(want["scores"])[real.numpy()],
+                                   rtol=RTOL)
+
+
 @pytest.mark.parametrize("change,item", [c[1:] for c in OUTSIDE],
                          ids=[c[0] for c in OUTSIDE])
 def test_configs_outside_the_slice_raise(change, item):
@@ -390,6 +437,10 @@ def test_configs_outside_the_slice_raise(change, item):
 
     cfg = ExecConfig(T=4, L=256, k=10, tree=("G", 0), classes=(256,) * 4)
     check_supported(cfg, BM25())
+    if item == "parity":
+        check_supported(replace(cfg, **change), BM25())
+        _k21_vs_jax(change)
+        return
     if item is None:
         check_supported(replace(cfg, **change), BM25())
         _sort_vs_jax(replace(cfg, **change))

@@ -10,7 +10,11 @@ on the CPU (the port's plain versions) and the answers held equal:
 - an index's prefix_cap above 16384 (score_slices sorts the prefix block
   in device memory);
 - more than 32 value filters (filter_leaves.cu computes each leaf where
-  the tree reads it) and a boolean tree deeper than 32 (a 64-bit stack).
+  the tree reads it) and a boolean tree deeper than 32 (a 64-bit stack);
+- since slice 11, a tree of any depth (tree_program emits each node's
+  deepest child first: the stack needs at most log2(leaves) + 1 bits; held
+  against JAX's _eval_tree on random trees too) and sorts of any number of
+  keys (wide_topk reads key words past 32 from a device-memory table).
 
 The limits found to refuse nothing JAX answers are pinned too: more than
 31 phrase or geo leaves, or a deeper tree of term leaves, meet the shared
@@ -200,3 +204,121 @@ def test_prefix_cap_beyond_shared_memory_matches_jax():
             np.asarray(w["docids"]).tolist()
         np.testing.assert_allclose(np.asarray(g["scores"]),
                                    np.asarray(w["scores"]), rtol=RTOL)
+
+
+# -- slice 11: the last two limits --------------------------------------------
+
+def deep_tree(depth, n_docs):
+    """A tree ``depth`` deep that the shared planner admits (at most 31
+    leaf groups): a chain of AND with a range first (the old program's
+    stack grew a bit a level) and an AND_NOT of a range every fourth
+    level, over a term."""
+    deep = {"body": "w3"}
+    for j in range(depth):
+        rng = {"n" if j % 2 else "m": {"_from": j % 7, "_to": n_docs - j}}
+        deep = {"_and_not": [deep, {"n": {"_from": j, "_to": j + 2}}]} \
+            if j % 4 == 3 else {"_and": [rng, deep]}
+    return deep
+
+
+@pytest.mark.parametrize("negated", [False, True])
+def test_hundred_deep_tree_matches_jax(dbs, negated):
+    """A tree 100 deep (refused past 64 before slice 11: the bit stack is
+    one 64-bit register): the port emits each node's deepest child first,
+    so the stack needs at most log2(leaves) + 1 bits, and answers as JAX
+    does; negated, the deep side is AND_NOT's right operand (NOTAND)."""
+    jdb, pdb = dbs
+    q = deep_tree(100, N_DOCS)
+    if negated:
+        q = {"_and_not": [{"body": "w5"}, q]}
+    want = jdb.search(q, k=10)
+    assert want.total > 0
+    _same(pdb.search(q, k=10), want)
+
+
+@pytest.mark.parametrize("n_keys", [16, 24])
+def test_many_sort_keys_match_jax(dbs, n_keys):
+    """Sorts of 16 and 24 value keys (34 and 50 key words: refused past 32
+    before slice 11; wide_topk reads them from a device-memory table): the
+    same hits in order as JAX's."""
+    jdb, pdb = dbs
+    fields = ("p", "q", "r", "m", "tag", "n")
+    sort = [{fields[j % len(fields)]: {"_order": "desc" if j % 3 else
+                                        "asc"}} for j in range(n_keys)]
+    q = {"_or": [{"body": "w2"}, {"body": "w9"}]}
+    want = jdb.search(q, k=30, sort=jparse_sort(jdb.schema, sort))
+    got = pdb.search(q, k=30, sort=parse_sort(pdb.schema, sort))
+    assert len(want.hits) == 30
+    _same(got, want)
+
+
+def _random_tree(rng, n_leaves):
+    """A random tree over G and F leaves of every op the planner emits."""
+    if n_leaves == 1:
+        r = rng.integers(0, 10)
+        return ("ALL",) if r == 0 else ("NONE",) if r == 1 else \
+            ("G", int(rng.integers(0, 8))) if r < 6 else \
+            ("F", int(rng.integers(0, 6)))
+    op = ("AND", "OR", "FILTER", "AND_NOT", "XOR", "AND_MAYBE")[
+        int(rng.integers(0, 6))]
+    if op in ("AND", "OR") and n_leaves > 2 and rng.random() < 0.5:
+        cut = sorted(rng.choice(np.arange(1, n_leaves), 2, replace=False))
+        parts = (cut[0], cut[1] - cut[0], n_leaves - cut[1])
+    else:
+        a = int(rng.integers(1, n_leaves))
+        parts = (a, n_leaves - a)
+    return (op,) + tuple(_random_tree(rng, n) for n in parts)
+
+
+def _stack_need(prog):
+    depth = need = 0
+    for ins in prog:
+        op = ins & 0xff
+        depth += 1 if op in (kernels.OP_G, kernels.OP_F, kernels.OP_PH,
+                             kernels.OP_GEO, kernels.OP_ALL,
+                             kernels.OP_NONE) else -1
+        need = max(need, depth)
+    assert depth == 1
+    return need
+
+
+def _leaves(tree):
+    return 1 if tree[0] in ("G", "F", "ALL", "NONE") else \
+        sum(_leaves(t) for t in (tree[1:2] if tree[0] == "AND_MAYBE"
+                                 else tree[1:]))
+
+
+def test_tree_program_equals_jax_eval_tree_on_random_trees():
+    """tree_program's reordered program (its plain evaluator) against JAX's
+    _eval_tree on 300 random trees of up to 200 leaves, some of them
+    chains 150 deep, over random group bits and filter verdicts; its stack
+    never needs more than floor(log2 leaves) + 1 bits."""
+    import jax.numpy as jnp
+
+    import xapiand_tpu.ops.executor as jex
+
+    rng = np.random.Generator(np.random.PCG64(11))
+    R = 64
+    orbits = rng.integers(0, 256, R).astype(np.int32)
+    fres = [rng.random(R) < 0.5 for _ in range(6)]
+    trees = [_random_tree(rng, int(rng.integers(1, 200))) for _ in range(280)]
+    for _ in range(20):   # deep chains, the deep side left or right
+        t = ("G", 0)
+        for j in range(150):
+            leaf = ("F", j % 6)
+            op = ("AND", "OR", "AND_NOT", "XOR")[j % 4]
+            t = (op, leaf, t) if rng.random() < 0.5 else (op, t, leaf)
+        trees.append(t)
+    for tree in trees:
+        prog = kernels.tree_program(tree)
+        need = _stack_need(prog)
+        assert need <= int(np.log2(_leaves(tree))) + 1 <= \
+            kernels.MAX_TREE_DEPTH
+        got = kernels._eval_program_plain(
+            prog, torch.from_numpy(orbits), [torch.from_numpy(f)
+                                              for f in fres], (R,), "cpu")
+        want = jex._eval_tree(tree, {
+            "G": lambda g: (jnp.asarray(orbits) & (1 << g)) != 0,
+            "F": lambda i: jnp.asarray(fres[i]),
+            "ALL": lambda: jnp.ones(R, bool)})
+        assert got.tolist() == np.asarray(want).tolist()

@@ -296,23 +296,22 @@ def test_tree_program_vs_eval_tree(world):
             kernels.tree_program(tree), torch.from_numpy(orbits),
             [torch.from_numpy(f) for f in fres], orbits.shape, CPU)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # a tree 40 deep runs on the 64-bit stack (JAX's _eval_tree takes any
-    # depth), as JAX evaluates it; past 64 it is refused by name
+    # a tree 40 deep, then 70 deep, runs on the 64-bit stack (JAX's
+    # _eval_tree takes any depth), as JAX evaluates it: the program emits
+    # each node's deepest child first, so its stack needs 2 bits here
     deep = ("G", 0)
-    for i in range(40):
-        deep = ("AND" if i % 2 else "OR", ("F", i % 2), deep)
-    want = jex._eval_tree(deep, {
-        "G": lambda g: (jnp.asarray(orbits) & (1 << g)) != 0,
-        "F": lambda i: jnp.asarray(fres[i]),
-        "ALL": lambda: jnp.ones(orbits.shape, bool)})
-    got = kernels._eval_program_plain(
-        kernels.tree_program(deep), torch.from_numpy(orbits),
-        [torch.from_numpy(f) for f in fres], orbits.shape, CPU)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="deeper"):
-        for _ in range(30):
-            deep = ("AND", ("G", 1), deep)
-        kernels.tree_program(deep)
+    for n in (40, 30):
+        for i in range(n):
+            deep = ("AND" if i % 2 else "OR", ("F", i % 2), deep) \
+                if n == 40 else ("AND", ("G", 1), deep)
+        want = jex._eval_tree(deep, {
+            "G": lambda g: (jnp.asarray(orbits) & (1 << g)) != 0,
+            "F": lambda i: jnp.asarray(fres[i]),
+            "ALL": lambda: jnp.ones(orbits.shape, bool)})
+        got = kernels._eval_program_plain(
+            kernels.tree_program(deep), torch.from_numpy(orbits),
+            [torch.from_numpy(f) for f in fres], orbits.shape, CPU)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("fam", ["A", "B"])

@@ -195,8 +195,9 @@ def test_plain_versions_count_no_launches():
 def test_unported_options_raise():
     seg = build_synthetic_segment(500, 50, seed=1)
     ps = SegmentSearcher(seg, device=CPU)
-    with pytest.raises(NotImplementedError, match="K21"):
-        BatchSearcher(ps, chunk_rows=4096)
+    # docid-range chunking is ported (K21, slice 11): chunk_rows is
+    # accepted and held against JAX in tests/test_torch_chunked.py
+    assert BatchSearcher(ps, chunk_rows=4096).chunk_rows == 4096
     with pytest.raises(NotImplementedError, match="K17c"):
         BatchSearcher(ps, aggs=((("histogram", 1, 64, ()),), {}))
     # a prefix_cap past one block's shared memory is admitted: score_slices

@@ -180,6 +180,29 @@ def test_mesh_nan_schemes_match_jax(scheme):
                                rtol=RTOL if scheme != "bb2" else 2e-4)
 
 
+def test_mesh_semijoin_matches_jax(monkeypatch):
+    """MeshExecutor.run with both pinned planners' SEMIJOIN_RATIO forced
+    to 1 (tests/test_query_ops.py:159): every shard runs the semijoin
+    (K21; the group's drive from its first member, unify_cfgs) and the
+    merged answers and aggregations equal JAX's mesh."""
+    import xapiand_tpu.query.plan as jplan
+    from xapiand_tpu_torch.query import plan as pplan
+
+    monkeypatch.setattr(jplan, "SEMIJOIN_RATIO", 1)
+    monkeypatch.setattr(pplan, "SEMIJOIN_RATIO", 1)
+    calls = []
+    real = kernels.semijoin_rows
+    monkeypatch.setattr(kernels, "semijoin_rows",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    q = [{"_and": [{"cat": c}, {"body": f"w{w}"}]}
+         for c, w in (("red", 0), ("blue", 3), ("green", 1), ("cyan", 7))]
+    want, got = run_both("bm25", q, k=10, aggs={
+        "s": {"_stats": {"_field": "price"}}})
+    assert len(calls) == 4   # a semijoin a shard
+    _same(got, want)
+    assert got["shaped_aggs"] == want["shaped_aggs"]
+
+
 def _lax_merge(docids, scores, okeys=None, keys=None):
     """make_sharded_step's merge (sharded.py:444-478) over [S, Q, k]
     per-shard outputs, in JAX."""

@@ -251,8 +251,10 @@ __device__ __forceinline__ int upper_bound_i32(const int* a, int n, int x) {
 // K6: the static boolean tree (xapiand_tpu/ops/executor.py _eval_tree
 // 249-282) compiled on the host into a postfix program of int32
 // instructions, op | arg << 8 (ops/kernels.py tree_program). It runs per
-// row on a stack of bits held in one 64-bit register (depth <= 64, checked
-// on the host): G pushes bit `arg` of the row's OR of group bits, F the
+// row on a stack of bits held in one 64-bit register: tree_program emits
+// each node's deepest child first (NOTAND is AND_NOT with its operands
+// swapped on the stack), so a tree of L leaves needs at most
+// floor(log2 L) + 1 bits, whatever its depth. G pushes bit `arg` of the row's OR of group bits, F the
 // row's result of filter leaf `arg` (fleaf(arg): filter_leaves.cu computes
 // it where the program reads it, so a plan may hold any number of
 // filters), PH bit `arg` of the row's phrase verdicts (phrase_leaves.cu),
@@ -267,6 +269,7 @@ __device__ __forceinline__ int upper_bound_i32(const int* a, int n, int x) {
 #define XT_OP_ANDNOT 7
 #define XT_OP_PH 8
 #define XT_OP_GEO 9
+#define XT_OP_NOTAND 10
 
 template <class FLeaf>
 __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
@@ -294,7 +297,8 @@ __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
             if (op == XT_OP_AND) r = a & b;
             else if (op == XT_OP_OR) r = a | b;
             else if (op == XT_OP_XOR) r = a ^ b;
-            else r = a & (b ^ 1ull);
+            else if (op == XT_OP_ANDNOT) r = a & (b ^ 1ull);
+            else r = b & (a ^ 1ull);
             st = ((st >> 2) << 1) | r;
         }
     }

@@ -25,6 +25,13 @@
 // words follow lax.sort's order (fkey, common.cuh: -0.0 equals +0.0, NaN
 // after +inf).
 //
+// The chunk merge (stripe = 0) is the same block over the n_chunks
+// docid-range chunks of one query instead of S shards: xapiand_tpu/ops/
+// executor.py _execute_chunked 1058-1063, lax.sort((-v, d, v),
+// num_keys=2) of the chunks' top-k finalists, chunk-major - the relevance
+// key with okey = the docid itself (no striping; the chunks partition the
+// docids) and the finalist's position last, lax.sort being stable.
+//
 // Reduce (xt_shard_reduce): a thread per (query, column), the S shards
 // folded in shard order - a sum (int32 counts, exact; float32 packs), or a
 // min / max that returns NaN if either side is NaN, as XLA's min / max; a
@@ -42,7 +49,7 @@ __global__ void __launch_bounds__(SM_THREADS) shard_merge_kernel(
     const int* __restrict__ docids, const float* __restrict__ scores,
     const int* __restrict__ okeys, long long n_okeys,
     const unsigned* __restrict__ skeys, int nu, int S, int Q, int k,
-    unsigned* __restrict__ scratch, int* __restrict__ out_d,
+    int stripe, unsigned* __restrict__ scratch, int* __restrict__ out_d,
     float* __restrict__ out_s) {
     const int q = blockIdx.x;
     const int M = S * k;
@@ -56,7 +63,8 @@ __global__ void __launch_bounds__(SM_THREADS) shard_merge_kernel(
         const bool invalid = isinf(sc) && sc < 0.0f;
         // int32 arithmetic wraps, as jnp's
         const int gdoc = invalid ? XT_I32MAX
-                                 : (int)((unsigned)d * (unsigned)S + s);
+                                 : stripe ? (int)((unsigned)d * (unsigned)S + s)
+                                          : d;
         int okey = gdoc;
         if (okeys != nullptr) {
             const long long dd = d < 0 ? 0 : (d < n_okeys ? d : n_okeys - 1);
@@ -92,7 +100,8 @@ __global__ void __launch_bounds__(SM_THREADS) shard_merge_kernel(
             const bool invalid = isinf(sc) && sc < 0.0f;
             out_d[(long long)q * k + rank] =
                 invalid ? XT_I32MAX
-                        : (int)((unsigned)docids[o] * (unsigned)S + s);
+                : stripe ? (int)((unsigned)docids[o] * (unsigned)S + s)
+                         : docids[o];
             out_s[(long long)q * k + rank] = sc;
         }
     }
@@ -101,13 +110,13 @@ __global__ void __launch_bounds__(SM_THREADS) shard_merge_kernel(
 extern "C" int xt_shard_merge(const void* docids, const void* scores,
                               const void* okeys, long long n_okeys,
                               const void* skeys, int nu, int S, int Q, int k,
-                              void* scratch, void* out_d, void* out_s,
-                              void* stream) {
+                              int stripe, void* scratch, void* out_d,
+                              void* out_s, void* stream) {
     if (Q == 0 || k == 0) return 0;
     if (S < 1) return (int)cudaErrorInvalidValue;
     shard_merge_kernel<<<Q, SM_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)docids, (const float*)scores, (const int*)okeys, n_okeys,
-        (const unsigned*)skeys, nu, S, Q, k, (unsigned*)scratch,
+        (const unsigned*)skeys, nu, S, Q, k, stripe, (unsigned*)scratch,
         (int*)out_d, (float*)out_s);
     return (int)cudaGetLastError();
 }

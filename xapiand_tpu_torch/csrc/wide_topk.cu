@@ -26,7 +26,11 @@
 // before that key (an atomic slot each) and bitonic-sorts them: in shared
 // memory when the k keys fit, else in a device-memory scratch the wrapper
 // gives (a block's global writes are visible to its threads after
-// __syncthreads).
+// __syncthreads). A sort key of more than WT_MAXW words (15 value keys and
+// more: lax.sort takes any number) does not fit a thread's registers: the
+// block first writes each row's words once to a device-memory table the
+// wrapper gives, and the passes, the gather and the sort read them there;
+// the fixed digits then live in device memory too.
 //
 // Bound on the H100: reading each row once (9-13 bytes for topk_rows, the
 // key's columns for sort_topk); the passes re-read the rows up to 4 x the
@@ -44,18 +48,21 @@ struct RowSrc {   // topk_rows' rows
     const unsigned char* owner;
     const int* tie;
     int nw;
-    __device__ bool key(long long base, int r, int, unsigned* w) const {
-        if (!owner[base + r]) return false;
+    unsigned* table = nullptr;
+    __device__ const unsigned* key(long long base, int r, int,
+                                   unsigned* w) const {
+        if (!owner[base + r]) return nullptr;
         const float s = scores[base + r];
-        if (isnan(s)) return false;
+        if (isnan(s)) return nullptr;
         unsigned u = __float_as_uint(s);
         u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
         w[0] = ~u;
         int p = 1;
         if (tie != nullptr) w[p++] = (unsigned)tie[base + r];
         w[p] = (unsigned)ids[base + r];
-        return true;
+        return w;
     }
+    __device__ void fill(long long, int, int) const {}
 };
 
 struct SortSrc {   // sort_topk's rows
@@ -68,10 +75,18 @@ struct SortSrc {   // sort_topk's rows
     const long long* cols;
     const float* targets;
     int nw;
-    __device__ bool key(long long base, int r, int b, unsigned* w) const {
+    unsigned* table;   // [B, R, nw] past WT_MAXW words, else null
+    __device__ const unsigned* key(long long base, int r, int b,
+                                   unsigned* w) const {
+        if (table != nullptr) return table + (base + r) * nw;
         row_key<WT_MAXW>(r, base, b, ids, sums, elig, S, spec, cols, targets,
                          w);
-        return true;
+        return w;
+    }
+    __device__ void fill(long long base, int R, int b) const {
+        for (int r = threadIdx.x; r < R; r += WT_THREADS)
+            row_key<WT_MAXW>(r, base, b, ids, sums, elig, S, spec, cols,
+                             targets, table + (base + r) * nw);
     }
 };
 
@@ -83,23 +98,27 @@ __device__ __forceinline__ bool words_lt(const unsigned* a, const unsigned* b,
 }
 
 // topk_rows: out_d / out_s from the key words; sort_topk: from the row
-// index (the last word), and the sort key words to out_k
+// index (the last word), and the sort key words to out_k. thr_g: the
+// fixed digits of each block (nw words a query) when the keys live in
+// src.table.
 template <class Src>
 __global__ void __launch_bounds__(WT_THREADS) wide_topk_kernel(
     Src src, int R, int k, int P, unsigned* __restrict__ scratch,
     int* __restrict__ out_d, float* __restrict__ out_s,
-    unsigned* __restrict__ out_k, int nu) {
+    unsigned* __restrict__ out_k, int nu, unsigned* __restrict__ thr_g) {
     extern __shared__ unsigned dyn[];
     __shared__ unsigned hist[256];
-    __shared__ unsigned thr[WT_MAXW];
+    __shared__ unsigned thr_s[WT_MAXW];
     __shared__ int s_want, s_done, s_n;
     const int b = blockIdx.x;
     const long long base = (long long)b * R;
     const int nw = src.nw;
     unsigned* buf = scratch != nullptr ? scratch + (long long)b * P * nw
                                        : dyn;
+    unsigned* thr = src.table != nullptr ? thr_g + (long long)b * nw : thr_s;
     unsigned key[WT_MAXW];
-    if (threadIdx.x < WT_MAXW) thr[threadIdx.x] = 0u;
+    if (src.table != nullptr) src.fill(base, R, b);
+    for (int i = threadIdx.x; i < nw; i += WT_THREADS) thr[i] = 0u;
     if (threadIdx.x == 0) {
         s_want = k;
         s_done = 0;
@@ -116,10 +135,11 @@ __global__ void __launch_bounds__(WT_THREADS) wide_topk_kernel(
             const unsigned hi_mask = shift == 24 ? 0u
                                                  : ~((1u << (shift + 8)) - 1u);
             for (int r = threadIdx.x; r < R; r += WT_THREADS) {
-                if (!src.key(base, r, b, key)) continue;
-                bool match = (key[w] & hi_mask) == (thr[w] & hi_mask);
-                for (int i = 0; match && i < w; ++i) match = key[i] == thr[i];
-                if (match) atomicAdd(&hist[(key[w] >> shift) & 255u], 1u);
+                const unsigned* kp = src.key(base, r, b, key);
+                if (kp == nullptr) continue;
+                bool match = (kp[w] & hi_mask) == (thr[w] & hi_mask);
+                for (int i = 0; match && i < w; ++i) match = kp[i] == thr[i];
+                if (match) atomicAdd(&hist[(kp[w] >> shift) & 255u], 1u);
             }
             __syncthreads();
             if (threadIdx.x == 0) {
@@ -155,10 +175,11 @@ __global__ void __launch_bounds__(WT_THREADS) wide_topk_kernel(
     }
     // gather the rows at or before the k-th key
     for (int r = threadIdx.x; r < R; r += WT_THREADS) {
-        if (!src.key(base, r, b, key)) continue;
-        if (words_lt(thr, key, nw)) continue;
+        const unsigned* kp = src.key(base, r, b, key);
+        if (kp == nullptr) continue;
+        if (words_lt(thr, kp, nw)) continue;
         const int slot = atomicAdd(&s_n, 1);
-        for (int i = 0; i < nw; ++i) buf[(long long)slot * nw + i] = key[i];
+        for (int i = 0; i < nw; ++i) buf[(long long)slot * nw + i] = kp[i];
     }
     __syncthreads();
     const int n = s_n;
@@ -220,9 +241,10 @@ __global__ void __launch_bounds__(WT_THREADS) wide_topk_kernel(
 template <class Src>
 static int launch_wide(const Src& src, int B, int R, int k, int P,
                        void* scratch, void* out_d, void* out_s, void* out_k,
-                       int nu, void* stream) {
+                       int nu, void* thr_g, void* stream) {
     if (B == 0 || k == 0) return 0;
-    if (src.nw < 1 || src.nw > WT_MAXW || P < k || (P & (P - 1)))
+    if (src.nw < 1 || (src.nw > WT_MAXW && src.table == nullptr) || P < k ||
+        (P & (P - 1)))
         return (int)cudaErrorInvalidValue;
     const size_t smem = scratch != nullptr
         ? 0 : (size_t)P * src.nw * sizeof(unsigned);
@@ -234,7 +256,7 @@ static int launch_wide(const Src& src, int B, int R, int k, int P,
     }
     wide_topk_kernel<Src><<<B, WT_THREADS, smem, (cudaStream_t)stream>>>(
         src, R, k, P, (unsigned*)scratch, (int*)out_d, (float*)out_s,
-        (unsigned*)out_k, nu);
+        (unsigned*)out_k, nu, (unsigned*)thr_g);
     return (int)cudaGetLastError();
 }
 
@@ -246,7 +268,7 @@ extern "C" int xt_wide_topk_rows(const void* scores, const void* ids,
                (const unsigned char*)owner, (const int*)tie,
                tie != nullptr ? 3 : 2};
     return launch_wide(src, B, R, k, P, scratch, out_d, out_s, nullptr, 0,
-                       stream);
+                       nullptr, stream);
 }
 
 extern "C" int xt_wide_sort_topk(const void* ids, const void* sums,
@@ -254,10 +276,15 @@ extern "C" int xt_wide_sort_topk(const void* ids, const void* sums,
                                  int S, int NW, const void* spec,
                                  const void* cols, const void* targets,
                                  int P, void* scratch, void* out_d,
-                                 void* out_s, void* out_k, void* stream) {
+                                 void* out_s, void* out_k, void* table,
+                                 void* stream) {
+    // table: [B, C, NW] key words, then [B, NW] fixed digits (NW > WT_MAXW)
     SortSrc src{(const int*)ids, (const float*)sums,
                 (const unsigned char*)elig, S, (const int*)spec,
-                (const long long*)cols, (const float*)targets, NW};
+                (const long long*)cols, (const float*)targets, NW,
+                (unsigned*)table};
+    void* thr_g = table != nullptr
+        ? (void*)((unsigned*)table + (long long)B * C * NW) : nullptr;
     return launch_wide(src, B, C, k, P, scratch, out_d, out_s, out_k, NW - 2,
-                       stream);
+                       thr_g, stream);
 }

@@ -33,6 +33,30 @@ step for step as the JAX ``execute`` (825-932) runs its predicate half:
      the top verify_k+1 of the prefix rows and prefix_certify rescores
      them exactly and certifies.
 
+The three other executors of the JAX package (K21) dispatch as JAX's
+execute does (643-650), before the steps above:
+  - semijoin (``cfg.drive >= 0``, query/plan.py _pick_drive):
+    semijoin_rows gives the drive term's rows with every other term
+    probed by binary search, then the row epilogue (below);
+  - join (``cfg.join``, set by a caller): score_slices at the class
+    widths and merge_docs give the rows _execute_join builds - the same
+    row indices, the owner at the doc's lowest term, the term-order sums
+    (a kept row's earlier terms miss and add 0.0) - then the epilogue;
+  - docid-chunked (``cfg.n_chunks > 1``, BatchSearcher's chunk_rows):
+    score_slices, merge_docs and topk_rows over a chunk-major (chunk,
+    query) axis at the tight ``chunk_classes`` widths, a term of width 0
+    skipped; shard_reduce sums the chunks' counts and chunk_merge ranks
+    the n_chunks * k finalists (_execute_chunked 1000-1063).
+The row epilogue is _finish_rows (1132-1169): deletes, the tree over the
+group bits, value filters and geo leaves (filter_leaves, geo_leaves), the
+aggregations, and the ordering, where a relevance order takes JAX's tie
+window on rows that are not docid-sorted (_rank_and_topk 476-486): the
+best k * CAND_MARGIN rows by (score desc, row index asc), then the first k
+of those by (score desc, docid asc), each a topk_rows. Like JAX's, these
+executors ignore a plan's prefix, synonym and max specs, and the
+chunked one everything but the terms; a join or semijoin plan with phrase
+leaves raises, where JAX's _finish_rows has no PH leaf.
+
 The fullwidth path (``cfg.fullwidth``, set by BatchSearcher.plan when
 query/plan.py fullwidth_ok holds) skips the compaction of step 3 and
 orders a single sort key with fullwidth_topk (execute 883-892, 560-562).
@@ -57,10 +81,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
 from xapiand_tpu_torch.models.weights import CollectionStats
 from xapiand_tpu_torch.ops import aggs, kernels, phrase
 
 SENTINEL = kernels.SENTINEL
+CAND_MARGIN = 8   # the tie window of unsorted rows, k * CAND_MARGIN (:48)
 
 
 @dataclass(frozen=True)
@@ -115,9 +142,13 @@ def check_supported(cfg: ExecConfig, scheme):
     for a plan outside the ported slices. Every weight scheme is ported."""
     special = bool(cfg.syn_groups or cfg.max_specs)
     # a dense plan reads neither drive nor join (execute 643-648)
+    rows = (cfg.join or cfg.drive >= 0) and not cfg.dense
+    if rows and cfg.phrases:
+        raise NotImplementedError(
+            "a join or semijoin plan with phrase leaves: the JAX package's "
+            "_finish_rows (executor.py:1143-1147) has no PH leaf and fails "
+            "on it (KeyError)")
     checks = (
-        ((cfg.join or cfg.drive >= 0 or cfg.n_chunks > 1) and not cfg.dense,
-         "join/semijoin/chunked execution (ROADMAP queue 2, K21)"),
         (special and not cfg.dense and (
             len(cfg.syn_groups) > kernels.MAX_SPECIAL
             or len(cfg.max_specs) > kernels.MAX_SPECIAL
@@ -137,10 +168,6 @@ def check_supported(cfg: ExecConfig, scheme):
          f"{kernels.MAX_GEO_RMAX} ranges (ROADMAP queue 2, K16)"),
         (any(s[0] not in SORT_KINDS for s in cfg.sort),
          f"sort kinds other than {SORT_KINDS} (ROADMAP queue 2, K8)"),
-        (sum(2 if s[0] == "value" else 1 for s in cfg.sort) + 2
-         > kernels.MAX_WIDE_WORDS,
-         f"sort keys beyond {kernels.MAX_WIDE_WORDS} key words (ROADMAP "
-         "queue 3, K8)"),
     )
     for bad, what in checks:
         if bad:
@@ -195,13 +222,18 @@ def upper_tree(tree, positive: bool = True):
 
 def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
                    eligible, out: dict, fast: bool = False,
-                   unweighted=None, emit: bool = True) -> None:
+                   unweighted=None, emit: bool = True,
+                   window: bool = False) -> None:
     """The final ordering (_rank_and_topk 462-574) into out: a collapse
     first (K10: the survivors stay in place, and a relevance top-k breaks
     ties by the collapsed position), then the fullwidth window, the
-    multi-key sort, or the relevance top-k. On the mesh (emit_sort_keys)
-    a sorted plan also returns its top-k sort key words, out["sort_keys"]
-    (569-573, 930-931), read through the shard's sort_cat_remap rows."""
+    multi-key sort, or the relevance top-k - with ``window`` (rows that
+    are not docid-sorted, 476-486) through the tie window: the best
+    k * CAND_MARGIN rows by (score desc, row index or collapsed position
+    asc), then their first k by (score desc, docid asc). On the mesh
+    (emit_sort_keys) a sorted plan also returns its top-k sort key words,
+    out["sort_keys"] (569-573, 930-931), read through the shard's
+    sort_cat_remap rows."""
     unweighted = cfg.unweighted if unweighted is None else unweighted
     if cfg.k == 0:
         # a search for the count and aggregations alone (Database.search
@@ -232,6 +264,15 @@ def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
         out["docids"], out["scores"] = res[0], res[1]
         if emit:
             out["sort_keys"] = res[2]
+    elif window:
+        B, R = ids.shape
+        if tie is None:
+            tie = torch.arange(R, dtype=torch.int32,
+                               device=ids.device).expand(B, R).contiguous()
+        cd, cv = kernels.topk_rows(sums, ids, eligible,
+                                   min(cfg.k * CAND_MARGIN, R), tie)
+        out["docids"], out["scores"] = kernels.topk_rows(
+            cv, cd, cd != SENTINEL, cfg.k)
     else:
         out["docids"], out["scores"] = kernels.topk_rows(sums, ids, eligible,
                                                          cfg.k, tie)
@@ -272,6 +313,120 @@ def _execute_dense(seg: dict, batch: dict, cfg: ExecConfig, spec,
     return out
 
 
+def _finish_rows(seg: dict, batch: dict, cfg: ExecConfig, ids, sums,
+                 eligible, count, orbits, docid_rows: bool) -> dict:
+    """The row epilogue of the join and semijoin paths (_finish_rows
+    1132-1169) over rows whose deletes are applied: with ``orbits`` the
+    tree is still to run - over the group bits, the value filters and the
+    geo leaves, through filter_leaves - else ``eligible`` and ``count``
+    are final (a tree whose root is a G leaf holds on every row, 1142).
+    Then the aggregations and the ordering, through the tie window unless
+    the rows are in docid order (``docid_rows``, the semijoin's) and no
+    collapse reorders them: there the window's row order is the docid
+    order, and one top-k by (score desc, docid asc) gives its answer."""
+    values = seg["values"]
+    if orbits is not None:
+        geobits = None
+        if cfg.geo_specs:
+            geobits = kernels.geo_leaves(
+                [seg["geo"][s] for s, _qr, _rm in cfg.geo_specs],
+                cfg.geo_specs, batch["geo_queries"], ids, eligible)
+        fparams = batch["fparams"] if cfg.n_filters else \
+            ids.new_empty((ids.shape[0], 0, 4))
+        eligible, count = kernels.filter_leaves(
+            values, cfg.filter_slots, cfg.filter_vmax, fparams, ids, eligible,
+            orbits, kernels.tree_program(cfg.tree), None, geobits)
+    out = {"count": count}
+    if cfg.with_aggs:
+        out["aggs"] = aggs.compute_aggs(seg, cfg.with_aggs, ids, eligible,
+                                        batch)
+    if not cfg.count_only:
+        _rank_and_topk(cfg, values, batch, ids, sums, eligible, out,
+                       window=not docid_rows or cfg.collapse_slot is not None)
+    return out
+
+
+def _tree_is_g(cfg: ExecConfig) -> bool:
+    """_finish_rows reads no tree for a G root without leaves (1142)."""
+    return cfg.tree[0] == "G" and not cfg.n_filters and not cfg.geo_specs
+
+
+def _execute_semijoin(seg, batch, cfg: ExecConfig, spec, uniq) -> dict:
+    """_execute_semijoin 1172-1234: the drive term's rows, every other
+    term probed (semijoin_rows), then the row epilogue."""
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    ids, sums, orbits, first, count = kernels.semijoin_rows(
+        post, batch["offsets"], batch["lens"], batch["tconst"],
+        batch["scoring"], batch["group_bits"], cfg.term_classes(), cfg.drive,
+        seg["deleted"] if cfg.has_deletes else None, spec, uniq)
+    return _finish_rows(seg, batch, cfg, ids, sums, first, count,
+                        None if _tree_is_g(cfg) else orbits, True)
+
+
+def _execute_join(seg, batch, cfg: ExecConfig, spec, uniq) -> dict:
+    """_execute_join 1066-1129: the term blocks at their class widths
+    (score_slices), each row's doc found in every other block and the
+    owner kept at its lowest term (merge_docs: JAX's rows, their sums bit
+    for bit), then the row epilogue. A tree over group bits alone runs in
+    merge_docs; with filters or geo leaves in the epilogue."""
+    T = cfg.T
+    classes = cfg.term_classes()
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    ids, w, _tail = kernels.score_slices(
+        post, None, batch["offsets"], batch["lens"], batch["tconst"],
+        batch["scoring"], classes, (False,) * T, spec, uniq)
+    leaves = bool(cfg.n_filters or cfg.geo_specs)
+    prog = None if leaves or _tree_is_g(cfg) else \
+        kernels.tree_program(cfg.tree)
+    sums, first, count, orbits = kernels.merge_docs(
+        ids, w, classes, batch["group_bits"] if leaves or prog else None,
+        seg["deleted"] if cfg.has_deletes else None, prog, leaves)
+    return _finish_rows(seg, batch, cfg, ids, sums, first, count, orbits,
+                        False)
+
+
+def _execute_chunked(seg, batch, cfg: ExecConfig, spec, uniq) -> dict:
+    """_execute_chunked 1000-1063: each of the n_chunks docid ranges of
+    each query (batch c_offsets / c_lens i32[B,T,nc], BatchSearcher's
+    chunk_rows) scored, merged and ranked as its own query on a
+    chunk-major axis, row c * B + b, at the chunk_classes widths (a term
+    of width 0 is skipped, 1024-1025); the chunks' counts summed in chunk
+    order (shard_reduce); the chunks' top-k lists ranked by chunk_merge.
+    The plan's tree, leaves, sort and aggregations are not read, as in
+    JAX (chunking takes pure term trees only)."""
+    B = batch["offsets"].shape[0]
+    nc = cfg.n_chunks
+    keep = [t for t, w in enumerate(cfg.chunk_classes) if w]
+    widths = tuple(cfg.chunk_classes[t] for t in keep)
+    sel = torch.tensor(keep, dtype=torch.long,
+                       device=batch["offsets"].device)
+
+    def axis(x):   # [B, T, nc] -> [nc * B, T'], chunk-major
+        return x.index_select(1, sel).permute(2, 0, 1).reshape(
+            nc * B, len(keep)).contiguous()
+
+    def each(x):   # [B, T(, C)] -> [nc * B, T'(, C)]
+        x = x.index_select(1, sel)
+        return x.repeat(nc, *(1,) * (x.dim() - 1)).contiguous()
+
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    ids, w, _tail = kernels.score_slices(
+        post, None, axis(batch["c_offsets"]), axis(batch["c_lens"]),
+        each(batch["tconst"]), each(batch["scoring"]), widths,
+        (False,) * len(keep), spec, uniq)
+    sums, first, count, _orbits = kernels.merge_docs(
+        ids, w, widths, None, seg["deleted"] if cfg.has_deletes else None)
+    out = {"count": kernels.shard_reduce(count.view(nc, B), "sum")}
+    if cfg.k == 0:
+        out["docids"] = ids.new_empty((B, 0))
+        out["scores"] = sums.new_empty((B, 0))
+        return out
+    cd, cv = kernels.topk_rows(sums, ids, first, cfg.k)
+    out["docids"], out["scores"] = kernels.chunk_merge(
+        cd.view(nc, B, cfg.k), cv.view(nc, B, cfg.k))
+    return out
+
+
 def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
                   scheme) -> dict:
     """B queries of one config against one segment.
@@ -282,7 +437,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     group_bits i32[B,T], fparams i32[B,F,4] with filters, geo_queries
     [i32[B,QR,2] per geo leaf] with geo leaves, syn_tconst f32[B,NS(,C)]
     with synonym groups, sort_targets f32[B,S,2] and sort_strtabs {si:
-    f32[B,nb]} with a sort; on the mesh (parallel/sharded.py), the shard's
+    f32[B,nb]} with a sort, c_offsets / c_lens i32[B,T,n_chunks] with
+    docid chunks; on the mesh (parallel/sharded.py), the shard's
     rows shared by the batch: cat_remap {spec index: i32[n]} for terms
     aggregations and sort_cat_remap {sort index: i32[n]} for strmetric
     keys} on the same device; stats: {"N", "avg_doclen",
@@ -302,6 +458,12 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
     uniq = seg["uniqterms"] if spec.needs_uniq else None
     if cfg.dense:
         return _execute_dense(seg, batch, cfg, spec, uniq)
+    if cfg.drive >= 0:
+        return _execute_semijoin(seg, batch, cfg, spec, uniq)
+    if cfg.join:
+        return _execute_join(seg, batch, cfg, spec, uniq)
+    if cfg.n_chunks > 1:
+        return _execute_chunked(seg, batch, cfg, spec, uniq)
     T = cfg.T
     classes = cfg.term_classes()
     # impact-prefix mode reads the first prefix[t] rows of the impact-

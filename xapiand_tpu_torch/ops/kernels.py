@@ -1,7 +1,7 @@
 """The port's device kernels: ctypes-bound CUDA launchers, their plain
 PyTorch versions, and launch counters.
 
-Twenty-three kernels carry search, clustering and the mesh merge (sources
+Twenty-five kernels carry search, clustering and the mesh merge (sources
 in ``../csrc``; each file's header names the TPU function it replaces,
 what bounds it on the H100 and what its design does about that):
 
@@ -65,6 +65,12 @@ what bounds it on the H100 and what its design does about that):
   shard_reduce    K19    the psum of the counts and the psum / pmin / pmax
                          of the packed aggregation statistics over S shards
 
+  semijoin_rows   K21    a semijoin plan's rows: the drive term's postings,
+                         every other term probed by binary search
+  chunk_merge     K21    docid-chunked execution's finalists ranked by
+                         (score desc, docid asc): shard_merge.cu's
+                         relevance mode over the chunks, unstriped
+
 The boolean tree (K6) is compiled on the host into a short postfix
 program (``tree_program``) that merge_docs and filter_leaves evaluate per
 row; filter_leaves also reads each row's words of phrase and geo
@@ -106,9 +112,12 @@ MAX_TOPK = 256            # topk_rows per-thread lists; beyond: wide_topk
 MAX_SORT_TOPK = 64        # sort_topk per-thread lists; beyond: wide_topk
 MAX_SORT_WORDS = 8        # sort_topk key words (row index included); beyond:
                           # wide_topk
-MAX_WIDE_WORDS = 32       # wide_topk key words: 15 value sort keys
+MAX_WIDE_WORDS = 32       # wide_topk key words in registers (15 value sort
+                          # keys); beyond: a device-memory table of them
 WIDE_SMEM = 160 * 1024    # wide_topk sorts in shared memory up to this
-MAX_TREE_DEPTH = 64       # the tree program's bit stack is one register
+MAX_TREE_DEPTH = 64       # the tree program's bit stack, one register;
+                          # tree_program's order needs log2(leaves) + 1 at
+                          # most, and it checks the need against this
 FULLWIDTH_WINDOW = 64     # K9's tie window (executor.py:428)
 MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
 MAX_AGG_METRICS = 8       # agg_metrics per-thread partials per launch
@@ -136,7 +145,8 @@ SOURCES = ("common.cuh", "score_slices.cu", "merge_docs.cu", "topk_rows.cu",
            "agg_buckets.cu", "phrase_leaves.cu", "geo_leaves.cu",
            "collapse_rows.cu", "dense_rows.cu", "merge_special.cu",
            "agg_distinct.cu", "agg_ranges.cu", "agg_hist.cu",
-           "agg_filter.cu", "kmeans.cu", "wide_topk.cu", "shard_merge.cu")
+           "agg_filter.cu", "kmeans.cu", "wide_topk.cu", "shard_merge.cu",
+           "semijoin_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -147,7 +157,7 @@ launches = {"score_slices": 0, "merge_docs": 0, "topk_rows": 0,
             "collapse_rows": 0, "dense_rows": 0, "merge_special": 0,
             "agg_distinct": 0, "agg_ranges": 0, "agg_hist": 0,
             "agg_filter": 0, "kmeans": 0, "wide_topk": 0, "shard_merge": 0,
-            "shard_reduce": 0}
+            "shard_reduce": 0, "semijoin_rows": 0, "chunk_merge": 0}
 build_info: dict = {}
 
 _lib = None
@@ -275,8 +285,11 @@ _SIGNATURES = {
     "xt_kmeans": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "xt_wide_topk_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "xt_wide_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                          _P, _P, _P, _P, _P],
-    "xt_shard_merge": [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P],
+    "xt_shard_merge": [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P],
+    "xt_semijoin_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, *_SPEC, _I, _P, _LL, _P, _P, _P, _P, _P, _P],
     "xt_shard_reduce": [_P, _I, _LL, _I, _P, _P],
 }
 
@@ -401,7 +414,7 @@ def absent_column(device) -> dict:
 # --------------------------------------------------------------------------
 
 OP_G, OP_F, OP_ALL, OP_NONE, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_PH, \
-    OP_GEO = range(10)
+    OP_GEO, OP_NOTAND = range(11)
 _LEAF_OPS = {"G": OP_G, "F": OP_F, "PH": OP_PH, "GEO": OP_GEO}
 
 
@@ -409,35 +422,45 @@ def tree_program(tree: tuple) -> tuple:
     """The static boolean tree (xapiand_tpu/ops/executor.py _eval_tree
     249-282) as postfix int32 instructions ``op | arg << 8`` for the
     kernels' bit-stack evaluator (csrc/common.cuh eval_tree). n-ary
-    AND/FILTER/OR fold left; AND_MAYBE is its first child alone."""
-    out: list = []
+    AND/FILTER/OR fold left; AND_MAYBE is its first child alone.
 
-    def emit(node, depth):
+    Each node emits the child that needs the deepest stack first
+    (Sethi-Ullman order): AND, FILTER, OR and XOR commute on bools, and an
+    AND_NOT whose right operand is the deeper one emits it first under
+    OP_NOTAND (``~below & top``). A tree of L leaves then needs at most
+    floor(log2 L) + 1 stack bits, so the 64-bit stack (MAX_TREE_DEPTH)
+    holds any tree of fewer than 2**63 leaves, at any depth; the need is
+    checked against it all the same, as the kernels do not."""
+
+    def gen(node):   # -> (stack need, instructions)
         op = node[0]
-        if depth > MAX_TREE_DEPTH:
-            raise NotImplementedError(
-                f"not ported yet: a boolean tree deeper than "
-                f"{MAX_TREE_DEPTH} (ROADMAP queue 3, K6)")
         if op in _LEAF_OPS:
-            out.append(_LEAF_OPS[op] | int(node[1]) << 8)
-        elif op in ("ALL", "NONE"):
-            out.append(OP_ALL if op == "ALL" else OP_NONE)
-        elif op in ("AND", "FILTER", "OR"):
-            emit(node[1], depth)
-            for c in node[2:]:
-                emit(c, depth + 1)
-                out.append(OP_OR if op == "OR" else OP_AND)
-        elif op in ("AND_NOT", "XOR"):
-            emit(node[1], depth)
-            emit(node[2], depth + 1)
-            out.append(OP_ANDNOT if op == "AND_NOT" else OP_XOR)
-        elif op == "AND_MAYBE":
-            emit(node[1], depth)
-        else:
-            raise ValueError(f"tree op {op!r} has no kernel leaf")
+            return 1, [_LEAF_OPS[op] | int(node[1]) << 8]
+        if op in ("ALL", "NONE"):
+            return 1, [OP_ALL if op == "ALL" else OP_NONE]
+        if op == "AND_MAYBE":
+            return gen(node[1])
+        if op == "AND_NOT":
+            (na, ca), (nb, cb) = gen(node[1]), gen(node[2])
+            if nb > na:
+                return nb, cb + ca + [OP_NOTAND]
+            return max(na, nb + 1), ca + cb + [OP_ANDNOT]
+        if op in ("AND", "FILTER", "OR", "XOR"):
+            kids = node[1:3] if op == "XOR" else node[1:]
+            subs = sorted((gen(c) for c in kids), key=lambda x: -x[0])
+            code = OP_XOR if op == "XOR" else OP_OR if op == "OR" else OP_AND
+            need, out = subs[0][0], list(subs[0][1])
+            for n, c in subs[1:]:
+                need = max(need, n + 1)
+                out += c + [code]
+            return need, out
+        raise ValueError(f"tree op {op!r} has no kernel leaf")
 
-    emit(tree, 1)
-    return tuple(out)
+    need, code = gen(tree)
+    if need > MAX_TREE_DEPTH:
+        raise ValueError(f"tree_program: a stack of {need} bits, past the "
+                         f"kernels' {MAX_TREE_DEPTH}")
+    return tuple(code)
 
 
 def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None,
@@ -464,7 +487,8 @@ def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None,
             b = st.pop()
             a = st.pop()
             st.append(a & b if op == OP_AND else a | b if op == OP_OR
-                      else a ^ b if op == OP_XOR else a & ~b)
+                      else a ^ b if op == OP_XOR else a & ~b
+                      if op == OP_ANDNOT else b & ~a)
     return st.pop()
 
 
@@ -1112,7 +1136,9 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
     i32[n]}: the mesh's sort_cat_remap row of a strmetric spec, a doc's
     category code mapped through it before the table (executor.py
     549-553). A k beyond MAX_SORT_TOPK, or keys beyond MAX_SORT_WORDS
-    words, go to the wide mode (wide_topk.cu), as lax.sort takes any.
+    words, go to the wide mode (wide_topk.cu), as lax.sort takes any; keys
+    beyond MAX_WIDE_WORDS words are read there from a device-memory table
+    of each row's words.
     -> docids i32[B,k] (SENTINEL for ineligible rows), scores f32[B,k]
     (-inf there); with emit, also each row's sort key words i32[B,k,NU]
     (the unsigned words of lax.sort's order, all but the docid; all ones
@@ -1121,9 +1147,8 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
     S = len(specs)
     # key words: 2 per value spec, 1 per other, the docid, the row index
     n_words = sum(2 if s[0] == "value" else 1 for s in specs) + 2
-    if S < 1 or n_words > MAX_WIDE_WORDS:
-        raise ValueError(f"sort_topk: {S} sort keys ({n_words} key words, "
-                         f"1..{MAX_WIDE_WORDS})")
+    if S < 1:
+        raise ValueError("sort_topk: no sort key")
     if k < 1:
         raise ValueError(f"sort_topk: k={k} below 1")
     _check("sort_topk.ids", ids, torch.int32, (B, C))
@@ -1159,11 +1184,14 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
                         device=dev) if emit else None
     if k > MAX_SORT_TOPK or n_words > MAX_SORT_WORDS:
         P, scratch = _wide_buffer(B, k, n_words, dev)
+        # past the registers: every row's words, then each query's digits
+        table = torch.empty(B * (C + 1) * n_words, dtype=torch.int32,
+                            device=dev) if n_words > MAX_WIDE_WORDS else None
         _launch("wide_topk", "xt_wide_sort_topk", ids.data_ptr(),
                 sums.data_ptr(), eligible.data_ptr(), B, C, k, S, n_words,
                 spec_tab.data_ptr(), tab.data_ptr(), _ptr(targets), P,
                 _ptr(scratch), out_d.data_ptr(), out_s.data_ptr(),
-                _ptr(out_k), _stream())
+                _ptr(out_k), _ptr(table), _stream())
     else:
         _launch("sort_topk", "xt_sort_topk", ids.data_ptr(), sums.data_ptr(),
                 eligible.data_ptr(), B, C, k, S, n_words, spec_tab.data_ptr(),
@@ -2466,17 +2494,19 @@ def shard_merge(docids, scores, orderkey=None, sort_keys=None):
     _launch("shard_merge", "xt_shard_merge", docids.data_ptr(),
             scores.data_ptr(), _ptr(orderkey),
             orderkey.shape[1] if orderkey is not None else 0,
-            _ptr(sort_keys), nu, S, Q, k, scratch.data_ptr(),
+            _ptr(sort_keys), nu, S, Q, k, 1, scratch.data_ptr(),
             out_d.data_ptr(), out_s.data_ptr(), _stream())
     return out_d, out_s
 
 
-def _shard_merge_plain(docids, scores, orderkey=None, sort_keys=None):
+def _shard_merge_plain(docids, scores, orderkey=None, sort_keys=None,
+                       stripe=True):
     S, Q, k = docids.shape
     dev = docids.device
     shard = torch.arange(S, device=dev).view(S, 1, 1)
     invalid = torch.isinf(scores) & (scores < 0)
-    gdoc = torch.where(invalid, I32MAX, _wrap32(docids.long() * S + shard))
+    gdoc = torch.where(invalid, I32MAX, _wrap32(docids.long() * S + shard)
+                       if stripe else docids)
     if orderkey is not None:
         n = orderkey.shape[1]
         okey = torch.gather(orderkey, 1, docids.clamp(0, n - 1).long().view(
@@ -2539,3 +2569,134 @@ def _shard_reduce_plain(x, rule):
         acc = torch.where(acc.isnan(), torch.full_like(acc, float("nan")),
                           acc)
     return acc
+
+
+# --------------------------------------------------------------------------
+# K21: chunk_merge, semijoin_rows
+# --------------------------------------------------------------------------
+
+def chunk_merge(docids, scores):
+    """The finalists' ranking of docid-chunked execution (executor.py
+    _execute_chunked 1058-1063): per query the first k of its n_chunks
+    chunks' top-k lists in the order of lax.sort((-v, d, v), num_keys=2)
+    over the chunk-major [n_chunks * k] finalists - shard_merge.cu's
+    relevance mode with the docid as its tie key and no striping.
+
+    docids i32[NC,Q,k], scores f32[NC,Q,k] (each chunk's topk_rows: a
+    score of -inf comes with SENTINEL). -> docids i32[Q,k] (SENTINEL where
+    the score is -inf), scores f32[Q,k]."""
+    NC, Q, k = docids.shape
+    _check("chunk_merge.docids", docids, torch.int32, (NC, Q, k))
+    _check("chunk_merge.scores", scores, torch.float32, (NC, Q, k))
+    if not _on_cuda("chunk_merge", docids, scores):
+        return _shard_merge_plain(docids, scores, stripe=False)
+    dev = docids.device
+    scratch = torch.empty(max(Q * NC * k * 3, 1), dtype=torch.int32,
+                          device=dev)
+    out_d = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    _launch("chunk_merge", "xt_shard_merge", docids.data_ptr(),
+            scores.data_ptr(), 0, 0, 0, 0, NC, Q, k, 0, scratch.data_ptr(),
+            out_d.data_ptr(), out_s.data_ptr(), _stream())
+    return out_d, out_s
+
+
+def semijoin_rows(post, offsets, lens, tconst, scoring, bits, classes,
+                  drive: int, deleted, spec, uniq=None):
+    """The candidate rows of a semijoin plan (executor.py _execute_semijoin
+    1172-1234): the drive term's S = classes[drive] postings, every other
+    term probed by JAX's bit_length(classes[u])-round binary search of its
+    block, its weight from the drive row's doclen and uniqterms.
+
+    post: (docids i32[P], wdf f32[P], doclen f32[P]); offsets / lens
+    i32[B,T], scoring f32[B,T], tconst f32[B,T] or f32[B,T,C]; bits
+    i32[B,T] (the plan's group_bits) or None; deleted bool[ND+1] or None;
+    spec / uniq as score_slices takes them.
+    -> ids i32[B,S] (SENTINEL past the drive term's length), sums f32[B,S]
+       (the drive term's weight, then each other term's in ascending
+       order), orbits i32[B,S] (None without bits), first bool[B,S] (real
+       and not deleted), count i32[B] (first rows a query)."""
+    B, T = offsets.shape
+    classes = tuple(int(c) for c in classes)
+    if len(classes) != T or not 0 <= drive < T:
+        raise ValueError(f"semijoin_rows: {T} terms, classes {classes}, "
+                         f"drive {drive}")
+    S = classes[drive]
+    for name, t, dt in (("offsets", offsets, torch.int32),
+                        ("lens", lens, torch.int32),
+                        ("scoring", scoring, torch.float32)):
+        _check(f"semijoin_rows.{name}", t, dt, (B, T))
+    C = _constants("semijoin_rows.tconst", tconst, (B, T))
+    uniq = _check_uniq("semijoin_rows", spec, uniq)
+    for t, dt in zip(post, (torch.int32, torch.float32, torch.float32)):
+        _check("semijoin_rows.postings", t, dt)
+    opt = [x for x in (bits, deleted, uniq) if x is not None]
+    if bits is not None:
+        _check("semijoin_rows.bits", bits, torch.int32, (B, T))
+    if deleted is not None:
+        _check("semijoin_rows.deleted", deleted, torch.bool)
+    if not _on_cuda("semijoin_rows", offsets, lens, tconst, scoring, *post,
+                    *opt):
+        return _semijoin_rows_plain(post, offsets, lens, tconst, scoring,
+                                    bits, classes, drive, deleted, spec, uniq)
+    dev = offsets.device
+    ids = torch.empty((B, S), dtype=torch.int32, device=dev)
+    sums = torch.empty((B, S), dtype=torch.float32, device=dev)
+    orbits = torch.empty((B, S), dtype=torch.int32, device=dev) \
+        if bits is not None else None
+    first = torch.empty((B, S), dtype=torch.bool, device=dev)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    _launch("semijoin_rows", "xt_semijoin_rows", post[0].data_ptr(),
+            post[1].data_ptr(), post[2].data_ptr(), post[0].shape[0],
+            offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
+            scoring.data_ptr(), _ptr(bits), _ints(classes, dev).data_ptr(),
+            B, T, drive, S, *_spec_args(spec, C, uniq), _nd1(uniq),
+            _ptr(deleted), deleted.shape[0] if deleted is not None else 0,
+            ids.data_ptr(), sums.data_ptr(), _ptr(orbits), first.data_ptr(),
+            count.data_ptr(), _stream())
+    return ids, sums, orbits, first, count
+
+
+def _semijoin_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
+                         drive, deleted, spec, uniq=None):
+    B, T = offsets.shape
+    dev = offsets.device
+    S = classes[drive]
+    n = post[0].shape[0]
+    start = offsets[:, drive].long().clamp(max=n - S).clamp(min=0)
+    idx = start[:, None] + torch.arange(S, device=dev)
+    inl = torch.arange(S, device=dev)[None, :] < lens[:, drive:drive + 1]
+    d = torch.where(inl, post[0][idx], SENTINEL)
+    real = d != SENTINEL
+    dl = post[2][idx]
+    u = uniq[d.clamp(max=uniq.shape[0] - 1)] if uniq is not None else None
+    w = _scored(scheme_sumpart(spec, post[1][idx], dl, _tc(tconst, drive),
+                               u), scoring[:, drive:drive + 1])
+    sums = torch.where(real, w, 0.0)
+    orbits = torch.where(real, bits[:, drive:drive + 1], 0) \
+        if bits is not None else None
+    for t in range(T):
+        if t == drive:
+            continue
+        base = offsets[:, t:t + 1].long()
+        nn = lens[:, t:t + 1].long()
+        nm1 = (nn - 1).clamp(min=0)
+        lo = torch.zeros((B, S), dtype=torch.long, device=dev)
+        hi = nn.expand(B, S)
+        for _ in range(max(classes[t].bit_length() - 1, 1) + 1):
+            mid = (lo + hi) // 2
+            v = post[0][(base + torch.minimum(mid, nm1)).clamp(0, n - 1)]
+            right = v < d
+            lo = torch.where(right, mid + 1, lo)
+            hi = torch.where(right, hi, mid)
+        p = (base + torch.minimum(lo, nm1)).clamp(0, n - 1)
+        hit = real & (lo < nn) & (post[0][p] == d)
+        wu = _scored(scheme_sumpart(spec, post[1][p], dl, _tc(tconst, t), u),
+                     scoring[:, t:t + 1])
+        sums = sums + torch.where(hit, wu, 0.0)
+        if bits is not None:
+            orbits = orbits | torch.where(hit, bits[:, t:t + 1], 0)
+    first = real
+    if deleted is not None:
+        first = first & ~deleted[d.clamp(max=deleted.shape[0] - 1).long()]
+    return d, sums, orbits, first, first.sum(1, dtype=torch.int32)

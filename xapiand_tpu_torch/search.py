@@ -39,6 +39,8 @@ _BATCH_KEYS = ("offsets", "lens", "tconst", "scoring", "group_bits",
 _AGG_KEYS = ("agg_params", "agg_ranges", "agg_filters")
 # stacked at their own length, not padded to T (xapiand_tpu/search.py:353)
 _OWN_LENGTH = ("fparams", "syn_tconst")
+# a chunked plan's per-term chunk spans i32[T, n_chunks] (_chunkify)
+_CHUNK_KEYS = ("c_offsets", "c_lens")
 
 
 class SegmentSearcher:
@@ -130,7 +132,7 @@ class SegmentSearcher:
         def up(a):
             return torch.from_numpy(np.asarray(a)[None]).to(dev)
 
-        batch = {key: up(arrays[key]) for key in _BATCH_KEYS
+        batch = {key: up(arrays[key]) for key in _BATCH_KEYS + _CHUNK_KEYS
                  if key in arrays}
         if "geo_queries" in arrays:
             batch["geo_queries"] = [up(q) for q in arrays["geo_queries"]]
@@ -166,7 +168,10 @@ class BatchSearcher:
     conjunctive queries within HOST_CONJ_MAX_WORK go to the conjunctive
     executor and a small pure-OR residue to the TAAT scorer, unless
     XT_HOST_PATH=0; ``routed`` counts the queries each route served.
-    Not ported: docid-range chunking (``chunk_rows`` must be 0, K21). The
+    ``chunk_rows`` > 0 splits the docid space of a wide pure term tree
+    into up to 16 ranges of at least that many rows, each ranked on its
+    own and the finalists merged (``_chunkify``, the executor's chunked
+    path, K21); 0, the default, as in the JAX package, turns it off. The
     aggregation kinds of K17c raise here at once (ops/aggs.py check_aggs):
     the JAX BatchSearcher does not stack their plan arrays (ROADMAP queue
     3); ``SegmentSearcher.execute`` runs them.
@@ -180,9 +185,7 @@ class BatchSearcher:
                  prefix_cap: int = 0, global_tf=None, global_cf=None):
         self.aggs_specs, self.agg_arrays = aggs if aggs else ((), None)
         check_aggs(self.aggs_specs, batched=True)
-        if chunk_rows != 0:
-            raise NotImplementedError(
-                "not ported yet: docid-range chunking (ROADMAP queue 2, K21)")
+        self.chunk_rows = chunk_rows
         self.searcher = searcher
         self.k = k
         self.sort = sort
@@ -292,6 +295,7 @@ class BatchSearcher:
         dev = self.searcher.device
         out = []
         for (cfg_g, idxs), work in zip(unified, works):
+            cfg_g = self._chunkify(cfg_g, bounds, idxs)
             if cfg_g.compact_cap and cfg_g.req_groups:
                 # tighten the compaction cap from the ACTUAL conjunct lens
                 # of the group's queries (classes are pow2-quantized group
@@ -366,6 +370,10 @@ class BatchSearcher:
                             [bounds[i].arrays["sort_strtabs"][si]
                              for i in chunk])).to(dev)
                         for si in b0["sort_strtabs"]}
+                if cfg_g.n_chunks > 1:
+                    for key in _CHUNK_KEYS:
+                        batch[key] = torch.from_numpy(np.stack(
+                            [bounds[i].arrays[key] for i in chunk])).to(dev)
                 out.append((cfg_g, fn, batch, chunk))
         return out
 
@@ -393,6 +401,59 @@ class BatchSearcher:
             return cfg_g   # scheme not impact-separable
         return replace(cfg_g, prefix=prefix,
                        verify_k=max(32, 2 * self.k))
+
+    def _chunkify(self, cfg_g, bounds, idxs):
+        """Docid-range chunking of a wide single-group term tree (JAX
+        search.py _chunkify 510-566, its rules as they are): n_chunks
+        doubles to 16 while each chunk keeps chunk_rows rows; each query's
+        per-term chunk spans (c_offsets / c_lens i32[T, nc], into its
+        bound arrays) are cut at the docid grid by np.searchsorted; each
+        term's chunk width is its widest chunk on the 128-lane grid (0:
+        the term is skipped); a group whose chunked total exceeds 1.3x
+        its unchunked rows (clustered postings) is not chunked."""
+        if (cfg_g.tree != ("G", 0) or cfg_g.n_filters or cfg_g.geo_specs
+                or cfg_g.phrases or cfg_g.sort
+                or cfg_g.collapse_slot is not None or cfg_g.with_aggs
+                or cfg_g.count_only or cfg_g.dense or cfg_g.join
+                or cfg_g.unweighted or cfg_g.syn_groups or cfg_g.max_specs
+                or cfg_g.emit_sort_keys or cfg_g.prefix):
+            return cfg_g
+        if self.chunk_rows <= 0:
+            return cfg_g
+        R = sum(cfg_g.term_classes())
+        nc = 1
+        while nc < 16 and R // (nc * 2) >= self.chunk_rows:
+            nc *= 2
+        if nc <= 1:
+            return cfg_g
+        seg = self.searcher.segment
+        nd = max(seg.doc_count, 1)
+        bpoints = (np.arange(1, nc, dtype=np.int64) * nd) // nc
+        T = cfg_g.T
+        maxlens = np.zeros(T, np.int64)
+        for i in idxs:
+            arr = bounds[i].arrays
+            offs = np.asarray(arr["offsets"])
+            lens = np.asarray(arr["lens"])
+            c_off = np.zeros((T, nc), np.int32)
+            c_len = np.zeros((T, nc), np.int32)
+            for t in range(offs.shape[0]):
+                off, ln = int(offs[t]), int(lens[t])
+                cuts = np.searchsorted(seg.post_docids[off: off + ln],
+                                       bpoints)
+                edges = np.concatenate([[0], cuts, [ln]])
+                c_off[t] = off + edges[:-1]
+                c_len[t] = np.diff(edges)
+            arr["c_offsets"] = c_off
+            arr["c_lens"] = c_len
+            maxlens = np.maximum(maxlens, c_len.max(axis=1))
+        chunk_classes = tuple(
+            int(-(-int(m) // 128) * 128) if m > 0 else 0 for m in maxlens)
+        if not any(chunk_classes):
+            return cfg_g
+        if nc * sum(chunk_classes) > 1.3 * R:
+            return cfg_g
+        return replace(cfg_g, n_chunks=nc, chunk_classes=chunk_classes)
 
     HOST_CONJ_MAX_WORK = 8_000_000
 
