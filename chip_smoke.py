@@ -237,10 +237,19 @@ and agg_hist torch.bincount of the rows' bucket (and bin) codes, for
 agg_filter torch.searchsorted of the rows' docids in each term's postings,
 for kmeans torch.matmul(X, C.T), the step's product alone, for
 semijoin_rows torch.searchsorted of the drive rows' docids in each probed
-block, for chunk_merge and shard_merge torch.sort of the packed keys,
-null elsewhere: no single PyTorch call computes any of the other
-functions); the last line is {"ok": true,
-"device": {...}}.
+block, for chunk_merge and shard_merge torch.sort of the packed keys, for
+sort_topk where the only key is the docid (an unweighted plan: geo, browse
+N) torch.topk(largest=False) of the masked docids, null elsewhere: no
+single PyTorch call computes any of the other functions); the last line is
+{"ok": true, "device": {...}}.
+
+Before them: a "[kernels] <name> every shape" line for topk_rows,
+dense_rows and sort_topk (SHAPE_KERNELS): each distinct launch shape of
+every path, timed once where it first came (kernel, plain version, bound
+and library call, the path's tag first), outside the counted runs; and
+wide_topk's key-word table (a sort of 40 value keys, 82 words, past
+MAX_WIDE_WORDS; no path drives it), held against its plain version and
+timed in its own phase after the paths.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
@@ -358,6 +367,13 @@ REST_MESH_KERNELS = MESH_KERNELS + (
     "sort_topk", "collapse_rows", "filter_leaves", "dense_rows",
     "agg_metrics", "agg_buckets", "agg_ranges", "agg_hist", "agg_distinct",
     "wide_topk")
+
+
+# the kernels timed at every distinct launch shape of every path
+# ([kernels] ... every shape lines): topk_rows and dense_rows, whose
+# shapes PERF.md section 6 tabulates, and sort_topk, whose docid-only
+# launches have a library call
+SHAPE_KERNELS = ("topk_rows", "dense_rows", "sort_topk")
 
 
 def log(msg):
@@ -482,10 +498,31 @@ class Recorder:
     def __init__(self):
         self.rec: dict = {}
         self.line: dict = {}
+        # SHAPE_KERNELS' times at each distinct launch shape, first seen
+        self.shapes: dict = {n: {} for n in SHAPE_KERNELS}
 
-    def note(self, name, err, ms, plain_ms, work, library_ms=None):
+    def shape(self, name, key, tag, ms, plain_ms, work, library_ms=None):
+        """One launch shape's times beside its bound, apart from the
+        kernel's summed record."""
+        bound = max(1e3 * work[0] / HBM_BYTES_PER_S,
+                    1e3 * work[1] / PEAK_OPS_PER_S)
+        self.shapes[name][key] = (tag, ms, plain_ms, bound, library_ms)
+
+    def shape_lines(self):
+        for name, shapes in self.shapes.items():
+            log(f"[kernels] {name} every shape: [path, kernel, plain, "
+                f"bound, library] ms {json.dumps(shapes)}")
+
+    def note(self, name, err, ms, plain_ms, work, library_ms=None,
+             shape=None):
         """work: (bytes, operations) that the launch must move and do;
-        library_ms: one PyTorch call's time for the same function."""
+        library_ms: one PyTorch call's time for the same function; shape:
+        (key, tag), the launch shape a SHAPE_KERNELS entry is kept under
+        (once a key)."""
+        if shape is not None and shape[0] not in self.shapes.get(name,
+                                                                 {0: 0}):
+            self.shape(name, shape[0], shape[1], ms, plain_ms, work,
+                       library_ms)
         r = self.rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                        "plain_ms": 0.0, "bytes_ms": 0.0,
                                        "ops_ms": 0.0, "bound_ms": 0.0,
@@ -614,6 +651,18 @@ def topk_library_ms(sums, owner, k):
     return cuda_ms(lambda: torch.topk(masked, kk, dim=1), reps=5)
 
 
+def docid_topk_library_ms(ids, elig, k):
+    """The library yardstick of sort_topk where the only key is the docid
+    (an unweighted plan): one torch.topk(largest=False) of the masked
+    docids gives the same docid list."""
+    import torch
+
+    masked = torch.where(elig, ids, 2**31 - 1)
+    kk = min(k, masked.shape[1])
+    return cuda_ms(lambda: torch.topk(masked, kk, dim=1, largest=False),
+                   reps=5)
+
+
 def slices(searcher, cfg, batch, stats_d, rec):
     """score_slices of one launch group, kernel vs plain."""
     from xapiand_tpu_torch.models.weights import CollectionStats
@@ -682,7 +731,8 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
     check_equal("topk_rows scores", s, ps)
     B = ids.shape[0]
     rec.note("topk_rows", 0.0, cuda_ms(k3), cuda_ms(p3),
-             work_rows(R, B, 9, 8 * kk), topk_library_ms(sums, owner, kk))
+             work_rows(R, B, 9, 8 * kk), topk_library_ms(sums, owner, kk),
+             (f"B={B} R={R} k={kk}", shape_name))
 
     if cfg.verify_k:
         classes = cfg.term_classes()
@@ -870,7 +920,9 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("sort_topk scores", got[1], want[1])
         rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
                  cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-                 work_sort(cfg.sort, mask, cfg.k, n_rows(values)))
+                 work_sort(cfg.sort, mask, cfg.k, n_rows(values)), None,
+                 (f"B={B} R={ids.shape[1]} k={cfg.k} keys="
+                  f"{'-'.join(sp[0] for sp in cfg.sort)}", shape_name))
     else:
         targs = (sums, ids, mask, cfg.k)
         got, want = kn.topk_rows(*targs), kn._topk_rows_plain(*targs)
@@ -879,7 +931,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
                  cuda_ms(lambda: kn._topk_rows_plain(*targs)),
                  work_rows(ids.shape[1], B, 9, 8 * cfg.k),
-                 topk_library_ms(sums, mask, cfg.k))
+                 topk_library_ms(sums, mask, cfg.k),
+                 (f"B={B} R={ids.shape[1]} k={cfg.k}", shape_name))
     # every sort key kind, on synthetic columns over the same rows
     col, tg, tab = sort_inputs
     vals = dict(values)
@@ -1116,7 +1169,8 @@ def work_distinct(ids, elig, n_col):
 def held_collapse(a):
     from xapiand_tpu_torch.ops import kernels as kn
 
-    ids, sums, elig, col, cmax = a
+    ids, sums, elig, col, cmax = a[:5]
+    row_order = bool(a[5]) if len(a) > 5 else False
     c = col if col is not None else kn.absent_column(ids.device)
     cm = min(int(cmax), kn.MAX_COLLAPSE)
 
@@ -1125,8 +1179,10 @@ def held_collapse(a):
         check_equal("collapse_rows tie", got[1], want[1])
         return 0.0
 
-    return (lambda: kn._collapse_rows_plain(ids, sums, elig, c, cm), check,
-            f"B={ids.shape[0]} R={ids.shape[1]} max={cm}",
+    return (lambda: kn._collapse_rows_plain(ids, sums, elig, c, cm,
+                                            row_order), check,
+            f"B={ids.shape[0]} R={ids.shape[1]} max={cm}"
+            f"{' row order' if row_order else ''}",
             lambda: work_collapse(ids, elig, cm, c["present"].shape[0]),
             None)
 
@@ -1613,7 +1669,9 @@ def held_sort(a):
             check,
             f"B={ids.shape[0]} R={ids.shape[1]} k={k} keys="
             f"{'-'.join(sp[0] for sp in specs)}{' emit' if emit else ''}",
-            lambda: work_sort(specs, elig, k, n_rows(values)), None)
+            lambda: work_sort(specs, elig, k, n_rows(values)),
+            (lambda: docid_topk_library_ms(ids, elig, k))
+            if tuple(sp[0] for sp in specs) == ("docid",) else None)
 
 
 def held_shard_merge(a):
@@ -2002,6 +2060,15 @@ class Held:
                                        for x in leaves(got)
                                        if x.is_floating_point())
             w = work()
+            if name_ in SHAPE_KERNELS and key not in self.rec.shapes[name_]:
+                # this launch shape's times, once: none of its launches
+                # count
+                saved = dict(kn.launches)
+                self.rec.shape(name_, key, self.tag,
+                               cuda_ms(lambda: kernel(*args, **kw), reps=5),
+                               cuda_ms(plain, reps=2), w,
+                               library() if library else None)
+                kn.launches.update(saved)
             best = self.widest.get(name_)
             err = max(err, best[1] if best else 0.0)
             if best is None or w[0] > best[0]:
@@ -3126,7 +3193,8 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
     rec.note("topk_rows", 0.0, cuda_ms(lambda: kn.topk_rows(*targs)),
              cuda_ms(lambda: kn._topk_rows_plain(*targs)),
              work_rows(R, B, 9, 8 * cfg.k),
-             topk_library_ms(sums, mask, cfg.k))
+             topk_library_ms(sums, mask, cfg.k),
+             (f"B={B} R={R} k={cfg.k}", shape_name))
     torch.cuda.synchronize()
     rec.flush(f"{shape_name} B={B} R={R}" + (
         f" cand_cap={cfg.cand_cap} pmax={cfg.pmax} K15 lookups "
@@ -3390,7 +3458,9 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     check_equal("sort_topk scores", got[1], want[1])
     rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
              cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-             work_sort(spec, elig, cfg.k, n_rows(values)))
+             work_sort(spec, elig, cfg.k, n_rows(values)),
+             docid_topk_library_ms(ids, elig, cfg.k),
+             (f"B={B} R={R} k={cfg.k} keys=docid", shape_name))
     torch.cuda.synchronize()
     rec.flush(f"{shape_name} B={B} R={R} cap={cap} geo_specs "
               f"{cfg.geo_specs}")
@@ -4586,6 +4656,56 @@ def rest_mesh_path(dev, rec, smi) -> dict:
 
 
 
+# wide_topk's key-word table: one sort of WIDE_TABLE_KEYS value keys (two
+# words each, past MAX_WIDE_WORDS) over B x R synthetic rows
+WIDE_TABLE_KEYS, WIDE_TABLE_B, WIDE_TABLE_R = 40, 4, 262_144
+
+
+def wide_table_phase(dev, rec):
+    """wide_topk's table of key words (sort_topk past MAX_WIDE_WORDS key
+    words; no path drives it): a sort of 40 value keys over 8 value columns
+    of 2-7 distinct values (ties run deep), 70% of the rows eligible, k 10,
+    against its plain version and timed. Outside every counted run."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    g = torch.Generator().manual_seed(12)
+    B, R, nd = WIDE_TABLE_B, WIDE_TABLE_R, 2 * WIDE_TABLE_R
+    ids = torch.stack([torch.randperm(nd, generator=g)[:R]
+                       for _ in range(B)]).to(torch.int32).to(dev)
+    sums = (torch.randint(0, 40, (B, R), generator=g).float() / 8).to(dev)
+    elig = (torch.rand((B, R), generator=g) < 0.7).to(dev)
+    values = {}
+    for c in range(8):
+        v = torch.randint(0, 2 + c % 6, (nd + 1,), generator=g,
+                          dtype=torch.int32)
+        values[c] = {"hi": v.to(dev), "lo": (v * 3 - 1).to(dev),
+                     "present": (torch.rand(nd + 1, generator=g) < 0.95)
+                     .to(dev)}
+    specs = tuple(("value", i % 8, bool(i % 3)) for i in range(
+        WIDE_TABLE_KEYS))
+    k = 10
+    sargs = (specs, ids, sums, elig, k, values)
+    pargs = (specs, [values[sp[1]] for sp in specs], ids, sums, elig, k,
+             None, {})
+    before = kn.launches["wide_topk"]
+    got = twice("wide_topk table", lambda: kn.sort_topk(*sargs))
+    if kn.launches["wide_topk"] != before + 2:
+        raise AssertionError("wide_topk table: the sort did not take the "
+                             "wide mode")
+    want = kn._sort_topk_plain(*pargs)
+    check_equal("wide_topk table docids", got[0], want[0])
+    check_equal("wide_topk table scores", got[1], want[1])
+    rec.note("wide_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs), reps=3),
+             cuda_ms(lambda: kn._sort_topk_plain(*pargs), reps=2),
+             work_sort(specs, elig, k, nd + 1))
+    rec.flush(f"wide_topk key-word table B={B} R={R} k={k} "
+              f"{WIDE_TABLE_KEYS} value keys ({2 * WIDE_TABLE_KEYS + 2} "
+              "words)")
+    kn.launches["wide_topk"] = before
+
+
 def main() -> int:
     t_script = time.time()
     import torch
@@ -4671,6 +4791,10 @@ def main() -> int:
     t0 = time.time()
     rmh = rest_mesh_path(dev, rec, smi)
     log(f"[time] rest mesh path {time.time() - t0:.1f} s")
+    t0 = time.time()
+    wide_table_phase(dev, rec)
+    log(f"[time] wide_topk table {time.time() - t0:.1f} s")
+    rec.shape_lines()
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:
         raise AssertionError("JAX or the JAX package was imported")

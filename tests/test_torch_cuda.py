@@ -45,6 +45,7 @@ from xapiand_tpu_torch.utils import synth_geo as sg
 from xapiand_tpu_torch.utils import synth_positional as sp
 from xapiand_tpu_torch.utils.synth import (build_synthetic_segment,
                                            sample_queries)
+from xapiand_tpu_torch.utils.synth_schemes import SCHEME_CONFIGS
 
 pytestmark = pytest.mark.cuda
 
@@ -588,7 +589,9 @@ def test_collapse_rows_matches_plain_version(cuda, case):
     against their plain versions: categorical keys with ties within and
     across keys (negative words among them), all rows one key, a query
     with no eligible row, the key of all ones (the table's empty mark), a
-    slot the segment lacks; collapse_max 1, 3, 8 and 9 (capped at 8)."""
+    slot the segment lacks; collapse_max 1, 3, 8 and 9 (capped at 8);
+    equal scores of a key ranked by docid and by row index (row_order,
+    the join path's)."""
     rng = np.random.Generator(np.random.PCG64(41))
     ids, sums, elig, col = _collapse_case(
         rng, 3, 3000, 9000, 1 if case == "one_key" else 23,
@@ -602,16 +605,20 @@ def test_collapse_rows_matches_plain_version(cuda, case):
         {c: torch.from_numpy(v).to(cuda) for c, v in col.items()}
     args = tuple(torch.from_numpy(x).to(cuda) for x in (ids, sums, elig))
     for cmax in (1, 3, 8, 9):
-        keep, tie = _twice(lambda: kernels.collapse_rows(*args, dcol, cmax))
-        pkeep, ptie = kernels.collapse_rows(
-            *(x.cpu() for x in args),
-            None if dcol is None else _cpu_col(dcol), cmax)
-        assert torch.equal(keep.cpu(), pkeep), (case, cmax)
-        assert torch.equal(tie.cpu(), ptie), (case, cmax)
-        d, s = _twice(lambda: kernels.topk_rows(args[1], args[0], keep, 10,
-                                                tie))
-        pd, ps = kernels._topk_rows_plain(args[1], args[0], keep, 10, tie)
-        assert torch.equal(d, pd) and torch.equal(s, ps), (case, cmax)
+        for ro in (False, True):
+            keep, tie = _twice(lambda: kernels.collapse_rows(
+                *args, dcol, cmax, ro))
+            pkeep, ptie = kernels.collapse_rows(
+                *(x.cpu() for x in args),
+                None if dcol is None else _cpu_col(dcol), cmax, ro)
+            assert torch.equal(keep.cpu(), pkeep), (case, cmax, ro)
+            assert torch.equal(tie.cpu(), ptie), (case, cmax, ro)
+            d, s = _twice(lambda: kernels.topk_rows(args[1], args[0], keep,
+                                                    10, tie))
+            pd, ps = kernels._topk_rows_plain(args[1], args[0], keep, 10,
+                                              tie)
+            assert torch.equal(d, pd) and torch.equal(s, ps), \
+                (case, cmax, ro)
     torch.cuda.synchronize()
 
 
@@ -1464,3 +1471,121 @@ def test_deep_tree_and_many_sort_keys_cuda_equal_cpu(cuda):
         np.testing.assert_allclose([h.score for h in got.hits],
                                    [h.score for h in want.hits], rtol=1e-6)
     assert kernels.launches["wide_topk"] >= n0 + 2
+
+
+# -- slice 12: topk_rows over row tiles, dense_rows over doc tiles -----------
+
+TOPK_KS = (1, 10, 33, 64, 65, 80, 256)
+
+
+def _topk_shapes():
+    """Below one tile at a large B, one tile less one row, exactly one
+    tile, one tile and a row (two), odd R over several tiles (row bases
+    not 16-byte aligned)."""
+    m = kernels.TOPK_TILE_MIN
+    return ((300, 700), (2, m - 1), (2, m), (2, m + 1), (3, 40001),
+            (2, 123457))
+
+
+def _topk_same(got, want, what):
+    assert torch.equal(got[0], want[0]), what
+    assert got[1].cpu().numpy().tobytes() == \
+        want[1].cpu().numpy().tobytes(), what
+
+
+@pytest.mark.parametrize("tie", ["none", "ranks", "row"])
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_rows_tiles_match_plain_version(cuda, k, tie):
+    """topk_rows (both key types: the tie ranks of a collapse, the row
+    index of the tie window) against its plain version, bit for bit and
+    twice: uniform and ascending scores (the most inserts), all equal,
+    NaN and +-inf rows, fewer owners than k; one launch counted a call."""
+    from test_torch_topk_design import TOPK_CASES, topk_rows_case
+
+    for B, R in _topk_shapes():
+        for i, case in enumerate(TOPK_CASES):
+            s, d, o, t = topk_rows_case(case, B, R, 7 * i + k, tie)
+            args = [x.to(cuda) for x in (s, d, o)]
+            tt = t.to(cuda) if t is not None else None
+            n0 = kernels.launches["topk_rows"]
+            got = _twice(lambda: kernels.topk_rows(*args, k, tt))
+            assert kernels.launches["topk_rows"] == n0 + 2
+            _topk_same(got, kernels._topk_rows_plain(*args, k, tt),
+                       (B, R, case))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tie", ["none", "row"])
+def test_topk_rows_one_wide_query_matches_plain_version(cuda, tie):
+    """B1 R4194304 (513 tiles' lists merged) at k 10 and 80, uniform and
+    ascending scores, against the plain version, twice."""
+    from test_torch_topk_design import topk_rows_case
+
+    for case in ("uniform", "ascending"):
+        s, d, o, t = topk_rows_case(case, 1, 4_194_304, 5, tie)
+        args = [x.to(cuda) for x in (s, d, o)]
+        tt = t.to(cuda) if t is not None else None
+        for k in (10, 80):
+            got = _twice(lambda: kernels.topk_rows(*args, k, tt))
+            _topk_same(got, kernels._topk_rows_plain(*args, k, tt),
+                       (case, k))
+    torch.cuda.synchronize()
+
+
+def test_topk_rows_unaligned_pointers_match_plain_version(cuda):
+    """Inputs whose storage starts one element past an allocation (a
+    pointer not 16-byte aligned: the kernel's scalar loads), with and
+    without the tie, against the plain version."""
+    from test_torch_topk_design import topk_rows_case
+
+    B, R = 3, 50001
+    s, d, o, t = topk_rows_case("special", B, R, 9, "ranks")
+
+    def shifted(x):
+        buf = torch.empty(B * R + 1, dtype=x.dtype, device=cuda)
+        v = buf[1:].view(B, R)
+        v.copy_(x.to(cuda))
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        return v
+
+    args = [shifted(x) for x in (s, d, o)]
+    tt = shifted(t)
+    for k, tie in ((10, None), (80, tt)):
+        got = _twice(lambda: kernels.topk_rows(*args, k, tie))
+        _topk_same(got, kernels._topk_rows_plain(*args, k, tie), k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("label", [c[0] for c in SCHEME_CONFIGS])
+def test_dense_rows_tiles_match_plain_version(cuda, label):
+    """dense_rows under every scheme configuration (C of 1 and 2
+    constants, uniqterms where read) against its plain version, every
+    output bit for bit (a NaN equal to a NaN), twice: docs at the doc
+    tiles' borders, a term block clamped at the end of the postings, lens
+    above the class width, T of 300 (past the 256 threads that find the
+    term cursors); and at B 399, where a block walks a run of tiles."""
+    from test_torch_topk_design import dense_world
+
+    for variant in ("borders", "clamp", "over", "wide"):
+        (post, offsets, lens, tconst, scoring, bits, classes, deleted, spec,
+         uniq) = dense_world(variant, label)
+        on = [x.to(cuda) for x in (offsets, lens, tconst, scoring, bits)]
+        args = (tuple(x.to(cuda) for x in post), *on, classes,
+                deleted.to(cuda), spec,
+                uniq.to(cuda) if uniq is not None else None)
+        n0 = kernels.launches["dense_rows"]
+        got = _twice(lambda: kernels.dense_rows(*args))
+        assert kernels.launches["dense_rows"] == n0 + 2
+        want = kernels._dense_rows_plain(*args)
+        for g, w, name in zip(got, want, ("ids", "scores", "orbits",
+                                          "live")):
+            assert _equal(g, w), (variant, name)
+    # B 399: one run a query, every tile of it walked by one block
+    rep = [x.repeat(133, *(1,) * (x.dim() - 1)) for x in on]
+    assert kernels.dense_per(399, deleted.shape[0], classes) > 1
+    args = (args[0], *rep, classes, args[7], spec, args[9])
+    got = _twice(lambda: kernels.dense_rows(*args))
+    want = kernels._dense_rows_plain(*args)
+    for g, w in zip(got, want):
+        assert _equal(g, w)
+    torch.cuda.synchronize()

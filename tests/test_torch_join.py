@@ -233,35 +233,59 @@ def test_join_with_phrases_fails_in_both(world):  # noqa: F811
     assert SENTINEL == kernels.SENTINEL
 
 
-def test_join_collapse_ties_depart_from_jax(world):  # noqa: F811
-    """A named departure (ROADMAP queue 3): a collapse on a join plan keeps,
-    among the equal-score rows of one key, the first in row order in JAX
-    (_collapse's stable sort of term-grouped rows) and the lowest docid in
-    the port (collapse_rows ranks by score, then docid, as on the sort
-    path). Under BM25 scores rarely tie and the answers are JAX's
-    (test_join_execute_matches_jax[collapse]); under Coord, where every
-    doc of a key that holds one term ties, the counts and the scores
-    returned are JAX's and the survivors differ."""
+def _collapse_both(world, scheme, cmax):  # noqa: F811
+    """A collapse on the category over a join plan of three words under a
+    scheme, through JAX's execute and the port's."""
     words = ["w20", "w31", "w40"]
     jst = JStats(doc_count=world.jseg.doc_count,
                  avg_doclen=world.jseg.avg_doclen, doclen_lower=1.0)
-    kw = {"k": 10, "collapse_slot": world.cat, "collapse_max": 1}
+    kw = {"k": 10, "collapse_slot": world.cat, "collapse_max": cmax}
     jb = jplan.bind(jplan.compile_ir(JQ.or_terms(words)), world.jseg,
-                    jget("coord"), jst, **kw)
+                    jget(scheme), jst, **kw)
     pb = pplan.bind(pplan.compile_ir(Q.or_terms(words)), world.pseg,
-                    get_scheme("coord"), world.cstats, **kw)
-    want = world.js.execute(_joined(jb), world.stats, scheme=jget("coord"))
+                    get_scheme(scheme), world.cstats, **kw)
+    want = world.js.execute(_joined(jb), world.stats, scheme=jget(scheme))
     got = world.ps.execute(_joined(pb), world.stats,
-                           scheme=get_scheme("coord"))
-    assert int(got["count"]) == int(want["count"])
+                           scheme=get_scheme(scheme))
+    return got, want, jb
+
+
+def test_join_collapse_ties_depart_from_jax(world, monkeypatch):  # noqa: F811
+    """Once a named departure (ROADMAP queue 3), now JAX's answer: a
+    collapse on a join plan keeps, among the equal-score rows of one key,
+    the first in row order (_collapse's stable sort of term-grouped rows),
+    and collapse_rows' row-order mode keeps the same rows and orders equal
+    scores as the collapsed rows stand. Under Coord every doc of a key that
+    holds one term ties: the docids, scores and count are JAX's, at a cap
+    of 1 and of 3. A docid-ordered collapse (the sort path's) keeps other
+    rows here: forced on the join rows, its docids differ from JAX's."""
+    for cmax in (1, 3):
+        got, want, _jb = _collapse_both(world, "coord", cmax)
+        assert int(got["count"]) == int(want["count"]) > 0
+        assert got["docids"].tolist() == \
+            np.asarray(want["docids"]).tolist(), cmax
+        assert got["scores"].tolist() == \
+            np.asarray(want["scores"]).tolist(), cmax
+    by_docid = kernels.collapse_rows
+    monkeypatch.setattr(kernels, "collapse_rows",
+                        lambda *a: by_docid(*a[:5], False))
+    got, want, _jb = _collapse_both(world, "coord", 1)
     assert got["scores"].tolist() == np.asarray(want["scores"]).tolist()
     assert got["docids"].tolist() != np.asarray(want["docids"]).tolist()
-    # the port's survivors: per key the lowest docid of the top score
-    cats = world.pseg.values[world.cat]
-    keys = [(int(cats.hi[d]), int(cats.lo[d])) if cats.present[d] else None
-            for d in got["docids"].tolist()]
-    assert len({k for k in keys if k is not None}) == \
-        sum(k is not None for k in keys)
+
+
+def test_join_collapse_ties_bool_matches_jax(world):  # noqa: F811
+    """The same collapse under Bool: an unweighted plan, ordered by docid
+    (sort_topk), where every row ties at 0 and the survivor of each key is
+    its first row in JAX's row order: docids and count are JAX's."""
+    for cmax in (1, 3):
+        got, want, jb = _collapse_both(world, "bool", cmax)
+        assert jb.cfg.unweighted
+        assert int(got["count"]) == int(want["count"]) > 0
+        assert got["docids"].tolist() == \
+            np.asarray(want["docids"]).tolist(), cmax
+        assert got["scores"].tolist() == \
+            np.asarray(want["scores"]).tolist(), cmax
 
 
 @pytest.mark.parametrize("scheme", ["pl2", "dlh"])

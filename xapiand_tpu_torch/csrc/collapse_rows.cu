@@ -11,29 +11,36 @@
 //   keep  the row is eligible and either its doc has no value in the slot
 //         (`solo`: all of these survive) or fewer than cmax eligible rows
 //         of the same (hi, lo) key precede it in the order (score
-//         descending, docid ascending) - the stable sort's order, as the
-//         TPU's rows enter docid-ascending;
-//   tie   where the row lands among survivors of equal score: the rank of
-//         its key among the query's distinct keys ((hi, lo) ascending) for
-//         a grouped row, INT32_MAX for a solo row. lax.top_k takes the
-//         lower position of equal scores in the collapsed order, which is
-//         (tie, docid) ascending; topk_rows orders ties by this word.
+//         descending, then the stable sort's order): docid ascending for
+//         rows that enter docid-ascending (the sort and relevance paths),
+//         row index ascending with row_order (the join path's term-grouped
+//         rows, whose stable sort keeps row order);
+//   tie   where the row lands among survivors of equal score: for a
+//         grouped row rank * cmax + j, rank the rank of its key among the
+//         query's distinct keys ((hi, lo) ascending) and j its place among
+//         its key's survivors (cmax - 1 past them); INT32_MAX for a solo
+//         row. lax.top_k takes the lower position of equal scores in the
+//         collapsed order, which is (tie, docid) ascending: equal-score
+//         survivors of one key come in their j order, which is the
+//         stable sort's; topk_rows orders ties by this word.
 //
 // Five steps, each a launch over (row tiles, B), on per-query scratch:
 //   1. insert: every grouped row (eligible, value present) puts its 64-bit
 //      key into the query's open-addressed table (a power of two >= 2 R
 //      slots) with atomicCAS and remembers its slot. All-ones marks an
 //      empty slot; a key of all ones takes the reserved slot `cap`.
-//   2. round 0: atomicMax of the row's packed (score, ~docid) word into
-//      its slot: the key's best row.
+//   2. round 0: atomicMax of the row's packed (score, ~docid or ~row) word
+//      into its slot: the key's best row.
 //   3. list + sort: the occupied slots' keys, order-mapped (sign bits
 //      flipped), are appended to the query's list and sorted by one block
 //      (bitonic, in global memory); a key's rank is its index there.
 //   4. rounds 1 .. cmax-1: each round's atomicMax admits only rows below
 //      the previous round's winner of their slot, so round j leaves the
-//      key's (j+1)-th best row (0 when the key has fewer rows).
+//      key's (j+1)-th best row (0 when the key has fewer rows); round j
+//      marks the previous round's winner with j - 1 in tie.
 //   5. final: keep = packed >= the last round's word of the slot; tie by
-//      binary search of the key in the sorted list.
+//      binary search of the key in the sorted list, times cmax, plus the
+//      mark.
 // Integer maxima and the set of inserted keys depend on no scheduling
 // order, so keep and tie are the same bits on every launch.
 //
@@ -46,8 +53,8 @@
 #define CR_EMPTY 0xffffffffffffffffull
 #define CR_THREADS 256
 
-// (score desc, docid asc) as one ascending-is-better word, never 0; a NaN
-// score is the worst (lax.sort puts NaN last)
+// (score desc, docid or row asc) as one ascending-is-better word, never 0;
+// a NaN score is the worst (lax.sort puts NaN last)
 __device__ __forceinline__ unsigned long long cr_pack(float s, int d) {
     const unsigned hi = (s != s) ? 0u : fkey(s);
     return ((unsigned long long)hi << 32) | (unsigned long long)(~(unsigned)d);
@@ -63,7 +70,7 @@ struct CollapseCol {
 __global__ void collapse_insert_kernel(
     const int* __restrict__ ids, const unsigned char* __restrict__ elig,
     int R, CollapseCol col, unsigned long long* __restrict__ table,
-    long long cap, int* __restrict__ slot) {
+    long long cap, int* __restrict__ slot, int cmax, int* __restrict__ tie) {
     const int b = blockIdx.y;
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
@@ -97,21 +104,24 @@ __global__ void collapse_insert_kernel(
         }
     }
     slot[o] = s;
+    tie[o] = cmax - 1;   // the mark of a row no round before the last wins
 }
 
 __global__ void collapse_round_kernel(
     const int* __restrict__ ids, const float* __restrict__ sums, int R,
-    const int* __restrict__ slot, long long cap,
+    int row_order, const int* __restrict__ slot, long long cap,
     const unsigned long long* __restrict__ prev,
-    unsigned long long* __restrict__ cur) {
+    unsigned long long* __restrict__ cur, int round,
+    int* __restrict__ tie) {
     const int b = blockIdx.y;
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
     const long long o = (long long)b * R + r;
     const int s = slot[o];
     if (s < 0) return;
-    const unsigned long long p = cr_pack(sums[o], ids[o]);
+    const unsigned long long p = cr_pack(sums[o], row_order ? r : ids[o]);
     const long long at = (long long)b * (cap + 1) + s;
+    if (prev != nullptr && p == prev[at]) tie[o] = round - 1;
     if ((prev == nullptr || p < prev[at]) &&
         *(volatile unsigned long long*)&cur[at] < p)
         atomicMax(&cur[at], p);
@@ -163,7 +173,7 @@ __global__ void collapse_sort_kernel(unsigned long long* __restrict__ list,
 
 __global__ void collapse_final_kernel(
     const int* __restrict__ ids, const float* __restrict__ sums,
-    const unsigned char* __restrict__ elig, int R,
+    const unsigned char* __restrict__ elig, int R, int row_order, int cmax,
     const int* __restrict__ slot, const unsigned long long* __restrict__ table,
     long long cap, const unsigned long long* __restrict__ last,
     const unsigned long long* __restrict__ list, long long lcap,
@@ -178,7 +188,7 @@ __global__ void collapse_final_kernel(
     int tr = XT_I32MAX;
     if (s >= 0) {
         const long long at = (long long)b * (cap + 1) + s;
-        kp = cr_pack(sums[o], ids[o]) >= last[at];
+        kp = cr_pack(sums[o], row_order ? r : ids[o]) >= last[at];
         const unsigned long long key =
             (s < cap ? table[at] : CR_EMPTY) ^ 0x8000000080000000ull;
         const unsigned long long* a = list + (long long)b * lcap;
@@ -187,7 +197,7 @@ __global__ void collapse_final_kernel(
             const int mid = (lo + hi) >> 1;
             if (a[mid] < key) lo = mid + 1; else hi = mid;
         }
-        tr = lo;
+        tr = lo * cmax + tie[o];
     }
     keep[o] = kp;
     tie[o] = tr;
@@ -195,13 +205,14 @@ __global__ void collapse_final_kernel(
 
 // Scratch, all written here: table and the two round buffers u64[B, cap+1],
 // slot i32[B, R], list u64[B, lcap] (lcap a power of two >= R), nkeys
-// i32[B]. cmax >= 1 (the caller caps it at 8).
+// i32[B]. cmax >= 1 (the caller caps it at 8); row_order 1 ranks equal
+// scores of a key by row index, 0 by docid.
 extern "C" int xt_collapse_rows(
     const void* ids, const void* sums, const void* elig, int B, int R,
     const void* col_hi, const void* col_lo, const void* col_present,
-    long long n_col, int cmax, void* table, long long cap, void* round_a,
-    void* round_b, void* slot, void* list, long long lcap, void* nkeys,
-    void* keep, void* tie, void* stream) {
+    long long n_col, int cmax, int row_order, void* table, long long cap,
+    void* round_a, void* round_b, void* slot, void* list, long long lcap,
+    void* nkeys, void* keep, void* tie, void* stream) {
     if (B == 0 || R == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const size_t tab_bytes = sizeof(unsigned long long) * (size_t)B * (cap + 1);
@@ -215,12 +226,12 @@ extern "C" int xt_collapse_rows(
     dim3 grid((R + CR_THREADS - 1) / CR_THREADS, B);
     collapse_insert_kernel<<<grid, CR_THREADS, 0, st>>>(
         (const int*)ids, (const unsigned char*)elig, R, col,
-        (unsigned long long*)table, cap, (int*)slot);
+        (unsigned long long*)table, cap, (int*)slot, cmax, (int*)tie);
     unsigned long long* cur = (unsigned long long*)round_a;
     unsigned long long* other = (unsigned long long*)round_b;
     collapse_round_kernel<<<grid, CR_THREADS, 0, st>>>(
-        (const int*)ids, (const float*)sums, R, (const int*)slot, cap,
-        nullptr, cur);
+        (const int*)ids, (const float*)sums, R, row_order, (const int*)slot,
+        cap, nullptr, cur, 0, (int*)tie);
     dim3 lgrid((unsigned)((cap + 1 + CR_THREADS - 1) / CR_THREADS), B);
     collapse_list_kernel<<<lgrid, CR_THREADS, 0, st>>>(
         (const unsigned long long*)table, cur, cap,
@@ -230,15 +241,16 @@ extern "C" int xt_collapse_rows(
     for (int j = 1; j < cmax; ++j) {
         cudaMemsetAsync(other, 0, tab_bytes, st);
         collapse_round_kernel<<<grid, CR_THREADS, 0, st>>>(
-            (const int*)ids, (const float*)sums, R, (const int*)slot, cap,
-            cur, other);
+            (const int*)ids, (const float*)sums, R, row_order,
+            (const int*)slot, cap, cur, other, j, (int*)tie);
         unsigned long long* t = cur;
         cur = other;
         other = t;
     }
     collapse_final_kernel<<<grid, CR_THREADS, 0, st>>>(
         (const int*)ids, (const float*)sums, (const unsigned char*)elig, R,
-        (const int*)slot, (const unsigned long long*)table, cap, cur,
+        row_order, cmax, (const int*)slot,
+        (const unsigned long long*)table, cap, cur,
         (const unsigned long long*)list, lcap, (const int*)nkeys,
         (unsigned char*)keep, (int*)tie);
     return (int)cudaGetLastError();

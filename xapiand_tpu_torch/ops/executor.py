@@ -223,14 +223,16 @@ def upper_tree(tree, positive: bool = True):
 def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
                    eligible, out: dict, fast: bool = False,
                    unweighted=None, emit: bool = True,
-                   window: bool = False) -> None:
+                   window: bool = False, row_order: bool = False) -> None:
     """The final ordering (_rank_and_topk 462-574) into out: a collapse
     first (K10: the survivors stay in place, and a relevance top-k breaks
     ties by the collapsed position), then the fullwidth window, the
     multi-key sort, or the relevance top-k - with ``window`` (rows that
     are not docid-sorted, 476-486) through the tie window: the best
     k * CAND_MARGIN rows by (score desc, row index or collapsed position
-    asc), then their first k by (score desc, docid asc). On the mesh
+    asc), then their first k by (score desc, docid asc); ``row_order``
+    (rows that are not docid-ascending) breaks a collapse's equal scores
+    by row index, as _collapse's stable sort does. On the mesh
     (emit_sort_keys) a sorted plan also returns its top-k sort key words,
     out["sort_keys"] (569-573, 930-931), read through the shard's
     sort_cat_remap rows."""
@@ -246,7 +248,7 @@ def _rank_and_topk(cfg: ExecConfig, values: dict, batch: dict, ids, sums,
     if cfg.collapse_slot is not None:
         eligible, tie = kernels.collapse_rows(
             ids, sums, eligible, values.get(cfg.collapse_slot),
-            cfg.collapse_max)
+            cfg.collapse_max, row_order)
     if fast and len(cfg.sort) == 1 and not unweighted:
         out["docids"], out["scores"], out["certified"] = \
             kernels.fullwidth_topk(cfg.sort[0], ids, sums, eligible, cfg.k,
@@ -342,7 +344,8 @@ def _finish_rows(seg: dict, batch: dict, cfg: ExecConfig, ids, sums,
                                         batch)
     if not cfg.count_only:
         _rank_and_topk(cfg, values, batch, ids, sums, eligible, out,
-                       window=not docid_rows or cfg.collapse_slot is not None)
+                       window=not docid_rows or cfg.collapse_slot is not None,
+                       row_order=not docid_rows)
     return out
 
 

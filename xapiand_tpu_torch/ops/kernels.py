@@ -9,7 +9,8 @@ what bounds it on the H100 and what its design does about that):
                   +K18   weight (BM25 or any of the other 15 schemes)
   merge_docs      K2+K3  per-doc sums and OR of group bits by binary-search
                   +K6    join; owner & not deleted & boolean tree; count
-  topk_rows       K4     exact top-k by (score desc, docid asc)
+  topk_rows       K4     exact top-k by (score desc, docid asc): row
+                         tiles' top-k, then their merge
   prefix_certify  K5     exact rescore of prefix candidates + certificate
   filter_leaves   K7+K6  value-range filter leaves, then the boolean tree
   sort_topk       K8     top-k in multi-key sort order (value, score, dist,
@@ -32,8 +33,8 @@ what bounds it on the H100 and what its design does about that):
                          min(collapse_max, 8) rows by score) and each
                          row's tie rank, which topk_rows then orders by
   dense_rows      K12    the dense match-all path's rows, one per (query,
-                         doc): scores, group bits and the live mask by
-                         binary search in every term's postings
+                         doc): scores, group bits and the live mask, each
+                         doc tile's postings walked term by term
   merge_special   K13    the per-doc sums of OP_MAX (best branch) and
                          OP_SYNONYM (summed wdf scored once) plans
   agg_distinct    K17b   cardinality: the exact distinct count of value
@@ -57,7 +58,8 @@ what bounds it on the H100 and what its design does about that):
 
   wide_topk       K4+K8  topk_rows and sort_topk at any k and any number
                          of sort key words: select by radix passes, then
-                         sort (their wide mode, beyond the per-thread lists)
+                         sort (their wide mode, past MAX_TOPK and
+                         sort_topk's per-thread lists)
   shard_merge     K19    the mesh merge: each query's global top-k of S
                          shards' top-k lists, striped docids, by score or
                          by the shards' emitted sort keys, insertion-order
@@ -108,7 +110,13 @@ SENTINEL = 2**31 - 1
 I32MAX = 2**31 - 1
 MAX_PREFIX_ROWS = 16384   # score_slices sorts a prefix block in 128 KB smem
                           # (wider: in a device-memory scratch)
-MAX_TOPK = 256            # topk_rows per-thread lists; beyond: wide_topk
+MAX_TOPK = 256            # topk_rows keeps k of its shared buffer's 2048
+                          # keys; beyond: wide_topk
+TOPK_BLOCKS = 528         # topk_rows: B x tiles at most (4 blocks an SM)
+TOPK_TILE_MIN = 16384     # topk_rows: at most ceil(R / this) tiles
+DENSE_TILE = 4096         # dense_rows: docs a tile (csrc DR_TILE)
+DENSE_BLOCKS = 792        # dense_rows: B x runs at most (6 blocks an SM)
+DENSE_SHORT = 1024        # dense_rows: slices this short, one tile a block
 MAX_SORT_TOPK = 64        # sort_topk per-thread lists; beyond: wide_topk
 MAX_SORT_WORDS = 8        # sort_topk key words (row index included); beyond:
                           # wide_topk
@@ -274,10 +282,10 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _I, _P, _P, _P],
     "xt_geo_leaves": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "xt_topk_rows_tie": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _P, _LL,
-                         _P, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P,
+                         _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P],
     "xt_dense_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                      _I, *_SPEC, _P, _P, _P, _P, _P],
+                      _I, *_SPEC, _I, _P, _P, _P, _P, _P],
     "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
                          _P, _P, _I, *_SPEC, _I, _P, _P],
     "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _P, _P, _LL, _P, _LL, _P,
@@ -735,6 +743,20 @@ def topk_rows(scores, ids, owner, k: int, tie=None):
             owner.data_ptr(), B, R, k, out_d.data_ptr(), out_s.data_ptr(),
             _stream())
     return out_d, out_s
+
+
+def topk_plan(B: int, R: int) -> tuple:
+    """topk_rows' tiling of a launch (csrc/topk_rows.cu tk_plan, the same
+    arithmetic): each query's rows in tiles of gper groups of 4 rows,
+    counted from the query's first 16-byte-aligned row, as many tiles as
+    B x tiles <= TOPK_BLOCKS allows (a last partial wave of blocks costs a
+    whole one), but at most ceil(R / TOPK_TILE_MIN). ->
+    (tiles, gper); one tile is one launch, more add the merge of the
+    tiles' k best and a scratch of B x tiles x k keys."""
+    ng = R // 4 + 1
+    t = max(1, min(TOPK_BLOCKS // B, -(-R // TOPK_TILE_MIN)))
+    gper = -(-ng // t)
+    return -(-ng // gper), gper
 
 
 def _wide_buffer(B: int, k: int, nw: int, dev):
@@ -2013,21 +2035,26 @@ def _pow2_cover(n: int) -> int:
     return c
 
 
-def collapse_rows(ids, sums, eligible, col, collapse_max: int):
+def collapse_rows(ids, sums, eligible, col, collapse_max: int,
+                  row_order: bool = False):
     """The survivors of a collapse (executor.py _collapse 577-617) and each
     row's tie rank, without permuting the rows.
 
     ids i32[B,R], sums f32[B,R], eligible bool[B,R] (eligible rows hold
     distinct docids); col: the collapse slot's value column {hi, lo i32[n],
     present bool[n]} read at min(id, n - 1), or None for a slot the
-    segment lacks; collapse_max >= 1, capped at MAX_COLLAPSE as JAX caps it.
+    segment lacks; collapse_max >= 1, capped at MAX_COLLAPSE as JAX caps it;
+    row_order: equal scores of a key rank by row index, as _collapse's
+    stable sort leaves rows that are not docid-ascending (the join path's),
+    else by docid.
     -> keep bool[B,R]: the row is eligible and either its doc has no value
        (solo) or fewer than the cap of the eligible rows with its (hi, lo)
-       key precede it by (score desc, docid asc);
-       tie i32[B,R]: the rank of the row's key among the query's distinct
-       keys, (hi, lo) ascending, for an eligible row with a value;
-       INT32_MAX otherwise. Among survivors of equal score the collapsed
-       order is (tie, docid) ascending."""
+       key precede it by (score desc, docid or row asc);
+       tie i32[B,R]: for an eligible row with a value rank * cap + j, rank
+       the rank of its key among the query's distinct keys, (hi, lo)
+       ascending, and j its place in that order among its key's rows (cap
+       - 1 past the survivors); INT32_MAX otherwise. Among survivors of
+       equal score the collapsed order is (tie, docid) ascending."""
     B, R = ids.shape
     if collapse_max < 1:
         raise ValueError(f"collapse_rows: collapse_max {collapse_max}")
@@ -2044,7 +2071,8 @@ def collapse_rows(ids, sums, eligible, col, collapse_max: int):
                torch.bool if ch == "present" else torch.int32, (n,))
     if not _on_cuda("collapse_rows", ids, sums, eligible,
                     *(col[ch] for ch in _COLLAPSE_CH)):
-        return _collapse_rows_plain(ids, sums, eligible, col, cmax)
+        return _collapse_rows_plain(ids, sums, eligible, col, cmax,
+                                    row_order)
     if R > MAX_COLLAPSE_ROWS:
         raise ValueError(f"collapse_rows: {R} rows a query exceed "
                          f"{MAX_COLLAPSE_ROWS} (the key table's slots are "
@@ -2061,24 +2089,26 @@ def collapse_rows(ids, sums, eligible, col, collapse_max: int):
     _launch("collapse_rows", "xt_collapse_rows", ids.data_ptr(),
             sums.data_ptr(), eligible.data_ptr(), B, R, col["hi"].data_ptr(),
             col["lo"].data_ptr(), col["present"].data_ptr(), n, cmax,
-            table[0].data_ptr(), cap, table[1].data_ptr(),
+            int(row_order), table[0].data_ptr(), cap, table[1].data_ptr(),
             table[2].data_ptr(), slot.data_ptr(), lst.data_ptr(), lcap,
             nkeys.data_ptr(), keep.data_ptr(), tie.data_ptr(), _stream())
     return keep, tie
 
 
-def _collapse_rows_plain(ids, sums, eligible, col, cmax):
+def _collapse_rows_plain(ids, sums, eligible, col, cmax, row_order=False):
     """_collapse as the JAX package runs it: one stable sort by (solo
-    flag, key hi, key lo or docid, -score) - with the docid as the last
-    key, the order its docid-ascending rows enter in - then the rank within
-    each run of equal keys, scattered back to the rows."""
+    flag, key hi, key lo or docid, -score) - with the docid (or the row
+    index, row_order) as the last key, the order its rows enter in - then
+    the rank within each run of equal keys, scattered back to the rows."""
     B, R = ids.shape
     dev = ids.device
     d = ids.clamp(max=col["hi"].shape[0] - 1).long()
     kh, kl, present = col["hi"][d], col["lo"][d], col["present"][d]
     grouped = present & eligible
+    last = torch.arange(R, dtype=torch.int32, device=dev).expand(B, R) \
+        if row_order else ids
     keys = [(~grouped).long(), _ikey(torch.where(grouped, kh, 0)),
-            _ikey(torch.where(grouped, kl, ids)), _fkey(-sums), _ikey(ids)]
+            _ikey(torch.where(grouped, kl, ids)), _fkey(-sums), _ikey(last)]
     order = _lex_order(keys)
     og, o1, o2 = (torch.gather(x, 1, order) for x in keys[:3])
     head = torch.ones((B, R), dtype=torch.bool, device=dev)
@@ -2087,10 +2117,11 @@ def _collapse_rows_plain(ids, sums, eligible, col, cmax):
     pos = torch.arange(R, device=dev).expand(B, R)
     start = torch.cummax(torch.where(head, pos, 0), 1)[0]
     keep_s = ((pos - start) < cmax) | (og > 0)
-    rank_s = (torch.cumsum(head.long(), 1) - 1).to(torch.int32)
+    tie_s = ((torch.cumsum(head.long(), 1) - 1) * cmax +
+             (pos - start).clamp(max=cmax - 1)).to(torch.int32)
     keep = torch.zeros_like(eligible).scatter_(1, order, keep_s) & eligible
-    rank = torch.zeros_like(ids).scatter_(1, order, rank_s)
-    return keep, torch.where(grouped, rank, I32MAX)
+    tie = torch.zeros_like(ids).scatter_(1, order, tie_s)
+    return keep, torch.where(grouped, tie, I32MAX)
 
 
 # --------------------------------------------------------------------------
@@ -2146,9 +2177,23 @@ def dense_rows(post, offsets, lens, tconst, scoring, bits, classes, deleted,
             offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
             scoring.data_ptr(), bits.data_ptr(),
             _ints(classes, dev).data_ptr(), B, T, deleted.data_ptr(), nd1,
-            *_spec_args(spec, C, uniq), ids.data_ptr(), scores.data_ptr(),
-            orbits.data_ptr(), live.data_ptr(), _stream())
+            *_spec_args(spec, C, uniq), dense_per(B, nd1, classes),
+            ids.data_ptr(), scores.data_ptr(), orbits.data_ptr(),
+            live.data_ptr(), _stream())
     return ids, scores, orbits, live
+
+
+def dense_per(B: int, nd1: int, classes) -> int:
+    """dense_rows' run length: the doc tiles of DENSE_TILE docs a block
+    walks with one binary search a term. Where some term's slice is long
+    (a class past DENSE_SHORT), runs as long as B x runs within
+    DENSE_BLOCKS (one wave) allows; else one tile a block, as a search in
+    a short slice costs little and long runs of tiles write slower (browse
+    M, whose slices are 128 rows; PERF.md section 6)."""
+    if max(classes, default=0) <= DENSE_SHORT:
+        return 1
+    tiles = -(-nd1 // DENSE_TILE)
+    return -(-tiles // max(1, DENSE_BLOCKS // B))
 
 
 def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
