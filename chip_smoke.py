@@ -253,7 +253,11 @@ timed in its own phase after the paths.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--capture DIR]
+
+--capture DIR saves the arguments of the launches tools/sort_pairs.py
+replays (CAPTURE: sort_topk's geo, browse, faceted and REST mesh shapes,
+the widest agg_filter and semijoin_rows) as the paths make them.
 """
 
 from __future__ import annotations
@@ -264,6 +268,8 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+
+from xapiand_tpu_torch.utils.cudatime import device_ms, event_ms as cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -378,22 +384,6 @@ SHAPE_KERNELS = ("topk_rows", "dense_rows", "sort_topk")
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps=10):
-    """Mean device milliseconds of fn() over reps launches (warmed)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def max_err(a, b):
@@ -632,13 +622,31 @@ KEY_BYTES = {"value": 9, "score": 0, "dist": 5, "geodist": 9,
 
 
 def work_sort(specs, elig, k, n_col=None):
-    """sort_topk / fullwidth_topk: ids, sums and flags per row, the key
+    """fullwidth_topk / wide_topk: ids, sums and flags per row, the key
     columns per eligible row (of n_col column rows at most), the top k
     (docid, score) written."""
     B, C = elig.shape
     return work_selected(B, C, 9, n_true(elig),
                          sum(KEY_BYTES[s[0]] for s in specs), 9 * B * k,
                          n_col)
+
+
+def work_sort_topk(specs, elig, k, n_col=None, emit=False):
+    """sort_topk: a flag byte every row; for an eligible row its docid, its
+    score only under a score key, and its key columns (gathered by docid
+    from columns of n_col rows at most: read once); the k (docid, score)
+    and, with emit, the k rows' key words written. An ineligible row's
+    key needs nothing but its flag. (The kernel's 16-byte docid load also
+    reads the ineligible docids of a group of 4 rows with an eligible one:
+    the function does not need them, so they are not counted.)"""
+    B, C = elig.shape
+    sel = n_true(elig)
+    col = sum(KEY_BYTES[s[0]] for s in specs)
+    score = 4 if any(s[0] == "score" for s in specs) else 0
+    words = sum(2 if s[0] == "value" else 1 for s in specs) if emit else 0
+    return (B * C + (4 + score) * sel +
+            col * (sel if n_col is None else min(sel, n_col)) +
+            (8 + 4 * words) * B * k, B * C + sel)
 
 
 def topk_library_ms(sums, owner, k):
@@ -651,16 +659,22 @@ def topk_library_ms(sums, owner, k):
     return cuda_ms(lambda: torch.topk(masked, kk, dim=1), reps=5)
 
 
-def docid_topk_library_ms(ids, elig, k):
+def docid_topk_call(ids, elig, k):
     """The library yardstick of sort_topk where the only key is the docid
     (an unweighted plan): one torch.topk(largest=False) of the masked
-    docids gives the same docid list."""
+    docids gives the same docid list. The masking is made at the first
+    call, which the timers take as their warm-up."""
     import torch
 
-    masked = torch.where(elig, ids, 2**31 - 1)
-    kk = min(k, masked.shape[1])
-    return cuda_ms(lambda: torch.topk(masked, kk, dim=1, largest=False),
-                   reps=5)
+    kk = min(k, ids.shape[1])
+    masked = []
+
+    def call():
+        if not masked:
+            masked.append(torch.where(elig, ids, 2**31 - 1))
+        return torch.topk(masked[0], kk, dim=1, largest=False)
+
+    return call
 
 
 def slices(searcher, cfg, batch, stats_d, rec):
@@ -920,7 +934,8 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         check_equal("sort_topk scores", got[1], want[1])
         rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
                  cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-                 work_sort(cfg.sort, mask, cfg.k, n_rows(values)), None,
+                 work_sort_topk(cfg.sort, mask, cfg.k, n_rows(values)),
+                 None,
                  (f"B={B} R={ids.shape[1]} k={cfg.k} keys="
                   f"{'-'.join(sp[0] for sp in cfg.sort)}", shape_name))
     else:
@@ -1632,17 +1647,16 @@ def held_afilter(a):
         b, o = work_selected(B, R, 2, sel, 4 * nt, B * R + 4 * span)
         return b, o + sel * nt * log2c(Lf)
 
-    def library():
+    sp = spans.cpu().tolist()
+
+    def yard():
         # torch.searchsorted of every row's docid in each term's span
-        sp = spans.cpu().tolist()
+        for b in range(B):
+            for off, ln in sp[b]:
+                torch.searchsorted(post[off:off + ln], ids[b])
 
-        def run():
-            for b in range(B):
-                for off, ln in sp[b]:
-                    torch.searchsorted(post[off:off + ln], ids[b])
-        return cuda_ms(run, reps=5)
-
-    return (plain, check, f"B={B} R={R} terms={nt} Lf={Lf}", work, library)
+    return (plain, check, f"B={B} R={R} terms={nt} Lf={Lf}", work,
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 def held_sort(a):
@@ -1656,6 +1670,10 @@ def held_sort(a):
     emit = a[9] if len(a) > 9 else False
     cols = [values.get(sp[1]) if sp[0] not in ("score", "docid") else None
             for sp in specs]
+    # the calls the wrapper sends to wide_topk.cu keep its count
+    wide = k > kn.MAX_SORT_TOPK or \
+        sum(2 if sp[0] == "value" else 1 for sp in specs) + 2 > \
+        kn.MAX_SORT_WORDS
 
     def check(got, want):
         check_equal("sort_topk docids", got[0], want[0])
@@ -1664,14 +1682,20 @@ def held_sort(a):
             check_equal("sort_topk keys", got[2], want[2])
         return 0.0
 
+    # the docid key alone: torch.topk, timed after the block (device-only
+    # too, the [device] line)
+    yard = [docid_topk_call(ids, elig, k)] \
+        if tuple(sp[0] for sp in specs) == ("docid",) else []
     return (lambda: kn._sort_topk_plain(specs, cols, ids, sums, elig, k,
                                         targets, strtabs, remaps, emit),
             check,
             f"B={ids.shape[0]} R={ids.shape[1]} k={k} keys="
             f"{'-'.join(sp[0] for sp in specs)}{' emit' if emit else ''}",
-            lambda: work_sort(specs, elig, k, n_rows(values)),
-            (lambda: docid_topk_library_ms(ids, elig, k))
-            if tuple(sp[0] for sp in specs) == ("docid",) else None)
+            lambda: (work_sort(specs, elig, k, n_rows(values)) if wide
+                     else work_sort_topk(specs, elig, k, n_rows(values),
+                                         emit)),
+            *((lambda: cuda_ms(yard[0], reps=5), yard[0])
+              if yard else (None,)))
 
 
 def held_shard_merge(a):
@@ -1754,39 +1778,44 @@ def held_semijoin(a):
         return 0.0
 
     def work():
-        # the real drive rows' docid, wdf and doclen read and their id,
-        # sum, orbits and flag written; per probe the posting it lands on
-        # (docid and wdf) and its rounds of compares plus the weight
+        # the real drive rows' docid, wdf and doclen read, every output
+        # row's id, sum, orbits and flag written (the rows past the drive
+        # term's length too: they are outputs); per probe the posting it
+        # lands on (docid and wdf) and its rounds of compares plus the
+        # weight
         n = int(lens[:, drive].clamp(max=S).sum())
         rounds = sum(max(classes[t].bit_length() - 1, 1) + 1
                      for t in range(T) if t != drive)
-        return (25 * n + 8 * n * (T - 1) + 4 * B,
+        return (12 * n + 13 * B * S + 8 * n * (T - 1) + 4 * B,
                 n * (rounds + T * SCHEME_OPS[a[9].sid]))
 
-    def library():
+    blocks = []
+
+    def yard():
         # torch.searchsorted of the drive's docids in each probed block,
-        # the blocks gathered beforehand
+        # the blocks gathered beforehand (once)
         import torch
 
-        n = post[0].shape[0]
-        start = offsets[:, drive].long().clamp(0, max(n - S, 0))
-        d = post[0][(start[:, None] + torch.arange(S, device=offsets.device)
-                     ).clamp(max=n - 1)].contiguous()
-        ms = 0.0
-        for t in range(T):
-            if t == drive:
-                continue
-            L = classes[t]
-            idx = (offsets[:, t:t + 1].long() +
-                   torch.arange(L, device=offsets.device)).clamp(max=n - 1)
-            blk = torch.where(torch.arange(L, device=offsets.device) <
-                              lens[:, t:t + 1], post[0][idx],
-                              kn.SENTINEL).contiguous()
-            ms += cuda_ms(lambda: torch.searchsorted(blk, d), reps=5)
-        return ms
+        if not blocks:
+            n = post[0].shape[0]
+            ar = torch.arange(S, device=offsets.device)
+            start = offsets[:, drive].long().clamp(0, max(n - S, 0))
+            blocks.append(post[0][(start[:, None] + ar).clamp(max=n - 1)]
+                          .contiguous())
+            for t in range(T):
+                if t == drive:
+                    continue
+                al = torch.arange(classes[t], device=offsets.device)
+                idx = (offsets[:, t:t + 1].long() + al).clamp(max=n - 1)
+                blocks.append(torch.where(al < lens[:, t:t + 1],
+                                          post[0][idx], kn.SENTINEL)
+                              .contiguous())
+        for blk in blocks[1:]:
+            torch.searchsorted(blk, blocks[0])
 
     return (lambda: kn._semijoin_rows_plain(*a), check,
-            f"B={B} S={S} T={T} drive={drive}", work, library)
+            f"B={B} S={S} T={T} drive={drive}", work,
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 def held_chunk_merge(a):
@@ -1983,6 +2012,64 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "shard_merge": held_shard_merge, "shard_reduce": held_shard_reduce,
         "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge}
 
+# python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
+# replays, by their HELD keys (None: the kernel's widest launch, the most
+# rows), as the paths make them
+CAPTURE = {
+    "sort_topk": ("B=8 R=184448 k=10 keys=docid",      # geo
+                  "B=8 R=312960 k=10 keys=docid",      # geo
+                  "B=32 R=1000001 k=10 keys=docid",    # browse N
+                  "B=64 R=1000001 k=10 keys=docid",    # browse N
+                  "B=1 R=1000001 k=10 keys=value",     # browse C
+                  "B=256 R=1000001 k=10 keys=value",   # browse M
+                  "B=64 R=131072 k=10 keys=value",     # faceted B
+                  "B=64 R=262144 k=10 keys=value",     # faceted A, off
+                  "B=1 R=3127 k=10 keys=docid"),       # REST mesh
+    "semijoin_rows": None,
+    "agg_filter": None}
+
+
+def capture(dirname):
+    """From here on, the CAPTURE launches' arguments are saved to dirname
+    (torch.save: the tensors stay on their device), one file a launch,
+    {"name", "key", "args", "kw"}: the first launch of a listed key, or the
+    widest so far. The hook sits under Held's, and saves after the launch
+    returns, so the counts and answers are the run's own; the saving's
+    time falls in whatever block timed the launch, so a capturing run's
+    times are not kept."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    os.makedirs(dirname, exist_ok=True)
+    done, widest = set(), {}
+
+    def save(name, key, args, kw, file):
+        torch.save({"name": name, "key": key, "args": args, "kw": kw},
+                   os.path.join(dirname, file))
+        log(f"[capture] {name} {key}")
+
+    def hook(name, fn):
+        def call(*args, **kw):
+            got = fn(*args, **kw)
+            key = HELD[name](args, **kw)[2]
+            if CAPTURE[name] is None:
+                # agg_filter's rows, semijoin_rows' B x S
+                rows = args[0].numel() if name == "agg_filter" else \
+                    args[1].shape[0] * int(args[6][args[7]])
+                if rows > widest.get(name, 0):
+                    widest[name] = rows
+                    save(name, key, args, kw, f"{name} widest.pt")
+            elif key in CAPTURE[name] and (name, key) not in done:
+                done.add((name, key))
+                save(name, key, args, kw, f"{name} {key}.pt")
+            return got
+
+        return call
+
+    for name in CAPTURE:
+        setattr(kn, name, hook(name, getattr(kn, name)))
+
 
 class Held:
     """Inside the block, every call the port makes to one of ``names`` (a
@@ -1991,7 +2078,10 @@ class Held:
     the same) and compared, and the call returns the kernel's result, so
     the run goes on as the port runs it. After the block each kernel is
     timed at its widest launch (the most bytes of its bound), beside the
-    plain version, its bound and its library yardstick. ``calls`` counts
+    plain version, its bound and its library yardstick; where HELD gives
+    the yardstick's call (agg_filter, semijoin_rows, sort_topk on the docid
+    key), a [device] line beside it reads both on the device alone
+    (device_ms). ``calls`` counts
     the calls held, per kernel, and ``nonzero`` the nonzero floats the
     kernel returned over them."""
 
@@ -2023,12 +2113,16 @@ class Held:
             setattr(kn, name, fn)
         counts = dict(kn.launches)
         if exc[0] is None:
-            for name, (_b, err, key, run, plain, work, library) in \
+            for name, (_b, err, key, run, plain, work, library, yard) in \
                     self.widest.items():
                 self.rec.note(name, err, cuda_ms(run, reps=5),
                               cuda_ms(plain, reps=2), work,
                               library() if library else None)
                 self.rec.flush(f"{self.tag} widest {key}")
+                if yard:
+                    log(f"[device] {self.tag} {name} widest {key}: "
+                        f"device-only ms a call (torch.profiler) kernel "
+                        f"{device_ms(run)}, library {device_ms(yard[0])}")
         if self.counted:
             kn.launches.update(counts)
         self.widest.clear()
@@ -2037,7 +2131,8 @@ class Held:
         def held(*args, **kw):
             from xapiand_tpu_torch.ops import kernels as kn
 
-            plain, check, key, work, library = HELD[name](args, **kw)
+            plain, check, key, work, library, *yard = HELD[name](args,
+                                                                  **kw)
             before = dict(kn.launches)
             got = twice(name, lambda: kernel(*args, **kw))
             # the wrapper may have launched its wide mode (wide_topk.cu):
@@ -2074,7 +2169,7 @@ class Held:
             if best is None or w[0] > best[0]:
                 self.widest[name_] = (w[0], err, key,
                                       lambda: kernel(*args, **kw), plain, w,
-                                      library)
+                                      library, yard)
             else:
                 self.widest[name_] = best[:1] + (err,) + best[2:]
             return got
@@ -3458,8 +3553,8 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     check_equal("sort_topk scores", got[1], want[1])
     rec.note("sort_topk", 0.0, cuda_ms(lambda: kn.sort_topk(*sargs)),
              cuda_ms(lambda: kn._sort_topk_plain(*pargs)),
-             work_sort(spec, elig, cfg.k, n_rows(values)),
-             docid_topk_library_ms(ids, elig, cfg.k),
+             work_sort_topk(spec, elig, cfg.k, n_rows(values)),
+             cuda_ms(docid_topk_call(ids, elig, cfg.k), reps=5),
              (f"B={B} R={R} k={cfg.k} keys=docid", shape_name))
     torch.cuda.synchronize()
     rec.flush(f"{shape_name} B={B} R={R} cap={cap} geo_specs "
@@ -4708,13 +4803,19 @@ def wide_table_phase(dev, rec):
 
 def main() -> int:
     t_script = time.time()
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--capture", metavar="DIR",
+                    help="save the CAPTURE launches to DIR, for "
+                         "tools/sort_pairs.py (this run's times are not "
+                         "kept)")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not os.path.isdir(os.path.join(ROOT, "xapiand_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
 
@@ -4744,6 +4845,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rec = Recorder()
+    if args.capture:
+        capture(args.capture)
     # the earlier paths time the device path of BatchSearcher.run; the
     # Database path routes as the JAX package does (XT_HOST_PATH=1)
     os.environ["XT_HOST_PATH"] = "0"

@@ -1589,3 +1589,161 @@ def test_dense_rows_tiles_match_plain_version(cuda, label):
     for g, w in zip(got, want):
         assert _equal(g, w)
     torch.cuda.synchronize()
+
+
+# -- slice 13: sort_topk over row tiles, a threshold filter and a merge ------
+
+def _sort_on(world, dev):
+    """A tests/test_torch_sort_design.py sort_world on the device."""
+    ids, sums, elig, values, targets, strtabs, remaps = world
+    return (ids.to(dev), sums.to(dev), elig.to(dev),
+            {s: {c: t.to(dev) for c, t in col.items()}
+             for s, col in values.items()},
+            targets.to(dev), {i: t.to(dev) for i, t in strtabs.items()},
+            {i: t.to(dev) for i, t in remaps.items()})
+
+
+def _sort_held(specs, world, k, emit, what):
+    """sort_topk on the card, twice, against its plain version on the same
+    tensors: docids, scores (bits) and emitted words equal; one launch a
+    call."""
+    ids, sums, elig, values, targets, strtabs, remaps = world
+    n0 = kernels.launches["sort_topk"]
+    got = _twice(lambda: kernels.sort_topk(specs, ids, sums, elig, k, values,
+                                           targets, strtabs, remaps,
+                                           emit=emit))
+    assert kernels.launches["sort_topk"] == n0 + 2, what
+    cols = [values.get(s[1]) if s[0] not in ("score", "docid") else None
+            for s in specs]
+    want = kernels._sort_topk_plain(specs, cols, ids, sums, elig, k, targets,
+                                    strtabs, remaps, emit)
+    assert torch.equal(got[0], want[0]), what
+    assert got[1].cpu().numpy().tobytes() == \
+        want[1].cpu().numpy().tobytes(), what
+    if emit:
+        assert torch.equal(got[2], want[2]), what
+
+
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_sort_topk_tiles_match_plain_version(cuda, k):
+    """sort_topk against its plain version, bit for bit and twice, for
+    every key kind and 3 to 8 key words, emit on and off: B1 over many
+    tiles, B8, B64 and B256; every case of the design tests (NaN scores
+    beside ineligible rows, few or no eligible rows, tied first words,
+    docids ascending and descending along the rows)."""
+    from test_torch_sort_design import CASES, SPECS, n_words, sort_world
+
+    shapes = ((1, 200_001), (8, 40_001), (64, 20_000), (256, 3_001))
+    for si, specs in enumerate(SPECS):
+        assert 3 <= n_words(specs) <= kernels.MAX_SORT_WORDS
+        for j, (B, C) in enumerate(shapes):
+            case = CASES[(si + j) % len(CASES)]
+            world = _sort_on(sort_world(specs, B, C, 13 * si + j, case,
+                                        remap=True), cuda)
+            _sort_held(specs, world, k, (si + j) % 2 == 0,
+                       (specs, B, C, case))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["nan", "few", "ineligible", "ties"])
+def test_sort_topk_short_and_nan_cases_match_plain_version(cuda, case):
+    """C < k (all ones past C), C at k, a few rows over odd C (row bases
+    not 4-aligned), one tile less a row, and one tile and a row; a score
+    key alone (NaN beside ineligible rows) and a value key with a score."""
+    from test_torch_sort_design import SPECS, sort_world
+
+    m = kernels.SORT_TILE_MIN
+    for specs in (SPECS[-1], SPECS[1], SPECS[9]):
+        for B, C in ((3, 1), (3, 9), (2, 10), (3, 37), (2, m - 1),
+                     (2, m + 1)):
+            world = _sort_on(sort_world(specs, B, C, C, case), cuda)
+            for k in (10, 64):
+                _sort_held(specs, world, k, True, (specs, B, C, k))
+    torch.cuda.synchronize()
+
+
+def test_sort_topk_unaligned_flags_match_plain_version(cuda):
+    """Eligibility flags whose storage starts one byte past an allocation
+    (the kernel's byte loads), against the plain version."""
+    from test_torch_sort_design import SPECS, sort_world
+
+    specs = SPECS[1]
+    ids, sums, elig, *rest = _sort_on(sort_world(specs, 3, 50_001, 4,
+                                                 "uniform"), cuda)
+    buf = torch.zeros(elig.numel() + 1, dtype=torch.bool, device=cuda)
+    el = buf[1:].view(elig.shape)
+    el.copy_(elig)
+    assert el.data_ptr() % 4 != 0
+    _sort_held(specs, (ids, sums, el, *rest), 10, True, "unaligned")
+    torch.cuda.synchronize()
+
+
+def _semijoin_world(B, seed=3):
+    """Three terms' ascending postings over 4M docs (600,000, 100,000 and
+    2,000 of them) and B queries, each its own case: the drive term
+    whole, its length a tail of the class (rows past it), a window
+    clamped at the end of the postings (two ascending runs), an empty
+    drive term, an empty probed term, a probed term longer than its class
+    (JAX's rounds stop short)."""
+    g = np.random.Generator(np.random.PCG64(seed))
+    ns = (600_000, 100_000, 2_000)
+    docs = [np.sort(g.choice(4_000_000, n, replace=False)) for n in ns]
+    post = (torch.from_numpy(np.concatenate(docs).astype(np.int32)),
+            torch.from_numpy(g.integers(1, 6, sum(ns)).astype(np.float32)),
+            torch.from_numpy((g.random(sum(ns)) * 300 + 5)
+                             .astype(np.float32)))
+    P = sum(ns)
+    offs = np.array([0, ns[0], ns[0] + ns[1]], np.int32)
+    offsets = np.tile(offs, (B, 1))
+    lens = np.tile(np.array(ns, np.int32), (B, 1))
+    lens[1::6, 0] = 300_000                       # rows past the length
+    offsets[2::6, 0] = P - 1_000                  # a clamped window
+    lens[3::6, 0] = 0                             # an empty drive term
+    lens[4::6, 1] = 0                             # an empty probed term
+    lens[5::6, 2] = 1_500
+    deleted = torch.from_numpy(g.random(4_000_001) < 0.01)
+    return post, torch.from_numpy(offsets), torch.from_numpy(lens), \
+        deleted
+
+
+@pytest.mark.parametrize("scheme", ["bm25", "pl2", "dicecoeff"])
+def test_semijoin_rows_brackets_match_plain_version(cuda, scheme):
+    """semijoin_rows at the K21 path's drive class (2^19 rows a query, B
+    12, every case of _semijoin_world twice) against its plain version on
+    the same card tensors, bit for bit, driven by the longest term and by
+    the middle one: brackets staged (the short term) and searched in place
+    (the long ones); and with the middle term's class 512, below its
+    length of 100,000, where JAX's rounds stop short and run as they
+    are."""
+    from xapiand_tpu_torch.models.weights import CollectionStats, get_scheme
+
+    B = 12
+    post, offsets, lens, deleted = _semijoin_world(B)
+    sch = get_scheme(scheme)
+    st = CollectionStats(doc_count=4_000_000, avg_doclen=150.0,
+                         doclen_lower=1.0, doclen_upper=400.0,
+                         total_len=6.0e8)
+    spec = sch.kernel_spec(st)
+    g = torch.Generator().manual_seed(5)
+    C = sch.n_constants
+    tconst = torch.rand((B, 3) + ((C,) if C > 1 else ()), generator=g) + 0.5
+    scoring = torch.ones((B, 3))
+    bits = torch.tensor([[1, 2, 4]] * B, dtype=torch.int32)
+    uniq = (torch.rand(4_000_001, generator=g) * 50 + 1).floor() \
+        if spec.needs_uniq else None
+    for drive, classes in ((0, (524_288, 131_072, 2_048)),
+                           (1, (524_288, 131_072, 2_048)),
+                           (0, (524_288, 512, 2_048))):
+        on = (tuple(p.to(cuda) for p in post), offsets.to(cuda),
+              lens.to(cuda), tconst.to(cuda), scoring.to(cuda), bits.to(cuda),
+              classes, drive, deleted.to(cuda), spec,
+              uniq.to(cuda) if uniq is not None else None)
+        n0 = kernels.launches["semijoin_rows"]
+        got = _twice(lambda: kernels.semijoin_rows(*on))
+        assert kernels.launches["semijoin_rows"] == n0 + 2
+        want = kernels._semijoin_rows_plain(*on)
+        for a, b in zip(got, want):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(), \
+                (scheme, drive)
+        assert int(want[4].sum()) > 0
+    torch.cuda.synchronize()

@@ -394,7 +394,6 @@ __device__ __forceinline__ unsigned elig_mask16(const unsigned char* e,
 // the slot), the strmetric code remap (a device pointer, 0 without one)
 // and its length
 #define ST_COLS 10
-#define ST_THREADS 256
 
 __device__ __forceinline__ unsigned ikey(int x) {
     return (unsigned)x ^ 0x80000000u;
@@ -427,6 +426,69 @@ __device__ __forceinline__ bool key_lt(const unsigned* a, const unsigned* b) {
     return false;
 }
 
+// An ineligible row's word for a spec of this kind: INT32_MAX (value,
+// docid) or +inf (the float kinds), as ikey / fkey give them.
+__device__ __forceinline__ unsigned spec_const(int kind) {
+    return (kind == ST_VALUE || kind == ST_DOCID) ? 0xffffffffu : 0xff800000u;
+}
+
+// Word `half` (1: a value spec's lo word, else 0) of sort spec s for an
+// eligible row of docid d in query b. spec holds (kind, desc, nb, 0), c
+// the spec's ST_COLS column words; sc points at the row's score and is
+// read by a score key only; targets f32[B][S][2] by dist and geodist.
+__device__ __forceinline__ unsigned spec_word(
+    const int* spec, const long long* c, const float* targets, int S,
+    int s, int b, int d, const float* sc, int half) {
+    const int kind = spec[0], desc = spec[1], nb = spec[2];
+    const float inf = __int_as_float(0x7f800000);
+    const long long n = c[7];
+    const long long dd = n > 0 ? ((long long)d < n - 1 ? (long long)d
+                                                       : n - 1) : 0;
+    if (kind == ST_VALUE) {
+        if (half) {
+            const int l = n > 0 ? ((const int*)c[1])[dd] : XT_I32MAX;
+            return ikey(desc ? ~l : l);
+        }
+        int h = XT_I32MAX;
+        bool pr = false;
+        if (n > 0) {
+            h = ((const int*)c[0])[dd];
+            pr = ((const unsigned char*)c[2])[dd] != 0;
+        }
+        if (desc) h = ~h;
+        return ikey(pr ? h : XT_I32MAX);
+    }
+    if (kind == ST_DOCID) return ikey(d);
+    float kf;
+    if (kind == ST_SCORE) {
+        kf = desc ? -*sc : *sc;
+    } else if (kind == ST_STRMETRIC) {
+        int code = (n > 0 && c[5]) ? ((const int*)c[5])[dd] : -1;
+        if (c[8] && code >= 0) {
+            const long long m = c[9];
+            code = ((const int*)c[8])[code < m - 1 ? code : m - 1];
+        }
+        const float* tab = (const float*)c[6] + (long long)b * nb;
+        kf = tab[code < 0 ? 0 : (code > nb - 1 ? nb - 1 : code)];
+        if (code < 0) kf = inf;
+        if (desc) kf = -kf;
+    } else {
+        const bool pr = n > 0 && ((const unsigned char*)c[2])[dd] != 0;
+        const float* tg = targets + ((long long)b * S + s) * 2;
+        const float v = n > 0 ? ((const float*)c[3])[dd] : 0.0f;
+        if (kind == ST_DIST) {
+            kf = fabsf(v - tg[0]);
+        } else {
+            const float lon = (n > 0 && c[4]) ? ((const float*)c[4])[dd]
+                                              : 0.0f;
+            kf = haversine(v, lon, tg[0], tg[1]);
+        }
+        if (!pr) kf = inf;
+        if (desc) kf = -kf;
+    }
+    return fkey(kf);
+}
+
 // the key words of row r (of the query whose rows start at base) for the
 // S sort specs, then the masked docid, then r
 template <int NK>
@@ -437,66 +499,34 @@ __device__ __forceinline__ void row_key(
     const float* __restrict__ targets, unsigned* key) {
     const int d = ids[base + r];
     const bool el = elig[base + r] != 0;
-    const float sc = sums[base + r];
-    const float inf = __int_as_float(0x7f800000);
     int pos = 0;
     for (int s = 0; s < S; ++s) {
-        const int kind = spec[s * 4], desc = spec[s * 4 + 1];
-        const int nb = spec[s * 4 + 2];
-        const long long* c = cols + s * ST_COLS;
-        const long long n = c[7];
-        const long long dd = n > 0 ? ((long long)d < n - 1 ? (long long)d
-                                                           : n - 1) : 0;
-        if (kind == ST_VALUE) {
-            int h = XT_I32MAX, l = XT_I32MAX;
-            bool pr = false;
-            if (n > 0) {
-                h = ((const int*)c[0])[dd];
-                l = ((const int*)c[1])[dd];
-                pr = ((const unsigned char*)c[2])[dd] != 0;
-            }
-            if (desc) {
-                h = ~h;
-                l = ~l;
-            }
-            if (!pr) h = XT_I32MAX;
-            key[pos++] = ikey(el ? h : XT_I32MAX);
-            key[pos++] = ikey(el ? l : XT_I32MAX);
-        } else if (kind == ST_DOCID) {
-            key[pos++] = ikey(el ? d : XT_SENTINEL);
-        } else {
-            float kf;
-            if (kind == ST_SCORE) {
-                kf = desc ? -sc : sc;
-            } else if (kind == ST_STRMETRIC) {
-                int code = (n > 0 && c[5]) ? ((const int*)c[5])[dd] : -1;
-                if (c[8] && code >= 0) {
-                    const long long m = c[9];
-                    code = ((const int*)c[8])[code < m - 1 ? code : m - 1];
-                }
-                const float* tab = (const float*)c[6] + (long long)b * nb;
-                kf = tab[code < 0 ? 0 : (code > nb - 1 ? nb - 1 : code)];
-                if (code < 0) kf = inf;
-                if (desc) kf = -kf;
-            } else {
-                const bool pr = n > 0 &&
-                                ((const unsigned char*)c[2])[dd] != 0;
-                const float* tg = targets + ((long long)b * S + s) * 2;
-                const float v = n > 0 ? ((const float*)c[3])[dd] : 0.0f;
-                if (kind == ST_DIST) {
-                    kf = fabsf(v - tg[0]);
-                } else {
-                    const float lon = (n > 0 && c[4])
-                        ? ((const float*)c[4])[dd] : 0.0f;
-                    kf = haversine(v, lon, tg[0], tg[1]);
-                }
-                if (!pr) kf = inf;
-                if (desc) kf = -kf;
-            }
-            key[pos++] = fkey(el ? kf : inf);
-        }
+        const int kind = spec[s * 4];
+        for (int h = 0; h < (kind == ST_VALUE ? 2 : 1); ++h)
+            key[pos++] = el ? spec_word(spec + s * 4, cols + s * ST_COLS,
+                                        targets, S, s, b, d, sums + base + r,
+                                        h)
+                            : spec_const(kind);
     }
-    key[pos++] = ikey(el ? d : XT_SENTINEL);
+    key[pos++] = el ? ikey(d) : 0xffffffffu;
     key[pos] = (unsigned)r;
 }
 
+// Keep the stream-ordered pool's memory between calls (the scratch of the
+// two-stage top-k kernels, cudaMallocAsync on the stream): by default the
+// pool hands it back at every synchronisation, and the next call would map
+// it anew. The scratch is a few MB; nothing else of the port allocates
+// from this pool.
+static inline void keep_stream_pool() {
+    static bool done[64] = {};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64 ||
+        done[dev])
+        return;
+    cudaMemPool_t pool;
+    if (cudaDeviceGetDefaultMemPool(&pool, dev) == cudaSuccess) {
+        unsigned long long keep = 64ull << 20;
+        cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
+    }
+    done[dev] = true;
+}

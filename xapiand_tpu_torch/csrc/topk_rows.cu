@@ -354,24 +354,6 @@ topk_merge_kernel(const Key* __restrict__ scratch, int tiles, int k,
     tk_write_out(sb, k, out_d + (long long)b * k, out_s + (long long)b * k);
 }
 
-// Keep the scratch in the stream-ordered pool between calls: by default
-// the pool hands its memory back at every synchronisation, and the next
-// call would map it anew. The scratch is at most B x tiles x k keys (a few
-// MB); nothing else of the port allocates from this pool.
-static void tk_keep_pool() {
-    static bool done[64] = {};
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64 ||
-        done[dev])
-        return;
-    cudaMemPool_t pool;
-    if (cudaDeviceGetDefaultMemPool(&pool, dev) == cudaSuccess) {
-        unsigned long long keep = 64ull << 20;
-        cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
-    }
-    done[dev] = true;
-}
-
 static bool tk_aligned(const void* p, unsigned a) {
     return ((unsigned long long)p & (a - 1)) == 0;
 }
@@ -390,7 +372,7 @@ static int launch_topk(const void* scores, const void* ids, const void* owner,
                     (tie == nullptr || tk_aligned(tie, 16));
     Key* scratch = nullptr;
     if (tiles > 1) {
-        tk_keep_pool();
+        keep_stream_pool();
         const cudaError_t e = cudaMallocAsync(
             (void**)&scratch, sizeof(Key) * (size_t)B * tiles * k, st);
         if (e != cudaSuccess) return (int)e;

@@ -14,7 +14,9 @@ what bounds it on the H100 and what its design does about that):
   prefix_certify  K5     exact rescore of prefix candidates + certificate
   filter_leaves   K7+K6  value-range filter leaves, then the boolean tree
   sort_topk       K8     top-k in multi-key sort order (value, score, dist,
-                         geodist, strmetric, docid), docid tiebreak
+                         geodist, strmetric, docid), docid tiebreak: row
+                         tiles' top-k behind a threshold, each key built
+                         word by word, then their merge
   compact_rows    K11    stream compaction of the masked rows to a cap
   fullwidth_topk  K9     sort-free top-k of one sort key at full width,
                          with the exactness certificate
@@ -68,7 +70,8 @@ what bounds it on the H100 and what its design does about that):
                          of the packed aggregation statistics over S shards
 
   semijoin_rows   K21    a semijoin plan's rows: the drive term's postings,
-                         every other term probed by binary search
+                         every other term probed by binary search inside
+                         the bracket of a block of drive rows' docids
   chunk_merge     K21    docid-chunked execution's finalists ranked by
                          (score desc, docid asc): shard_merge.cu's
                          relevance mode over the chunks, unstriped
@@ -117,9 +120,12 @@ TOPK_TILE_MIN = 16384     # topk_rows: at most ceil(R / this) tiles
 DENSE_TILE = 4096         # dense_rows: docs a tile (csrc DR_TILE)
 DENSE_BLOCKS = 792        # dense_rows: B x runs at most (6 blocks an SM)
 DENSE_SHORT = 1024        # dense_rows: slices this short, one tile a block
-MAX_SORT_TOPK = 64        # sort_topk per-thread lists; beyond: wide_topk
-MAX_SORT_WORDS = 8        # sort_topk key words (row index included); beyond:
-                          # wide_topk
+MAX_SORT_TOPK = 64        # sort_topk keeps k of its shared buffer's 2048
+                          # keys; beyond: wide_topk
+MAX_SORT_WORDS = 8        # sort_topk key words (row index included; 64 KB
+                          # of shared buffer); beyond: wide_topk
+SORT_BLOCKS = 528         # sort_topk: B x tiles at most (4 blocks an SM)
+SORT_TILE_MIN = 8192      # sort_topk: at most ceil(C / this) tiles
 MAX_WIDE_WORDS = 32       # wide_topk key words in registers (15 value sort
                           # keys); beyond: a device-memory table of them
 WIDE_SMEM = 160 * 1024    # wide_topk sorts in shared memory up to this
@@ -317,7 +323,7 @@ def lib():
 
 
 def _launch(name: str, fn: str, *args):
-    rc = getattr(lib(), fn)(*args)
+    rc = getattr(_lib or lib(), fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError {rc}")
     launches[name] += 1
@@ -330,10 +336,11 @@ def _stream():
 def _on_cuda(name: str, *tensors) -> bool:
     """True for all-CUDA inputs (launch), False for all-CPU (plain version);
     raises on mixed or other devices."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: inputs on several devices {devs}")
-    dev = devs.pop()
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on several devices "
+                             f"{ {t.device for t in tensors} }")
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
@@ -753,8 +760,12 @@ def topk_plan(B: int, R: int) -> tuple:
     whole one), but at most ceil(R / TOPK_TILE_MIN). ->
     (tiles, gper); one tile is one launch, more add the merge of the
     tiles' k best and a scratch of B x tiles x k keys."""
+    return _tile_plan(B, R, TOPK_BLOCKS, TOPK_TILE_MIN)
+
+
+def _tile_plan(B: int, R: int, blocks: int, tile_min: int) -> tuple:
     ng = R // 4 + 1
-    t = max(1, min(TOPK_BLOCKS // B, -(-R // TOPK_TILE_MIN)))
+    t = max(1, min(blocks // B, -(-R // tile_min)))
     gper = -(-ng // t)
     return -(-ng // gper), gper
 
@@ -1164,7 +1175,12 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
     -> docids i32[B,k] (SENTINEL for ineligible rows), scores f32[B,k]
     (-inf there); with emit, also each row's sort key words i32[B,k,NU]
     (the unsigned words of lax.sort's order, all but the docid; all ones
-    past the rows), which the mesh merges by (executor.py:569-573)."""
+    past the rows), which the mesh merges by (executor.py:569-573).
+
+    The kernel (csrc/sort_topk.cu) keeps each row tile's k best keys
+    (``sort_plan``) behind a threshold, reading an ineligible row's flag
+    alone and an eligible row's key word by word, then merges the tiles'
+    lists."""
     B, C = ids.shape
     S = len(specs)
     # key words: 2 per value spec, 1 per other, the docid, the row index
@@ -1220,6 +1236,14 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
                 tab.data_ptr(), _ptr(targets), out_d.data_ptr(),
                 out_s.data_ptr(), _ptr(out_k), _stream())
     return (out_d, out_s, out_k) if emit else (out_d, out_s)
+
+
+def sort_plan(B: int, C: int) -> tuple:
+    """sort_topk's tiling of a launch (csrc/sort_topk.cu sk_plan, the same
+    arithmetic as topk_plan with SORT_BLOCKS and SORT_TILE_MIN): each
+    query's rows in tiles of gper groups of 4 rows, C up to SORT_TILE_MIN
+    one tile and one launch. -> (tiles, gper)."""
+    return _tile_plan(B, C, SORT_BLOCKS, SORT_TILE_MIN)
 
 
 def _sort_cols(specs, values, opt):
@@ -1344,17 +1368,28 @@ def _lex_order(keys):
     return order
 
 
-def _sort_topk_plain(specs, cols, ids, sums, eligible, k, targets, strtabs,
-                     remaps=None, emit=False):
-    B, C = ids.shape
+def sort_words(specs, cols, ids, sums, eligible, targets, strtabs,
+               remaps=None):
+    """Each row's sort key words as csrc/sort_topk.cu orders them, int64
+    [B, C] tensors in [0, 2**32), most significant first: the specs'
+    words, then the masked docid (the row index, the kernel's last word,
+    is the position)."""
     keys = []
     for si, (spec, col) in enumerate(zip(specs, cols)):
         mk = _masked_key(si, spec, col, ids, sums, eligible, targets, strtabs,
                          remaps)
         keys += [_ikey(x) for x in mk] if spec[0] in ("value", "docid") \
             else [_fkey(mk[0])]
-    n_user = len(keys)
     keys.append(_ikey(torch.where(eligible, ids, SENTINEL)))
+    return keys
+
+
+def _sort_topk_plain(specs, cols, ids, sums, eligible, k, targets, strtabs,
+                     remaps=None, emit=False):
+    B, C = ids.shape
+    keys = sort_words(specs, cols, ids, sums, eligible, targets, strtabs,
+                      remaps)
+    n_user = len(keys) - 1
     order = _lex_order(keys)[:, :k]
     dd = torch.gather(torch.where(eligible, ids, SENTINEL), 1, order)
     ss = torch.gather(torch.where(eligible, sums, float("-inf")), 1, order)
@@ -1993,7 +2028,7 @@ def agg_filter(ids, eligible, post_docids, spans, Lf: int):
                          f"{P} postings")
     if not _on_cuda("agg_filter", ids, eligible, post_docids, spans):
         return _agg_filter_plain(ids, eligible, post_docids, spans, Lf)
-    mask = torch.empty((B, R), dtype=torch.bool, device=ids.device)
+    mask = torch.empty_like(eligible)
     _launch("agg_filter", "xt_agg_filter", ids.data_ptr(),
             eligible.data_ptr(), B, R, post_docids.data_ptr(), P,
             spans.data_ptr(), nt, Lf, mask.data_ptr(), _stream())
