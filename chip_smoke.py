@@ -257,7 +257,10 @@ non-zero with no result.
 
 --capture DIR saves the arguments of the launches tools/sort_pairs.py
 replays (CAPTURE: sort_topk's geo, browse, faceted and REST mesh shapes,
-the widest agg_filter and semijoin_rows) as the paths make them.
+the widest agg_filter and semijoin_rows; score_slices and merge_docs at
+browse C, the mesh, browse B16, faceted A, geo, geo aggregations and the
+relevance prefix group; shard_reduce at the REST mesh and mesh shapes and
+its min / max) as the paths make them.
 """
 
 from __future__ import annotations
@@ -580,12 +583,18 @@ def work_score_slices(lens, widths, B, R, spec=None, C=1, n_uniq=0):
 
 
 def work_merge_docs(ids, widths, deleted, orbits):
+    """merge_docs, the function: a real row's docid and weight read (a
+    term block's SENTINEL rows need no read: they follow its real rows),
+    the outputs written per row, the per-term words, a deleted flag per
+    real row; one add per real row (a doc's sum is its rows' weights
+    added; the probes' searches are their design's cost, not the
+    function's)."""
     B, R = ids.shape
     real = n_true(ids != 2**31 - 1)
     out = 5 + (4 if orbits is not None else 0)
-    return (8 * B * R + 4 * B * len(widths) +
+    return (8 * real + 4 * B * len(widths) +
             (real if deleted is not None else 0) + out * B * R + 4 * B,
-            real * sum(log2c(w) for w in widths))
+            real)
 
 
 def work_rows(R_rows, B, per_row, per_query):
@@ -720,7 +729,7 @@ def compare_relevance(searcher, cfg, batch, stats_d, rec, shape_name):
     R = ids.shape[1]
 
     def k2():
-        return kn.merge_docs(ids, w, widths)
+        return kn.merge_docs(ids, w, widths, n_docs=seg["deleted"].shape[0])
 
     def p2():
         return kn._merge_docs_plain(ids, w, widths)
@@ -864,11 +873,14 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
     if cfg.n_filters:
         mprog = kn.tree_program(upper_tree(cfg.tree)) if cap else None
     margs = (ids, w, widths, bits, deleted, mprog, bool(cfg.n_filters))
-    got, want = kn.merge_docs(*margs), kn._merge_docs_plain(*margs)
+    nd = seg["deleted"].shape[0]
+    got, want = kn.merge_docs(*margs, n_docs=nd), \
+        kn._merge_docs_plain(*margs)
     err = check_close("merge_docs sums", got[0], want[0])
     for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
         check_equal(f"merge_docs {nm}", a, b)
-    rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
+    rec.note("merge_docs", err,
+             cuda_ms(lambda: kn.merge_docs(*margs, n_docs=nd)),
              cuda_ms(lambda: kn._merge_docs_plain(*margs)),
              work_merge_docs(ids, widths, deleted, got[3]))
     sums, mask, _count, orbits = got
@@ -1373,7 +1385,7 @@ def held_certify(a):
         lambda: work_certify(B, kk, len(classes), classes, k), None)
 
 
-def held_merge(a):
+def held_merge(a, *, n_docs):
     from xapiand_tpu_torch.ops import kernels as kn
 
     a = tuple(a) + (None, None, None, False)[len(a) - 3:]
@@ -1387,7 +1399,7 @@ def held_merge(a):
     return (lambda: kn._merge_docs_plain(*a), check,
             f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
             f"bits={bits is not None} deletes={deleted is not None} "
-            f"tree={bool(prog)}",
+            f"tree={bool(prog)} tiles={kn.merge_plan(widths, n_docs)}",
             lambda: work_merge_docs(ids, widths, deleted,
                                     ids if want_orbits else None), None)
 
@@ -1740,7 +1752,10 @@ def held_shard_merge(a):
 
 
 def held_shard_reduce(a):
-    """shard_reduce (K19): psum / pmin / pmax over the shard axis."""
+    """shard_reduce (K19): psum / pmin / pmax over the shard axis; the
+    yardstick torch.sum / amin / amax over the shards."""
+    import torch
+
     from xapiand_tpu_torch.ops import kernels as kn
 
     x, rule = a[:2]
@@ -1750,15 +1765,14 @@ def held_shard_reduce(a):
         return 0.0
 
     def library():
-        import torch
-
-        fn = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}[rule]
         return cuda_ms(lambda: fn(x, 0), reps=5)
 
     S, n = x.shape[0], x[0].numel()
+    fn = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}[rule]
     return (lambda: kn._shard_reduce_plain(x, rule), check,
             f"{rule} S={S} n={n}",
-            lambda: (4 * S * n + 4 * n, S * n), library)
+            lambda: (4 * S * n + 4 * n, S * n), library,
+            lambda: fn(x, 0))
 
 
 def held_semijoin(a):
@@ -2013,9 +2027,32 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge}
 
 # python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
-# replays, by their HELD keys (None: the kernel's widest launch, the most
-# rows), as the paths make them
+# replays, by their HELD keys or the start of them up to a space (None:
+# the kernel's widest launch, the most rows), as the paths make them
 CAPTURE = {
+    "score_slices": ("B=1 R=2105472 T=4",        # browse C
+                     "B=36 R=3670144 T=4",       # mesh
+                     "B=16 R=4194304 T=4",       # browse
+                     "B=64 R=1310720 T=2",       # faceted A
+                     "B=8 R=184448 T=128",       # geo
+                     "B=64 R=25728 T=128",       # geo aggregations
+                     "B=64 R=17536 T=4",         # relevance prefix
+                     "B=256 R=896 T=4"),         # relevance exact
+    "merge_docs": ("B=1 R=2105472 T=4", "B=36 R=3670144 T=4",
+                   "B=16 R=4194304 T=4", "B=64 R=1310720 T=2",
+                   "B=8 R=184448 T=128", "B=64 R=25728 T=128",
+                   "B=64 R=17536 T=4", "B=256 R=896 T=4",
+                   # merge_plan's border: relevance's exact re-run, faceted
+                   # B, D and the AND_NOT family, positional, K21 chunked,
+                   # REST mesh
+                   "B=64 R=148608 T=4", "B=128 R=65536 T=2",
+                   "B=128 R=131072 T=2", "B=32 R=1835136 T=4",
+                   "B=64 R=98432 T=4", "B=64 R=393344 T=4",
+                   "B=64 R=65536 T=2", "B=1024 R=7040 T=3",
+                   "B=32 R=12416 T=4"),
+    "shard_reduce": ("sum S=8 n=6153",     # REST mesh
+                     "sum S=8 n=36",       # mesh
+                     "min S=8 n=64", "max S=8 n=64"),
     "sort_topk": ("B=8 R=184448 k=10 keys=docid",      # geo
                   "B=8 R=312960 k=10 keys=docid",      # geo
                   "B=32 R=1000001 k=10 keys=docid",    # browse N
@@ -2044,9 +2081,20 @@ def capture(dirname):
     os.makedirs(dirname, exist_ok=True)
     done, widest = set(), {}
 
+    def compact(x):
+        # a view (a shard of the mesh's stacked arrays) saved alone
+        if isinstance(x, torch.Tensor):
+            return x.clone() if x.untyped_storage().nbytes() > \
+                x.numel() * x.element_size() else x
+        if isinstance(x, (tuple, list)):
+            return type(x)(compact(v) for v in x)
+        if isinstance(x, dict):
+            return {k: compact(v) for k, v in x.items()}
+        return x
+
     def save(name, key, args, kw, file):
-        torch.save({"name": name, "key": key, "args": args, "kw": kw},
-                   os.path.join(dirname, file))
+        torch.save({"name": name, "key": key, "args": compact(args),
+                    "kw": compact(kw)}, os.path.join(dirname, file))
         log(f"[capture] {name} {key}")
 
     def hook(name, fn):
@@ -2060,9 +2108,12 @@ def capture(dirname):
                 if rows > widest.get(name, 0):
                     widest[name] = rows
                     save(name, key, args, kw, f"{name} widest.pt")
-            elif key in CAPTURE[name] and (name, key) not in done:
-                done.add((name, key))
-                save(name, key, args, kw, f"{name} {key}.pt")
+            else:
+                at = [p for p in CAPTURE[name]
+                      if key == p or key.startswith(p + " ")]
+                if at and (name, at[0]) not in done:
+                    done.add((name, at[0]))
+                    save(name, key, args, kw, f"{name} {key}.pt")
             return got
 
         return call
@@ -3233,11 +3284,14 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
     prog = kn.tree_program(cfg.tree)
     mprog = None if cfg.phrases else prog
     margs = (ids, w, widths, bits, deleted, mprog, bool(cfg.phrases))
-    got, want = kn.merge_docs(*margs), kn._merge_docs_plain(*margs)
+    nd = seg["deleted"].shape[0]
+    got, want = kn.merge_docs(*margs, n_docs=nd), \
+        kn._merge_docs_plain(*margs)
     err = check_close("merge_docs sums", got[0], want[0])
     for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
         check_equal(f"merge_docs {nm}", a, b)
-    rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
+    rec.note("merge_docs", err,
+             cuda_ms(lambda: kn.merge_docs(*margs, n_docs=nd)),
              cuda_ms(lambda: kn._merge_docs_plain(*margs)),
              work_merge_docs(ids, widths, deleted, got[3]))
     sums, mask, _count, orbits = got
@@ -3492,13 +3546,15 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     prog = kn.tree_program(cfg.tree)
     mprog = kn.tree_program(upper_tree(cfg.tree)) if cap else None
     margs = (ids, w, widths, batch["group_bits"], deleted, mprog, True)
-    got = kn.merge_docs(*margs)
+    nd = seg["deleted"].shape[0]
+    got = kn.merge_docs(*margs, n_docs=nd)
     if full:
         want = kn._merge_docs_plain(*margs)
         err = check_close("merge_docs sums", got[0], want[0])
         for nm, a, b in zip(("mask", "count", "orbits"), got[1:], want[1:]):
             check_equal(f"merge_docs {nm}", a, b)
-        rec.note("merge_docs", err, cuda_ms(lambda: kn.merge_docs(*margs)),
+        rec.note("merge_docs", err,
+                 cuda_ms(lambda: kn.merge_docs(*margs, n_docs=nd)),
                  cuda_ms(lambda: kn._merge_docs_plain(*margs)),
                  work_merge_docs(ids, widths, deleted, got[3]))
     sums, mask, _count, orbits = got
@@ -4359,6 +4415,27 @@ def rest_path(dev, rec, smi, db_world) -> dict:
         if held.calls["kmeans"] != counts["kmeans"] or \
                 KMEANS["launches"] != counts["kmeans"] or not KMEANS["calls"]:
             raise AssertionError(f"kmeans held {held.calls} of {counts}")
+        # the cluster phase once more, traced: device ms by kernel, and
+        # kmeans' launches by shape
+        shapes: dict = {}
+        kfn = kn.kmeans
+
+        def by_shape(X, C, update=True):
+            key = f"n{X.shape[0]} V{X.shape[1]} k{C.shape[0]}" + \
+                ("" if update else " assign")
+            shapes[key] = shapes.get(key, 0) + 1
+            return kfn(X, C, update)
+
+        class _Cluster:
+            def run(self, _irs, stats=None):
+                return clustering()
+
+        kn.kmeans = by_shape
+        try:
+            device_trace([(_Cluster(), None)], None, "rest cluster")
+        finally:
+            kn.kmeans = kfn
+        log(f"[trace] rest cluster: kmeans launches by shape {shapes}")
         srv.stop()
         srv = None
 

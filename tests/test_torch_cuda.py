@@ -28,6 +28,7 @@ another order than torch.sum and agree to rtol 1e-5, and two kernel runs
 give the same bits.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -96,6 +97,7 @@ def _close(a, b):
 
 def test_kernels_match_plain_versions(groups):
     searcher, _bs, _irs, planned = groups
+    n_docs = searcher.device_segment.arrays["deleted"].shape[0]
     for cfg, batch in planned:
         post, imp, widths, prefix, params = _inputs(searcher, cfg, batch)
         args = (batch["offsets"], batch["lens"], batch["tconst"],
@@ -108,7 +110,8 @@ def test_kernels_match_plain_versions(groups):
         _close(w, pw)
         _close(tail, ptail)
 
-        sums, owner, count, _ = kernels.merge_docs(ids, w, widths)
+        sums, owner, count, _ = kernels.merge_docs(ids, w, widths,
+                                                   n_docs=n_docs)
         psums, powner, pcount, _ = kernels._merge_docs_plain(ids, w, widths)
         _close(sums, psums)
         assert torch.equal(owner, powner)
@@ -177,7 +180,8 @@ def _stages(searcher, cfg, batch):
     mprog = prog
     if cfg.n_filters:
         mprog = kernels.tree_program(upper_tree(cfg.tree)) if cap else None
-    got = kernels.merge_docs(ids, w, widths, bits, deleted, mprog, True)
+    got = kernels.merge_docs(ids, w, widths, bits, deleted, mprog, True,
+                             n_docs=seg["deleted"].shape[0])
     want = kernels._merge_docs_plain(ids, w, widths, bits, deleted, mprog,
                                      True)
     _close(got[0], want[0])
@@ -343,7 +347,8 @@ def test_agg_and_fullwidth_kernels_match_plain_versions(faceted):
                 batch["scoring"], widths, prefix, params)
             sums, elig, _c, _o = kernels.merge_docs(
                 ids, w, widths, batch["group_bits"], seg["deleted"],
-                kernels.tree_program(upper_tree(cfg.tree)))
+                kernels.tree_program(upper_tree(cfg.tree)),
+                n_docs=seg["deleted"].shape[0])
             got = _twice(lambda: aggs.compute_aggs({"values": values},
                                                    specs, ids, elig))
             want = aggs.compute_aggs(
@@ -403,7 +408,8 @@ def test_phrase_kernel_matches_plain_version(positional):
             post, None, batch["offsets"], batch["lens"], batch["tconst"],
             batch["scoring"], widths, prefix, params)
         sums, first, _c, orbits = kernels.merge_docs(
-            ids, w, widths, batch["group_bits"], None, None, True)
+            ids, w, widths, batch["group_bits"], None, None, True,
+            n_docs=seg["deleted"].shape[0])
         args = (ids, widths, batch["offsets"], batch["lens"], orbits, first,
                 seg["post_posoff"], seg["post_poslen"], seg["positions"],
                 cfg.phrases, cfg.cand_cap, cfg.pmax)
@@ -496,7 +502,8 @@ def test_geo_kernel_matches_plain_version(geo):
         cap = cfg.compact_cap if 0 < cfg.compact_cap < ids.shape[1] else 0
         mprog = kernels.tree_program(upper_tree(cfg.tree)) if cap else None
         sums, first, _c, orbits = kernels.merge_docs(
-            ids, w, widths, batch["group_bits"], None, mprog, True)
+            ids, w, widths, batch["group_bits"], None, mprog, True,
+            n_docs=seg["deleted"].shape[0])
         if cap:
             ids, sums, orbits, _n = kernels.compact_rows(first, ids, sums,
                                                          orbits, cap)
@@ -846,7 +853,8 @@ def test_scheme_slices_and_certify_match_plain_versions(scheme_world, label):
             if cfg.verify_k:
                 n_prefix += 1
                 ids, w, tail = got
-                sums, owner, _c, _o = kernels.merge_docs(ids, w, widths)
+                sums, owner, _c, _o = kernels.merge_docs(
+                    ids, w, widths, n_docs=seg.arrays["deleted"].shape[0])
                 d, s = kernels.topk_rows(sums, ids, owner, cfg.verify_k + 1)
                 res = _twice(lambda: kernels.prefix_certify(
                     post, *args, cfg.term_classes(), tail, d, s, cfg.k,
@@ -1746,4 +1754,163 @@ def test_semijoin_rows_brackets_match_plain_version(cuda, scheme):
             assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(), \
                 (scheme, drive)
         assert int(want[4].sum()) > 0
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# score_slices' row tiles and merge_docs' doc tiles (slice 14)
+# --------------------------------------------------------------------------
+
+SLICE_CASES = {
+    # browse C: one query over 2M rows (4 terms of class 524288)
+    "B1_2M": dict(seed=1, B=1, T=4, nd=1_000_000, df=(300_000, 520_000),
+                  n_terms=4, missing_p=0.0),
+    # geo: T = 128, ~1.4k postings a term
+    "T128": dict(seed=2, B=8, T=128, nd=1_000_000, df=(1_000, 1_440),
+                 n_terms=300),
+    # relevance prefix: two prefix terms beside two exact ones
+    "mixed_prefix": dict(seed=3, B=64, T=4, nd=1_000_000, df=(100, 40_000),
+                         prefix=(True, True, False, False), pcap=8192),
+    # a prefix past MAX_PREFIX_ROWS (device-memory sort)
+    "wide_prefix": dict(seed=4, B=4, T=2, nd=1_000_000,
+                        df=(20_000, 60_000), prefix=(True, False),
+                        pcap=2 * kernels.MAX_PREFIX_ROWS, missing_p=0.0),
+    # GENERIC schemes: uniqterms read (DiceCoeff), two constants (PL2)
+    "dicecoeff": dict(seed=5, B=16, T=4, nd=1_000_000, df=(1_000, 200_000),
+                      scheme="dicecoeff"),
+    "pl2": dict(seed=6, B=16, T=3, nd=1_000_000, df=(1_000, 100_000),
+                scheme="pl2", prefix=(False, True, False), pcap=4096),
+    # queries whose every term is missing
+    "all_sentinel": dict(seed=7, B=8, T=4, nd=100_000, df=(10, 5_000),
+                         empty=tuple(range(8))),
+}
+
+
+@contextlib.contextmanager
+def _tiles_forced(tiles: bool):
+    """merge_docs by the doc tiles or by the probes inside the block,
+    whatever kernels.merge_plan would choose."""
+    rule = kernels.merge_plan
+    kernels.merge_plan = (lambda w, n: -(-int(n) // kernels.MERGE_TILE)) \
+        if tiles else (lambda w, n: 0)
+    try:
+        yield
+    finally:
+        kernels.merge_plan = rule
+
+
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_score_slices_row_tiles_match_plain_version(cuda, case):
+    """The row tiles (and, in the prefix cases, the prefix blocks in the
+    same call) against the plain version on the same card tensors, bit
+    for bit, twice; then merge_docs on those rows by the doc tiles and by
+    the probes (each forced), each equal to the plain version."""
+    from test_torch_slices_design import slices_world, world_args
+
+    wd = slices_world(**SLICE_CASES[case])
+    args = world_args(wd, cuda)
+    n0 = kernels.launches["score_slices"]
+    got = _twice(lambda: kernels.score_slices(*args))
+    assert kernels.launches["score_slices"] == n0 + 2
+    want = kernels._score_slices_plain(*args)
+    for g, w in zip(got, want):
+        assert _equal(g, w), case
+    ids, w, _tail = got
+    widths = wd["widths"]
+    n_docs = wd["nd"] + 1
+    plain = kernels._merge_docs_plain(ids, w, widths)
+    for tiles in (True, False):
+        with _tiles_forced(tiles):
+            m = _twice(lambda: kernels.merge_docs(ids, w, widths,
+                                                  n_docs=n_docs))
+        assert _equal(m[0], plain[0]) and torch.equal(m[1], plain[1]) and \
+            torch.equal(m[2], plain[2]), (case, tiles)
+    if case == "all_sentinel":
+        assert not bool((ids != kernels.SENTINEL).any())
+    torch.cuda.synchronize()
+
+
+MERGE_CASES = {
+    # T = 1 over a million docids
+    "T1": dict(B=2, widths=(300_000,), nd=1_000_000),
+    # NaN and -0.0 weights on docs that every term shares
+    "nan_neg0": dict(B=8, widths=(4_096, 8_192, 2_048), nd=100_000,
+                     hot=6_000, nan_p=0.05, neg0_p=0.1),
+    # geo's T = 128, docs shared; and its aggregation run's few rows a
+    # tile (added by one warp)
+    "T128": dict(B=4, widths=(2_048,) * 128, nd=1_000_000, hot=300_000),
+    "T128_sparse": dict(B=8, widths=(256,) * 128, nd=1_000_000, fill=0.5),
+    "all_sentinel": dict(B=4, widths=(1_024, 65_536), nd=1_000_000,
+                         empty=(0, 1, 2, 3)),
+    # the mesh's dense blocks
+    "dense": dict(B=2, widths=(1_048_576, 524_288, 131_072, 1_024),
+                  nd=1_250_000, fill=0.9),
+}
+
+
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_merge_docs_doc_tiles_match_plain_version(cuda, case, extras):
+    """The doc tiles (forced, whatever merge_plan would choose) against
+    the plain version and the probes on the same card rows, bit for bit,
+    twice: sums, mask, count and, with extras, group bits, deletes, a tree
+    and orbits."""
+    from test_torch_slices_design import merge_world
+
+    kw = dict(MERGE_CASES[case])
+    B, widths, nd = kw.pop("B"), kw.pop("widths"), kw.pop("nd")
+    ids, w = merge_world(11, B, widths, nd, **kw)
+    T = len(widths)
+    g = torch.Generator().manual_seed(3)
+    bits = deleted = prog = None
+    if extras:
+        bits = (1 << torch.randint(0, 3, (B, T), generator=g)).to(
+            torch.int32).to(cuda)
+        deleted = (torch.rand(nd + 1, generator=g) < 0.05).to(cuda)
+        prog = kernels.tree_program(("OR", ("G", 0), ("AND", ("G", 1),
+                                                      ("G", 2))))
+    ids, w = ids.to(cuda), w.to(cuda)
+    args = (ids, w, widths, bits, deleted, prog, extras)
+    plain = kernels._merge_docs_plain(*args)
+    # the tiles over the docids, and over too few (the last tile's
+    # probes); the probes
+    for tiles, n_docs in ((True, nd + 1), (True, 1000), (False, nd + 1)):
+        with _tiles_forced(tiles):
+            got = _twice(lambda: kernels.merge_docs(*args, n_docs=n_docs))
+        assert _equal(got[0], plain[0]), (case, n_docs)
+        for a, b in zip(got[1:], plain[1:]):
+            assert (a is None and b is None) or torch.equal(a, b), \
+                (case, n_docs)
+    if case == "all_sentinel":
+        assert int(plain[2].sum()) == 0
+    torch.cuda.synchronize()
+
+
+def test_merge_docs_rule_border_matches_plain_version(cuda):
+    """At merge_plan's border (four equal terms over a million docids: the
+    width where the probes give way to the tiles), both sides by the rule
+    and by the probes equal the plain version."""
+    from test_torch_slices_design import merge_world
+
+    nd = 1_000_000
+    lo, hi = 1, 1 << 20
+    while lo < hi:   # the least width the tiles take
+        mid = (lo + hi) // 2
+        if kernels.merge_plan((mid,) * 4, nd + 1):
+            hi = mid
+        else:
+            lo = mid + 1
+    assert 1 < lo < 1 << 20
+    for W in (lo - 1, lo):
+        ids, w = merge_world(W, 3, (W,) * 4, nd, fill=1.0)
+        ids, w = ids.to(cuda), w.to(cuda)
+        plain = kernels._merge_docs_plain(ids, w, (W,) * 4)
+        for how in ("rule", "probes"):
+            with _tiles_forced(False) if how == "probes" else \
+                    contextlib.nullcontext():
+                got = _twice(lambda: kernels.merge_docs(ids, w, (W,) * 4,
+                                                        n_docs=nd + 1))
+            assert _equal(got[0], plain[0]) and \
+                torch.equal(got[1], plain[1]) and \
+                torch.equal(got[2], plain[2]), (W, how)
     torch.cuda.synchronize()

@@ -213,7 +213,8 @@ def test_merge_docs_vs_merge_runs(case):
     """K2+K3: one owner row per doc carrying the doc's total; counts equal."""
     for cfg, _fn, _batch, pb, _chunk in case.groups():
         _post, _a, widths, _p, ids, w, _tail = case.slices(cfg, pb)
-        sums, owner, count, _ = kernels.merge_docs(ids, w, widths)
+        sums, owner, count, _ = kernels.merge_docs(
+            ids, w, widths, n_docs=case.pseg["deleted"].shape[0])
         d, jsums, first, jcount = (np.asarray(x) for x in
                                    _jax_merge(ids, w, cfg.T))
         np.testing.assert_array_equal(count.numpy(), jcount)
@@ -233,7 +234,8 @@ def test_topk_rows_vs_rank_and_topk(case):
     """K4: exact top-k, score desc / docid asc, SENTINEL / -inf padding."""
     for cfg, _fn, _batch, pb, chunk in case.groups():
         _post, _a, widths, _p, ids, w, _tail = case.slices(cfg, pb)
-        sums, owner, _count, _ = kernels.merge_docs(ids, w, widths)
+        sums, owner, _count, _ = kernels.merge_docs(
+            ids, w, widths, n_docs=case.pseg["deleted"].shape[0])
         gd, gs = kernels.topk_rows(sums, ids, owner, cfg.k)
         d, jsums, first, _ = _jax_merge(ids, w, cfg.T)
         jd, js = jax.vmap(lambda a, b, c: jex._rank_and_topk(
@@ -259,7 +261,8 @@ def test_prefix_certify_vs_prefix_topk(case):
         if not cfg.verify_k:
             continue
         post, args, widths, prefix, ids, w, tail = case.slices(cfg, pb)
-        sums, owner, _count, _ = kernels.merge_docs(ids, w, widths)
+        sums, owner, _count, _ = kernels.merge_docs(
+            ids, w, widths, n_docs=case.pseg["deleted"].shape[0])
         K = min(cfg.verify_k, ids.shape[1] - 1)
         cd, cv = kernels.topk_rows(sums, ids, owner, K + 1)
         gd, gs, gc = kernels.prefix_certify(post, *args, cfg.term_classes(),

@@ -244,7 +244,8 @@ def _port_rows(world, cfg, pb):
         widths, (0,) * cfg.T, world.params)
     deleted = world.parr["deleted"] if cfg.has_deletes else None
     _sums, first, _count, orbits = kernels.merge_docs(
-        ids, w, widths, pb["group_bits"], deleted, None, True)
+        ids, w, widths, pb["group_bits"], deleted, None, True,
+        n_docs=world.parr["deleted"].shape[0])
     return ids, first, orbits
 
 

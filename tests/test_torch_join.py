@@ -114,7 +114,8 @@ def test_merge_docs_rows_equal_jax_join_rows(segs, monkeypatch, scheme):
             None, arr["offsets"], arr["lens"], arr["tconst"], arr["scoring"],
             classes, (False,) * len(classes), spec, uniq)
         sums, owner, count, orbits = kernels.merge_docs(
-            ids, w, classes, arr["group_bits"], None, None, True)
+            ids, w, classes, arr["group_bits"], None, None, True,
+            n_docs=parr["deleted"].shape[0])
         keep = np.asarray(captured["first"])
         assert ids[0].tolist() == np.asarray(captured["d"]).tolist()
         assert owner[0].tolist() == keep.tolist()

@@ -271,7 +271,8 @@ def test_merge_docs_tree_vs_merge_runs_and_eval_tree(world, tree):
     pb = world.port_batch(batch)
     ids, w, widths = world.rows(cfg, pb)
     sums, mask, count, orbits = kernels.merge_docs(
-        ids, w, widths, pb["group_bits"], world.parr["deleted"], prog, True)
+        ids, w, widths, pb["group_bits"], world.parr["deleted"], prog, True,
+        n_docs=world.parr["deleted"].shape[0])
     d, jsums, jorb, jmask = _jax_merge(world, "D", ids, w, widths,
                                        pb["group_bits"], jt)
     np.testing.assert_array_equal(count.numpy(), jmask.sum(1))
@@ -326,7 +327,8 @@ def test_compact_rows_vs_compaction_sort(world, fam):
     tree = upper_tree(cfg.tree)
     sums, mask, count, orbits = kernels.merge_docs(
         ids, w, widths, pb["group_bits"], world.parr["deleted"],
-        kernels.tree_program(tree), True)
+        kernels.tree_program(tree), True,
+        n_docs=world.parr["deleted"].shape[0])
     gd, gs, gob, n = kernels.compact_rows(mask, ids, sums, orbits,
                                           cfg.compact_cap)
     np.testing.assert_array_equal(n.numpy(), count.numpy())

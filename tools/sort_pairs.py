@@ -1,32 +1,36 @@
 #!/usr/bin/env python3
-"""Time two versions of csrc/sort_topk.cu, agg_filter.cu and
-semijoin_rows.cu, and variants of this tree's sort_topk.cu, against each
-other on one card, on the launches the paths make.
+"""Time two versions of the port's kernels, and variants of this tree's,
+against each other on one card, on the launches the paths make.
 
     python3 chip_smoke.py --capture _archive/captures
     python tools/sort_pairs.py --parent DIR --captures _archive/captures \\
-        [--rounds 2]
+        [--rounds 2] [--kernels score_slices,merge_docs,shard_reduce]
 
 ``chip_smoke.py --capture`` saves the arguments of the launches its paths
 make at the shapes of its ``CAPTURE`` table (sort_topk at geo, browse N, C
 and M, faceted A and B, a REST mesh shape; the widest agg_filter and
-semijoin_rows). DIR is a checkout of the version to compare with (for
-example a ``git archive`` of the parent commit unpacked under
-``_archive/``). The versions, each built with the flags of
-``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a source, all at
-once): ``parent`` (DIR's sources), ``change`` (this tree's) and, for
-sort_topk alone, ``VARIANTS`` (this tree's sort_topk.cu with other
-constants). Each captured launch is replayed through this tree's wrapper
-(``kernels._lib`` swapped), each version's answer held to the plain
-version's (``chip_smoke.HELD``), then timed in the order parent, change,
-the variants, the variants reversed, change, parent, ``--rounds`` times.
-One JSON line a launch: its key, the eligible rows' share, every time and
-each version's median, device-only (``utils/cudatime.device_ms``: CUDA
-activity alone, the mean a call over 20 calls) and by CUDA events around
-the same 20 wrapper calls (``event_ms``), the change's time by kernel, the
-library call's (HELD's yardstick: ``torch.topk(largest=False)`` of the
-masked docids for the docid key, ``torch.searchsorted`` for agg_filter and
-semijoin_rows) and the bound (HELD's work over ``chip_smoke.py``'s rates).
+semijoin_rows; score_slices and merge_docs at browse C, the mesh, browse
+B16, faceted A, geo, geo aggregations and the relevance prefix group;
+shard_reduce at the REST mesh and mesh shapes). DIR is a checkout of the
+version to compare with (for example a ``git archive`` of the parent
+commit unpacked under ``_archive/``). The versions, each built with the
+flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
+source, all at once): ``parent`` (DIR's sources, launched through DIR's own
+``ops/kernels.py`` wrappers, whose C signatures may differ), ``change``
+(this tree's) and the ``VARIANTS`` of this tree's kernels (other -D
+constants, or other values of ``ops/kernels.py``'s constants and rules).
+Each captured launch of the ``--kernels`` named is replayed through each
+version, its answer held to the plain version's (``chip_smoke.HELD``),
+then timed in the order parent, change, the variants, the variants
+reversed, change, parent, ``--rounds`` times. One JSON line a launch: its
+key, the eligible rows' share (sort_topk, agg_filter), every time and each
+version's median, device-only (``utils/cudatime.device_ms``: CUDA activity
+alone, the mean a call over 20 calls) and by CUDA events around the same
+20 wrapper calls (``event_ms``), the change's time by kernel, the library
+call's (HELD's yardstick: ``torch.topk(largest=False)`` of the masked
+docids for the docid key, ``torch.searchsorted`` for agg_filter and
+semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
+shard_reduce) and the bound (HELD's work over ``chip_smoke.py``'s rates).
 Then the card's name and power limit.
 
 ``build_many`` and ``using`` are also the harness of ``tools/topk_pairs.py``
@@ -38,6 +42,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -46,23 +52,40 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-SOURCES = ("sort_topk.cu", "agg_filter.cu", "semijoin_rows.cu")
-# this tree's sort_topk.cu with other constants: tiles of 16384 rows, 8
-# blocks an SM, each eligible docid read alone
-VARIANTS = {"tile16384": ("-DSK_TILE_MIN=16384",),
-            "blocks1056": ("-DSK_BLOCKS=1056",),
-            "scalar_ids": ("-DSK_IDS_VEC=0",)}
+# the kernels replayed, by source
+SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
+           "semijoin_rows": "semijoin_rows.cu",
+           "score_slices": "score_slices.cu", "merge_docs": "merge_docs.cu",
+           "shard_reduce": "shard_merge.cu"}
+# variants of this tree's kernels: (kernel, nvcc -D flags of its source,
+# ops/kernels.py attributes set around each call)
+VARIANTS = {
+    # sort_topk: tiles of 16384 rows, 8 blocks an SM, each docid alone
+    "tile16384": ("sort_topk", ("-DSK_TILE_MIN=16384",), {}),
+    "blocks1056": ("sort_topk", ("-DSK_BLOCKS=1056",), {}),
+    "scalar_ids": ("sort_topk", ("-DSK_IDS_VEC=0",), {}),
+    # score_slices: 8 or 16 rows a thread (a tile of 2048 or 4096 rows)
+    "ss_rpt8": ("score_slices", ("-DSS_RPT=8",), {}),
+    "ss_rpt16": ("score_slices", ("-DSS_RPT=16",), {}),
+    # merge_docs: the probes wherever, the tiles wherever (by 2048-docid
+    # tiles too)
+    "md_probes": ("merge_docs", (), {"merge_plan": lambda w, n: 0}),
+    "md_tiles": ("merge_docs", (), {"merge_plan": "tiles"}),
+    "md_tiles2048": ("merge_docs", (), {"merge_plan": "tiles",
+                                        "MERGE_TILE": 2048}),
+}
 REPS = 20
 
 
 def build_many(jobs) -> list:
-    """jobs: (library path, csrc directory, sources, extra nvcc flags).
-    Every nvcc is started at once, then each job's objects are linked into
-    its library, which is loaded with ops/kernels.py's C signatures."""
+    """jobs: (library path, csrc directory, sources, extra nvcc flags[,
+    C signatures]). Every nvcc is started at once, then each job's objects
+    are linked into its library, which is loaded with the signatures given
+    (ops/kernels.py's by default)."""
     from xapiand_tpu_torch.ops import kernels as kn
 
     procs = []
-    for out, csrc, sources, flags in jobs:
+    for out, csrc, sources, flags, *_sig in jobs:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         for n in sources:
             obj = f"{out[:-3]}.{n[:-3]}.o"
@@ -75,12 +98,12 @@ def build_many(jobs) -> list:
         if p.returncode:
             raise RuntimeError(f"nvcc {n} failed:\n{log}")
     libs = []
-    for out, _csrc, sources, _flags in jobs:
+    for out, _csrc, sources, _flags, *sig in jobs:
         subprocess.run([kn.find_nvcc(), "-shared", "-o", out,
                         *(f"{out[:-3]}.{n[:-3]}.o" for n in sources)],
                        check=True, capture_output=True, text=True)
         lib = ctypes.CDLL(out)
-        for fn, argtypes in kn._SIGNATURES.items():
+        for fn, argtypes in (sig[0] if sig else kn._SIGNATURES).items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -89,15 +112,43 @@ def build_many(jobs) -> list:
 
 
 @contextlib.contextmanager
-def using(lib):
-    """The port's wrappers launch from lib inside the block."""
-    from xapiand_tpu_torch.ops import kernels as kn
+def using(lib, mod=None):
+    """The wrappers of mod (this tree's ops/kernels.py by default) launch
+    from lib inside the block."""
+    if mod is None:
+        from xapiand_tpu_torch.ops import kernels as mod
 
-    saved, kn._lib = kn._lib, lib
+    saved, mod._lib = mod._lib, lib
     try:
         yield
     finally:
-        kn._lib = saved
+        mod._lib = saved
+
+
+@contextlib.contextmanager
+def patched(mod, attrs):
+    """mod's attributes set to attrs inside the block ("tiles": merge_plan
+    taking the doc tiles wherever)."""
+    saved = {k: getattr(mod, k) for k in attrs}
+    for k, v in attrs.items():
+        if v == "tiles":
+            v = (lambda w, n: -(-int(n) // mod.MERGE_TILE))
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+
+
+def load_kernels(parent: str):
+    """DIR's ops/kernels.py as a module of its own (its wrappers and C
+    signatures; the rest of the package is this tree's)."""
+    path = os.path.join(parent, "xapiand_tpu_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def smi() -> str:
@@ -106,7 +157,7 @@ def smi() -> str:
                           text=True).stdout.strip()
 
 
-def replay(path, libs, rounds):
+def replay(path, libs, pmod, rounds):
     """One captured launch: every version held to the plain version, then
     timed; its JSON line."""
     import torch
@@ -118,18 +169,31 @@ def replay(path, libs, rounds):
     cap = torch.load(path, weights_only=False)
     name, args, kw = cap["name"], cap["args"], cap["kw"]
     plain, check, key, work, _library, *yard = cs.HELD[name](args, **kw)
-    wrapper = getattr(kn, name)
-    names = [v for v in libs if name == "sort_topk" or v not in VARIANTS]
     want = plain()
+    # the call's arguments by name, as this tree's wrapper takes them; a
+    # version gets those its wrapper has (the parent's may lack some)
+    given = inspect.signature(getattr(kn, name)).bind(*args, **kw).arguments
     run = {}
-    for v in names:
-        with using(libs[v]):
-            check(wrapper(*args, **kw), want)
-        run[v] = (lambda lib=libs[v]: call(lib, wrapper, args, kw))
+    for v in ("parent", "change", *(v for v, (k, _f, _a) in
+                                    VARIANTS.items() if k == name)):
+        mod = pmod if v == "parent" else kn
+        wrapper = getattr(mod, name)
+        params = inspect.signature(wrapper).parameters
+        kwv = {k: x for k, x in given.items() if k in params}
+        attrs = VARIANTS[v][2] if v in VARIANTS else {}
+        lib = libs.get(v, libs["change"])
+
+        def call(mod=mod, wrapper=wrapper, kwv=kwv, attrs=attrs, lib=lib):
+            with using(lib, mod), patched(mod, attrs):
+                return wrapper(**kwv)
+
+        check(call(), want)
+        run[v] = call
     torch.cuda.synchronize()
+    names = list(run)
     dev = {v: [] for v in names}
     ev = {v: [] for v in names}
-    var = [v for v in names if v in VARIANTS]
+    var = names[2:]
     for _ in range(rounds):
         for v in ("parent", "change", *var, *var[::-1], "change", "parent"):
             dev[v].append(device_ms(run[v], REPS))
@@ -154,11 +218,6 @@ def replay(path, libs, rounds):
                         1e3 * ops / cs.PEAK_OPS_PER_S)}
 
 
-def call(lib, wrapper, args, kw):
-    with using(lib):
-        return wrapper(*args, **kw)
-
-
 def main() -> int:
     import torch
 
@@ -167,26 +226,34 @@ def main() -> int:
     ap.add_argument("--captures", required=True,
                     help="chip_smoke.py --capture's directory")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", default=",".join(SOURCES),
+                    help="the kernels whose captures are replayed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sort_pairs: no CUDA device", file=sys.stderr)
         return 2
-    files = sorted(f for f in os.listdir(args.captures) if f.endswith(".pt"))
+    want = set(args.kernels.split(","))
+    files = sorted(f for f in os.listdir(args.captures)
+                   if f.endswith(".pt") and f.split(" ")[0] in want)
     if not files:
-        print(f"sort_pairs: no capture in {args.captures}", file=sys.stderr)
+        print(f"sort_pairs: no capture of {sorted(want)} in "
+              f"{args.captures}", file=sys.stderr)
         return 2
+    pmod = load_kernels(args.parent)
     out = os.path.join(ROOT, "_archive", "sort_pairs")
     here = os.path.join(ROOT, "xapiand_tpu_torch", "csrc")
+    srcs = tuple(sorted({SOURCES[k] for k in want}))
     jobs = {"parent": (os.path.join(out, "parent.so"),
                        os.path.join(args.parent, "xapiand_tpu_torch", "csrc"),
-                       SOURCES, ()),
-            "change": (os.path.join(out, "change.so"), here, SOURCES, ())}
-    for v, flags in VARIANTS.items():
-        jobs[v] = (os.path.join(out, f"{v}.so"), here, ("sort_topk.cu",),
-                   flags)
+                       srcs, (), pmod._SIGNATURES),
+            "change": (os.path.join(out, "change.so"), here, srcs, ())}
+    for v, (k, flags, _a) in VARIANTS.items():
+        if k in want and flags:
+            jobs[v] = (os.path.join(out, f"{v}.so"), here, (SOURCES[k],),
+                       flags)
     libs = dict(zip(jobs, build_many(list(jobs.values()))))
     for f in files:
-        print(json.dumps(replay(os.path.join(args.captures, f), libs,
+        print(json.dumps(replay(os.path.join(args.captures, f), libs, pmod,
                                 args.rounds)), flush=True)
         torch.cuda.empty_cache()
     print(smi(), flush=True)

@@ -9,29 +9,105 @@
 //
 // The TPU sorted all R rows of a query because its gathers serialise
 // (executor.py:20-25). This kernel computes the same per-doc sums with no
-// sort, by the join formulation of _execute_join 1102-1128: every term
-// block is docid-ascending (score_slices guarantees it), so a row finds
-// its doc in every other term's block by binary search. Its sum adds the
-// hit weights in term order t = 0..T-1, its bits OR the group bits of
-// every term holding the doc, and the row owns its doc only when no
-// lower-numbered term holds the doc. Every row of one doc therefore holds
-// the same sum and bits, and exactly one of them is the owner.
+// sort: every term block is docid-ascending (score_slices guarantees it,
+// SENTINEL rows last), a doc appears at most once a term, and a doc's sum
+// adds the weights of the terms holding it in term order u = 0..T-1 from
+// +0.0, its bits OR their group bits, and its owner row is that of the
+// lowest term holding it. Every row of one doc holds the same sum and
+// bits; exactly one of them is the owner. Two designs compute that:
+//
+// - Doc tiles (merge_tiles_kernel), grid (tiles, B): a block takes one
+//   query's docids [j * tile, (j + 1) * tile) (tile: the wrapper's, by
+//   kernels.merge_plan). It brackets each term block's rows in that range
+//   (three binary searches a term a block, one a thread, not T - 1 a row;
+//   one warp scans the counts), then goes through the
+//   terms in order, adding each term's rows into a shared accumulator
+//   indexed by docid - j * tile, OR-ing its bits and marking the first
+//   term of each doc; one barrier between terms keeps the float sum in
+//   term order (no two rows of one term share a slot). Then it writes each
+//   row's outputs at the row's own position. The rows are taken in chunks
+//   of MD_THREADS * MD_RPT, each row's docid and weight in registers, so a
+//   chunk costs one barrier per term with rows in it; a tile of at most
+//   32 * MD_RPT rows (geo's aggregation run: ~100 rows over 128 terms) is
+//   added by one warp, a warp barrier a term. The tiles are fixed
+//   docid ranges over the segment's n_docs (the callers' deleted flags'
+//   rows):
+//   splitters from the rows would need a pass over them first, and
+//   kernels.merge_plan sends the sparse queries, where most fixed tiles
+//   would be empty, to the other design. A docid outside the tiles (none
+//   where n_docs is right) is computed by the probes in the first or last
+//   tile, so the answer never depends on n_docs. Each block also writes
+//   0 / 0 / 0 on its share of the query's SENTINEL rows (the third search
+//   finds where they start).
+// - Probes (merge_docs_kernel), grid (row tiles of 256, B): a row finds
+//   its doc in every other term's block by binary search (the join
+//   formulation of _execute_join 1102-1128): R * (T - 1) searches of
+//   log2 W dependent loads. It stays for the sparse queries (a relevance
+//   OR of a few hundred rows) and the small segments (fewer than
+//   kernels.MERGE_MIN_TILES tiles a query).
 //
 // The epilogue (K6) writes mask = owner & !deleted[doc] & tree(bits),
 // where the tree is a postfix program (common.cuh eval_tree): the full
 // tree when the plan has no value filters, the upper tree (F leaves ALL or
 // NONE by polarity) before compaction, or ALL when filter_leaves applies
-// the tree later. Null bits, deleted or program leave that part out.
+// the tree later. Null bits, deleted or program leave that part out. The
+// count is an integer: a warp sum, one shared atomic a warp and one
+// device atomic a block.
 //
-// Grid (row tiles of 256, B). An exact re-run has ~150k rows per query and
-// a faceted AND ~1.3M, so a per-query shared-memory design would not fit.
-//
-// Bound on the H100: latency of the dependent loads of T-1 binary searches
-// (log2 of the block width each) per row. The blocks of one query are
-// small enough to stay in the 50 MB L2, so the probes are L2 hits; one
-// block reduction and one integer atomic per tile give `count`
-// deterministically. The tree costs a few register ops per row.
+// Bound on the H100: the real rows' docids and weights read (a term
+// block's SENTINEL rows need no read), every row's sum, mask and orbits
+// written, and the owners' deleted flags. The doc tiles read a
+// chunk's docids twice (the second time from L2) and add one shared-memory
+// update a row; the probes add (T - 1) * log2 W dependent loads a row,
+// L2 hits, which at T = 128 (geo) set the time.
 #include "common.cuh"
+
+#ifndef MD_THREADS
+#define MD_THREADS 256
+#endif
+#ifndef MD_RPT
+#define MD_RPT 8            // rows a thread a chunk
+#endif
+#define MD_NONE 0xffff      // no term holds the slot's doc yet
+
+// mask of one real row r of term t (docid d): sum over the terms in term
+// order, OR of bits, owner; deleted and the tree where given
+__device__ __forceinline__ int probe_row(
+    const int* __restrict__ ids, const float* __restrict__ w,
+    const int* __restrict__ widths, const int* __restrict__ row_off, int T,
+    long long base, int r, int d, int t, const int* qbits, float& s,
+    unsigned& ob) {
+    int m = 1;
+    s = 0.0f;
+    ob = 0;
+    for (int u = 0; u < T; ++u) {
+        if (u == t) {
+            s = s + w[base + r];
+            if (qbits) ob |= (unsigned)qbits[u];
+            continue;
+        }
+        const int* blk = ids + base + row_off[u];
+        const int pos = lower_bound_i32(blk, widths[u], d);
+        if (pos < widths[u] && blk[pos] == d) {
+            s = s + w[base + row_off[u] + pos];
+            if (qbits) ob |= (unsigned)qbits[u];
+            if (u < t) m = 0;
+        }
+    }
+    return m;
+}
+
+__device__ __forceinline__ int epilogue(
+    int m, int d, unsigned ob, const unsigned char* __restrict__ deleted,
+    long long n_deleted, const int* __restrict__ prog, int prog_len) {
+    if (m && deleted) {
+        const long long dd = (long long)d < n_deleted - 1 ? (long long)d
+                                                          : n_deleted - 1;
+        m = deleted[dd] ? 0 : 1;
+    }
+    if (m && prog) m = eval_tree(prog, prog_len, ob, 0u, 0u, 0u);
+    return m;
+}
 
 __global__ void merge_docs_kernel(
     const int* __restrict__ ids, const float* __restrict__ w,
@@ -53,32 +129,13 @@ __global__ void merge_docs_kernel(
             const int mid = (lo + hi + 1) >> 1;
             if (row_off[mid] <= r) lo = mid; else hi = mid - 1;
         }
-        const int t = lo;
         const int* qbits = bits ? bits + (long long)b * T : nullptr;
         float s = 0.0f;
         unsigned ob = 0;
         if (d != XT_SENTINEL) {
-            m = 1;
-            for (int u = 0; u < T; ++u) {
-                if (u == t) {
-                    s = s + w[base + r];
-                    if (qbits) ob |= (unsigned)qbits[u];
-                    continue;
-                }
-                const int* blk = ids + base + row_off[u];
-                const int pos = lower_bound_i32(blk, widths[u], d);
-                if (pos < widths[u] && blk[pos] == d) {
-                    s = s + w[base + row_off[u] + pos];
-                    if (qbits) ob |= (unsigned)qbits[u];
-                    if (u < t) m = 0;
-                }
-            }
-            if (m && deleted) {
-                const long long dd = (long long)d < n_deleted - 1
-                    ? (long long)d : n_deleted - 1;
-                m = deleted[dd] ? 0 : 1;
-            }
-            if (m && prog) m = eval_tree(prog, prog_len, ob, 0u, 0u, 0u);
+            m = probe_row(ids, w, widths, row_off, T, base, r, d, lo, qbits,
+                          s, ob);
+            m = epilogue(m, d, ob, deleted, n_deleted, prog, prog_len);
         }
         sums[base + r] = s;
         mask[base + r] = (unsigned char)m;
@@ -88,16 +145,251 @@ __global__ void merge_docs_kernel(
     if (threadIdx.x == 0 && n) atomicAdd(count + b, n);
 }
 
+// lower_bound_i32 by the 32 lanes of a warp (every lane gets the
+// answer): each round the lanes read 32 pivots that cut [lo, hi) in 33
+// and keep the part that holds the answer, so a search is ~log33 n
+// dependent loads, not log2 n
+__device__ __forceinline__ int warp_lower_bound(const int* a, int n, int x,
+                                                int lane) {
+    int lo = 0, hi = n;   // the answer lies in [lo, hi]
+    while (hi - lo > 32) {
+        const long long span = hi - lo;
+        const int pos = lo + (int)(span * (lane + 1) / 33);
+        const unsigned below = __ballot_sync(0xffffffffu, a[pos] < x);
+        const int c = __popc(below);    // pivots below x: lanes 0..c-1
+        const int nlo = c ? lo + (int)(span * c / 33) + 1 : lo;
+        hi = c < 32 ? lo + (int)(span * (c + 1) / 33) : hi;
+        lo = nlo;
+    }
+    const bool in = lane < hi - lo && a[lo + lane] < x;
+    return lo + __popc(__ballot_sync(0xffffffffu, in));
+}
+
+// the last u in [0, n) with a[u] <= k (a ascending, a[0] = 0 <= k)
+__device__ __forceinline__ int last_le(const int* a, int n, long long k) {
+    int lo = 0, hi = n - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (a[mid] <= k) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+}
+
+__global__ void __launch_bounds__(MD_THREADS) merge_tiles_kernel(
+    const int* __restrict__ ids, const float* __restrict__ w,
+    const int* __restrict__ widths, const int* __restrict__ row_off, int T,
+    int R, const int* __restrict__ bits,
+    const unsigned char* __restrict__ deleted, long long n_deleted,
+    const int* __restrict__ prog, int prog_len, float* __restrict__ sums,
+    unsigned char* __restrict__ mask, int* __restrict__ count,
+    int* __restrict__ orbits, int tile) {
+    extern __shared__ int md_smem[];
+    // per term: the bracket's first row, the prefix of the bracket's rows,
+    // where its SENTINEL rows start and the prefix of their counts
+    int* a0 = md_smem;                    // [T]
+    int* pr = a0 + T;                     // [T + 1]
+    int* z0 = pr + T + 1;                 // [T]
+    int* ps = z0 + T;                     // [T + 1]
+    int* s_cnt = ps + T + 1;              // [1]
+    float* acc = reinterpret_cast<float*>(s_cnt + 1);        // [tile]
+    unsigned* sob = reinterpret_cast<unsigned*>(acc + tile); // [tile]
+    unsigned short* first =
+        reinterpret_cast<unsigned short*>(sob + tile);       // [tile]
+
+    const int b = blockIdx.y, j = blockIdx.x, nt = gridDim.x;
+    const long long base = (long long)b * R;
+    const int* qbits = bits ? bits + (long long)b * T : nullptr;
+    const long long lo = (long long)j * tile;
+    // the bracket of each term (3T searches): the first SENTINEL row, the
+    // first row at or past lo (row 0 in the first tile, which also takes
+    // the rows below its range) and past lo + tile (the first SENTINEL in
+    // the last tile, which takes every real row above its range: the
+    // probes' rows). A search is a chain of dependent loads, the tile's
+    // fixed cost: a warp a search (33-ary, ~log33 W loads) where the
+    // warps take them in two rounds or fewer, else a thread a search.
+    const bool by_warp = 3 * T <= 2 * (MD_THREADS / 32);
+    const int lane = threadIdx.x & 31;
+    for (int i = by_warp ? threadIdx.x >> 5 : threadIdx.x; i < 3 * T;
+         i += by_warp ? MD_THREADS / 32 : MD_THREADS) {
+        const int u = i % T, which = i / T;
+        const int* blk = ids + base + row_off[u];
+        const int W = widths[u];
+        if (which == 1 && j == 0) {
+            if (lane == 0 || !by_warp) a0[u] = 0;
+            continue;
+        }
+        if (which == 2 && j == nt - 1) continue;
+        const int x = which == 0 ? XT_SENTINEL
+                                 : (int)(which == 1 ? lo : lo + tile);
+        const int pos = by_warp ? warp_lower_bound(blk, W, x, lane)
+                                : lower_bound_i32(blk, W, x);
+        if (by_warp && lane) continue;
+        if (which == 0) {
+            z0[u] = pos;
+            ps[u + 1] = W - pos;
+        } else if (which == 1) {
+            a0[u] = pos;
+        } else {
+            pr[u + 1] = pos;
+        }
+    }
+    for (int i = threadIdx.x; i < tile; i += MD_THREADS) {
+        acc[i] = 0.0f;
+        sob[i] = 0u;
+        first[i] = MD_NONE;
+    }
+    __syncthreads();
+    // the bracket's rows and the SENTINEL rows, scanned by one warp
+    if (threadIdx.x < 32) {
+        const unsigned full = 0xffffffffu;
+        const int lane = threadIdx.x;
+        int c1 = 0, c2 = 0;
+        for (int v0 = 0; v0 < T; v0 += 32) {
+            const int u = v0 + lane;
+            int x = 0, y = 0;
+            if (u < T) {
+                x = (j == nt - 1 ? z0[u] : pr[u + 1]) - a0[u];
+                y = ps[u + 1];
+            }
+            for (int o = 1; o < 32; o <<= 1) {
+                const int xs = __shfl_up_sync(full, x, o);
+                const int ys = __shfl_up_sync(full, y, o);
+                if (lane >= o) {
+                    x += xs;
+                    y += ys;
+                }
+            }
+            if (u < T) {
+                pr[u + 1] = x + c1;
+                ps[u + 1] = y + c2;
+            }
+            c1 += __shfl_sync(full, x, 31);
+            c2 += __shfl_sync(full, y, 31);
+        }
+        if (lane == 0) {
+            pr[0] = 0;
+            ps[0] = 0;
+            *s_cnt = 0;
+        }
+    }
+    __syncthreads();
+    const int N = pr[T];
+
+    // 1. the terms in order: each chunk's rows in registers, a barrier
+    // after each term the chunk holds; a tile of a few rows is added by
+    // warp 0 alone, a warp barrier after each term
+    const bool small = N <= 32 * MD_RPT;
+    const int nth = small ? 32 : MD_THREADS;
+    const int CH = nth * MD_RPT;
+    for (int c0 = 0; c0 < N && (!small || threadIdx.x < 32); c0 += CH) {
+        const int c1 = min(N, c0 + CH);
+        int slot[MD_RPT], term[MD_RPT];
+        float wv[MD_RPT];
+#pragma unroll
+        for (int q = 0; q < MD_RPT; ++q) {
+            const int k = c0 + q * nth + threadIdx.x;
+            term[q] = -1;
+            if (k < c1) {
+                const int u = last_le(pr, T + 1, k);
+                const int r = row_off[u] + a0[u] + (k - pr[u]);
+                const long long s = (long long)ids[base + r] - lo;
+                if (s >= 0 && s < tile) {
+                    term[q] = u;
+                    slot[q] = (int)s;
+                    wv[q] = w[base + r];
+                }
+            }
+        }
+        const int u0 = last_le(pr, T + 1, c0);
+        const int u1 = last_le(pr, T + 1, c1 - 1);
+        for (int u = u0; u <= u1; ++u) {
+            if (pr[u + 1] == pr[u]) continue;   // no row: no barrier
+            const unsigned bu = qbits ? (unsigned)qbits[u] : 0u;
+#pragma unroll
+            for (int q = 0; q < MD_RPT; ++q) {
+                if (term[q] == u) {
+                    const int s = slot[q];
+                    acc[s] = acc[s] + wv[q];
+                    sob[s] |= bu;
+                    if (first[s] == MD_NONE) first[s] = (unsigned short)u;
+                }
+            }
+            if (small)
+                __syncwarp();
+            else
+                __syncthreads();
+        }
+    }
+    if (small) __syncthreads();
+
+    // 2. every bracketed row's outputs at its own position
+    int cnt = 0;
+    for (int k = threadIdx.x; k < N; k += MD_THREADS) {
+        const int u = last_le(pr, T + 1, k);
+        const int r = row_off[u] + a0[u] + (k - pr[u]);
+        const int d = ids[base + r];
+        const long long sl = (long long)d - lo;
+        float s;
+        unsigned ob;
+        int m;
+        if (sl >= 0 && sl < tile) {
+            s = acc[sl];
+            ob = sob[sl];
+            m = first[sl] == u;
+        } else {
+            m = probe_row(ids, w, widths, row_off, T, base, r, d, u, qbits,
+                          s, ob);
+        }
+        m = epilogue(m, d, ob, deleted, n_deleted, prog, prog_len);
+        sums[base + r] = s;
+        mask[base + r] = (unsigned char)m;
+        if (orbits) orbits[base + r] = (int)ob;
+        cnt += m;
+    }
+    // 3. this block's share of the SENTINEL rows
+    const int S = ps[T];
+    const int e0 = (int)((long long)S * j / nt);
+    const int e1 = (int)((long long)S * (j + 1) / nt);
+    for (int e = e0 + threadIdx.x; e < e1; e += MD_THREADS) {
+        const int u = last_le(ps, T + 1, e);
+        const int r = row_off[u] + z0[u] + (e - ps[u]);
+        sums[base + r] = 0.0f;
+        mask[base + r] = 0;
+        if (orbits) orbits[base + r] = 0;
+    }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(s_cnt, cnt);
+    __syncthreads();
+    if (threadIdx.x == 0 && *s_cnt) atomicAdd(count + b, *s_cnt);
+}
+
+// tiles: 0, the probes; else the doc tiles' count, `tile` docids each
 extern "C" int xt_merge_docs(const void* ids, const void* w,
                              const void* widths, const void* row_off, int B,
                              int T, int R, const void* bits,
                              const void* deleted, long long n_deleted,
                              const void* prog, int prog_len, void* sums,
                              void* mask, void* count, void* orbits,
-                             void* stream) {
+                             int tiles, int tile, void* stream) {
     if (B == 0 || R == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (tiles > 0) {
+        if (T >= MD_NONE || tile <= 0) return (int)cudaErrorInvalidValue;
+        const int smem = (4 * T + 3) * (int)sizeof(int) + tile * 10;
+        if (smem > 48 * 1024)
+            cudaFuncSetAttribute(merge_tiles_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+        merge_tiles_kernel<<<dim3(tiles, B), MD_THREADS, smem, st>>>(
+            (const int*)ids, (const float*)w, (const int*)widths,
+            (const int*)row_off, T, R, (const int*)bits,
+            (const unsigned char*)deleted, n_deleted, (const int*)prog,
+            prog_len, (float*)sums, (unsigned char*)mask, (int*)count,
+            (int*)orbits, tile);
+        return (int)cudaGetLastError();
+    }
     dim3 grid((R + 255) / 256, B);
-    merge_docs_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    merge_docs_kernel<<<grid, 256, 0, st>>>(
         (const int*)ids, (const float*)w, (const int*)widths,
         (const int*)row_off, T, R, (const int*)bits,
         (const unsigned char*)deleted, n_deleted, (const int*)prog, prog_len,

@@ -383,7 +383,8 @@ def _execute_join(seg, batch, cfg: ExecConfig, spec, uniq) -> dict:
         kernels.tree_program(cfg.tree)
     sums, first, count, orbits = kernels.merge_docs(
         ids, w, classes, batch["group_bits"] if leaves or prog else None,
-        seg["deleted"] if cfg.has_deletes else None, prog, leaves)
+        seg["deleted"] if cfg.has_deletes else None, prog, leaves,
+        n_docs=seg["deleted"].shape[0])
     return _finish_rows(seg, batch, cfg, ids, sums, first, count, orbits,
                         False)
 
@@ -418,7 +419,8 @@ def _execute_chunked(seg, batch, cfg: ExecConfig, spec, uniq) -> dict:
         each(batch["tconst"]), each(batch["scoring"]), widths,
         (False,) * len(keep), spec, uniq)
     sums, first, count, _orbits = kernels.merge_docs(
-        ids, w, widths, None, seg["deleted"] if cfg.has_deletes else None)
+        ids, w, widths, None, seg["deleted"] if cfg.has_deletes else None,
+        n_docs=seg["deleted"].shape[0])
     out = {"count": kernels.shard_reduce(count.view(nc, B), "sum")}
     if cfg.k == 0:
         out["docids"] = ids.new_empty((B, 0))
@@ -499,7 +501,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
         """merge_docs, then the OP_MAX / OP_SYNONYM sums (K13) on the same
         rows, before any compaction moves them (execute 746-812)."""
         sums, mask, count, orbits = kernels.merge_docs(
-            ids, w, widths, bits, deleted, prog, want_orbits)
+            ids, w, widths, bits, deleted, prog, want_orbits,
+            n_docs=seg["deleted"].shape[0])
         if special:
             sums = kernels.merge_special(
                 ids, w, widths, bits, offsets, seg["post_wdf"],

@@ -6,9 +6,11 @@ in ``../csrc``; each file's header names the TPU function it replaces,
 what bounds it on the H100 and what its design does about that):
 
   score_slices    K1     per-(query, term) posting slice + the scheme's
-                  +K18   weight (BM25 or any of the other 15 schemes)
-  merge_docs      K2+K3  per-doc sums and OR of group bits by binary-search
-                  +K6    join; owner & not deleted & boolean tree; count
+                  +K18   weight (BM25 or any of the other 15 schemes): row
+                         tiles over every term, a block a prefix term
+  merge_docs      K2+K3  per-doc sums and OR of group bits: doc tiles
+                  +K6    summed in term order, or a binary-search join;
+                         owner & not deleted & boolean tree; count
   topk_rows       K4     exact top-k by (score desc, docid asc): row
                          tiles' top-k, then their merge
   prefix_certify  K5     exact rescore of prefix candidates + certificate
@@ -113,6 +115,11 @@ SENTINEL = 2**31 - 1
 I32MAX = 2**31 - 1
 MAX_PREFIX_ROWS = 16384   # score_slices sorts a prefix block in 128 KB smem
                           # (wider: in a device-memory scratch)
+MERGE_TILE = 4096         # merge_docs: docids a doc tile (shared memory)
+MERGE_MIN_TILES = 8       # merge_plan: fewer tiles a query leave SMs idle
+MERGE_ROW_COST = 3        # merge_plan: a row's cost in the doc tiles, and
+MERGE_TILE_COST = 75000   # a tile's and a (tile, term)'s, in units of the
+MERGE_TERM_COST = 100     # probes' cost, one a row's search step
 MAX_TOPK = 256            # topk_rows keeps k of its shared buffer's 2048
                           # keys; beyond: wide_topk
 TOPK_BLOCKS = 528         # topk_rows: B x tiles at most (4 blocks an SM)
@@ -261,10 +268,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SPEC = [_I, ctypes.POINTER(ctypes.c_float), _I, _P]
 _SIGNATURES = {
     "xt_score_slices": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, *_SPEC, _I, _P, _P, _P,
-                        _P, _I, _P],
+                        _P, _P, _P, _I, _I, _I, _I, _I, *_SPEC, _I, _P, _P,
+                        _P, _P, _I, _P],
     "xt_merge_docs": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _LL, _P, _I, _P,
-                      _P, _P, _P, _P],
+                      _P, _P, _P, _I, _I, _P],
     "xt_topk_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "xt_prefix_certify": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P, _P, _I, _I, *_SPEC, _I, _P, _P, _P, _P],
@@ -575,7 +582,7 @@ def score_slices(post, imp, offsets, lens, tconst, scoring, widths,
             offsets.data_ptr(), lens.data_ptr(), tconst.data_ptr(),
             scoring.data_ptr(), _ints(widths, dev).data_ptr(),
             _ints(tuple(int(p) for p in is_prefix), dev).data_ptr(),
-            _ints(ro, dev).data_ptr(), B, T, R, smem,
+            _ints(ro, dev).data_ptr(), B, T, R, sum(is_prefix), smem,
             *_spec_args(spec, C, uniq), _nd1(uniq), ids.data_ptr(),
             w.data_ptr(), tail.data_ptr(), _ptr(scratch), n2, _stream())
     return ids, w, tail
@@ -627,13 +634,14 @@ def _score_slices_plain(post, imp, offsets, lens, tconst, scoring, widths,
 # --------------------------------------------------------------------------
 
 def merge_docs(ids, w, widths, bits=None, deleted=None, prog=None,
-               want_orbits=False):
-    """Per-doc score sums and OR of group bits without a sort (binary-
-    search join over the docid-ascending term blocks of score_slices), and
-    the K6 epilogue.
+               want_orbits=False, *, n_docs):
+    """Per-doc score sums and OR of group bits without a sort (doc tiles
+    summed in term order, or a binary-search join, over the docid-ascending
+    term blocks of score_slices: merge_plan), and the K6 epilogue.
 
     bits i32[B,T] (the plan's group_bits; None: no bits), deleted bool[ND+1]
-    (None: no deletes), prog a tree_program (None: no tree).
+    (None: no deletes), prog a tree_program (None: no tree), n_docs the
+    segment's docid bound (its deleted flags' rows).
     -> sums f32[B,R] (the doc's total, summed in term order, on every row
        of the doc; 0 on SENTINEL rows), mask bool[B,R] (one row per real
        doc, its lowest-numbered term's, & not deleted & tree(bits)),
@@ -674,8 +682,38 @@ def merge_docs(ids, w, widths, bits=None, deleted=None, prog=None,
             deleted.shape[0] if deleted is not None else 0,
             _ptr(_ints(prog, dev) if prog else None),
             len(prog) if prog else 0, sums.data_ptr(), mask.data_ptr(),
-            count.data_ptr(), _ptr(orbits), _stream())
+            count.data_ptr(), _ptr(orbits),
+            merge_plan(widths, n_docs), MERGE_TILE, _stream())
     return sums, mask, count, orbits
+
+
+def merge_plan(widths, n_docs) -> int:
+    """merge_docs' design for one query's term blocks: the number of doc
+    tiles of MERGE_TILE docids over [0, n_docs), or 0 for the probes. The
+    probes cost each row (T - 1) binary searches of log2 W dependent loads;
+    the tiles cost each row a little, each term of each tile its bracket
+    and a barrier, and each tile its accumulator, whether or not it holds
+    a row. So the tiles take the dense queries and the many-term ones
+    (geo's T = 128), the probes the sparse ones (a relevance OR's few
+    hundred rows over a million docs) and the small segments (a few tiles
+    a query leave the card idle). The costs are fitted to the paths' own
+    launches (chip_smoke.py --capture, tools/sort_pairs.py's md_probes
+    and md_tiles), where the rule takes the faster design at each."""
+    T, R = len(widths), sum(widths)
+    if T < 1 or 16 * T + 10 * MERGE_TILE > 200 * 1024:
+        return 0   # (the kernel's shared memory: 16 B a term, 10 a docid)
+    tiles = -(-int(n_docs) // MERGE_TILE)
+    if tiles < MERGE_MIN_TILES:
+        return 0
+    probe = R * (T - 1) * sum(log2c(x) for x in widths) / T
+    tile = MERGE_ROW_COST * R + tiles * (MERGE_TILE_COST +
+                                         MERGE_TERM_COST * T)
+    return tiles if tile < probe else 0
+
+
+def log2c(n: int) -> int:
+    """ceil(log2(n)), at least 1: a binary search's loads over n rows."""
+    return max(int(n) - 1, 1).bit_length()
 
 
 def _merge_docs_plain(ids, w, widths, bits=None, deleted=None, prog=None,
