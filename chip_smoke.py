@@ -143,8 +143,9 @@ to a server without autocommit, stopped, and recovered by the WAL replay
 of the next (each found by a query of its rarest word, held to the
 oracle); 64 searches with "_cluster": {"_k": 3} at _limit 10, 64 with
 _k 8 at _limit 256, 32 with "_diversify", and Database.cluster_hits over
-4096 passages at k 16, V 2048, counted (kmeans, K20), then held: every
-kmeans launch against its plain version and float64 numpy by the margin
+4096 passages at k 16, V 2048, counted (kmeans, K20: one launch a
+kmeans_cosine call), then held: every step of every call, read from the
+call's history, against the plain step and float64 numpy by the margin
 rule (ops/cluster.py near_ties: labels equal on every row whose top-2
 margin exceeds 2 gamma_V; centroids within rtol 1e-5), and each
 kmeans_cosine call replayed by a float64 replica from the same seeding;
@@ -235,8 +236,7 @@ weights, for agg_distinct torch.unique of the batch's packed keys plus
 scatter_reduce_(amax) of the registers, for agg_buckets (its K17c modes)
 and agg_hist torch.bincount of the rows' bucket (and bin) codes, for
 agg_filter torch.searchsorted of the rows' docids in each term's postings,
-for kmeans torch.matmul(X, C.T), the step's product alone, for
-semijoin_rows torch.searchsorted of the drive rows' docids in each probed
+for semijoin_rows torch.searchsorted of the drive rows' docids in each probed
 block, for chunk_merge and shard_merge torch.sort of the packed keys, for
 sort_topk where the only key is the docid (an unweighted plan: geo, browse
 N) torch.topk(largest=False) of the masked docids, null elsewhere: no
@@ -244,7 +244,7 @@ single PyTorch call computes any of the other functions); the last line is
 {"ok": true, "device": {...}}.
 
 Before them: a "[kernels] <name> every shape" line for topk_rows,
-dense_rows and sort_topk (SHAPE_KERNELS): each distinct launch shape of
+dense_rows, sort_topk and merge_special (SHAPE_KERNELS): each distinct launch shape of
 every path, timed once where it first came (kernel, plain version, bound
 and library call, the path's tag first), outside the counted runs; and
 wide_topk's key-word table (a sort of 40 value keys, 82 words, past
@@ -256,8 +256,11 @@ non-zero with no result.
     python3 chip_smoke.py [--capture DIR]
 
 --capture DIR saves the arguments of the launches tools/sort_pairs.py
-replays (CAPTURE: sort_topk's geo, browse, faceted and REST mesh shapes,
-the widest agg_filter and semijoin_rows; score_slices and merge_docs at
+replays (CAPTURE: merge_special at browse S and X, B16 and B32, and a
+schemes S and X launch; kmeans' kmeans_cosine calls at n10 k3, n256 V2048
+k8 and n4096 V2048 k16; sort_topk's geo, browse, faceted and REST mesh
+shapes, the widest agg_filter and semijoin_rows; score_slices and
+merge_docs at
 browse C, the mesh, browse B16, faceted A, geo, geo aggregations and the
 relevance prefix group; shard_reduce at the REST mesh and mesh shapes and
 its min / max) as the paths make them.
@@ -379,10 +382,10 @@ REST_MESH_KERNELS = MESH_KERNELS + (
 
 
 # the kernels timed at every distinct launch shape of every path
-# ([kernels] ... every shape lines): topk_rows and dense_rows, whose
-# shapes PERF.md section 6 tabulates, and sort_topk, whose docid-only
-# launches have a library call
-SHAPE_KERNELS = ("topk_rows", "dense_rows", "sort_topk")
+# ([kernels] ... every shape lines): topk_rows, dense_rows and
+# merge_special, whose shapes PERF.md section 6 tabulates, and sort_topk,
+# whose docid-only launches have a library call
+SHAPE_KERNELS = ("topk_rows", "dense_rows", "sort_topk", "merge_special")
 
 
 def log(msg):
@@ -1171,17 +1174,48 @@ def work_dense(lens, classes, B, nd1):
             B * nd1 + nd1 * int(steps.sum()))
 
 
-def work_special(ids, widths, max_specs, syn_groups):
-    """merge_special: docid and weight read and the sum written per row,
-    the doc's length and the synonym terms' wdf per real row; per real row
-    one pass of binary searches over the term blocks for the base, each
-    branch and each synonym group."""
+def work_special(ids, widths, bits, offsets, post_wdf, max_specs,
+                 syn_groups, uniq=None):
+    """merge_special, the function (not either design's searches): each
+    real row's docid and weight read, 8 bytes, and every row's sum
+    written, 4; each term's bits and offset a query, 8 bytes; where the
+    plan has synonym groups, 4 bytes more a real row of a term that feeds
+    one (its posting's wdf), and per query 4 a doc whose synonym sums are
+    not all 0 (its length, read once), 4 more with uniqterms; one add a
+    (real row, channel): the base, each branch of each max spec, each
+    synonym group."""
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
     B, R = ids.shape
-    real = n_true(ids != 2**31 - 1)
-    passes = 1 + sum(len(br) for br in max_specs) + len(syn_groups)
-    return (12 * B * R + 8 * B * len(widths) +
-            (8 * real if syn_groups else 0),
-            real * passes * sum(log2c(w) for w in widths))
+    realm = ids != 2**31 - 1
+    real = n_true(realm)
+    nbytes = 8 * real + 4 * B * R + 8 * B * len(widths)
+    if syn_groups:
+        smask = 0
+        for m in syn_groups:
+            smask |= m
+        feeds = (bits & kn._i32(smask)) != 0
+        ro = kn.row_offsets(widths)
+        n = post_wdf.shape[0]
+        qb = torch.arange(B, device=ids.device)[:, None] << 31
+        keys, wdfs = [], []
+        for u, W in enumerate(widths):
+            on = realm[:, ro[u]:ro[u + 1]] & feeds[:, u:u + 1]
+            start = offsets[:, u].long().clamp(max=n - W).clamp(min=0)
+            wdf = post_wdf[start[:, None] +
+                           torch.arange(W, device=ids.device)]
+            keys.append((qb + ids[:, ro[u]:ro[u + 1]].long())[on])
+            wdfs.append(wdf[on])
+        keys, wdfs = torch.cat(keys), torch.cat(wdfs)
+        nbytes += 4 * keys.numel()
+        if keys.numel():
+            docs, inv = torch.unique(keys, return_inverse=True)
+            ssum = torch.zeros(docs.numel(), dtype=torch.float32,
+                               device=ids.device).index_add_(0, inv, wdfs)
+            nbytes += (8 if uniq is not None else 4) * n_true(ssum > 0)
+    return nbytes, real * kn.special_channels(max_specs, syn_groups)
 
 
 def work_distinct(ids, elig, n_col):
@@ -1255,25 +1289,87 @@ def held_dense(a):
             library if T else None)
 
 
-def held_special(a):
+def unwrapped(fn):
+    """The port's own wrapper under the hooks of Held and capture."""
+    while hasattr(fn, "__wrapped__"):
+        fn = fn.__wrapped__
+    return fn
+
+
+@contextmanager
+def uncounted():
+    """Launches inside the block leave ops/kernels.py's counts as they
+    were (a check's own launches)."""
     from xapiand_tpu_torch.ops import kernels as kn
 
-    ids, _w, widths, _bits, _off, _wdf, _dl, max_specs, syn_groups = a[:9]
+    saved = dict(kn.launches)
+    try:
+        yield
+    finally:
+        kn.launches.update(saved)
+
+
+def special_other(widths, n_docs, P, tiles):
+    """merge_special's other design than special_plan's (tiles, tile): the
+    probes where it took the tiles, else the doc tiles of the widest tile
+    whose P slots a docid fit (kernels.special_tile; None where none
+    fits)."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    if tiles:
+        return 0, 0
+    tile = kn.special_tile(len(widths), P)
+    return (-(-int(n_docs) // tile), tile) if tile else None
+
+
+def held_special(a, n_docs):
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    ids, _w, widths, bits, offsets, post_wdf, _dl, max_specs, syn_groups = \
+        a[:9]
+    spec = a[10]
+    P = kn.special_channels(max_specs, syn_groups)
+    tiles, tile = kn.special_plan(widths, n_docs, P)
+    other = special_other(widths, n_docs, P, tiles)
 
     def check(got, want):
-        return check_close("merge_special sums", got, want)
+        """The call's design against the plain version, then the other
+        design on the same tensors, each bit for bit (the other's launch
+        not counted)."""
+        err = check_close("merge_special sums", got, want)
+        if err != 0.0:
+            raise AssertionError(f"merge_special {(tiles, tile)}: kernel vs "
+                                 f"plain max abs err {err}")
+        if other is not None:
+            rule = kn.special_plan
+            kn.special_plan = lambda w, n, p: other
+            try:
+                with uncounted():
+                    alt = unwrapped(kn.merge_special)(*a, n_docs=n_docs)
+            finally:
+                kn.special_plan = rule
+            if max_err(alt, want) != 0.0:
+                raise AssertionError(
+                    f"merge_special {other}: the other design vs plain max "
+                    f"abs err {max_err(alt, want)}")
+            SPECIAL["other"] += 1
+        return err
 
     uniq = a[11] if len(a) > 11 else None
 
     def work():
-        nbytes, ops = work_special(ids, widths, max_specs, syn_groups)
-        if syn_groups and uniq is not None:
-            nbytes += 4 * min(n_true(ids != 2**31 - 1), uniq.shape[0])
-        return nbytes, ops
+        return work_special(ids, widths, bits, offsets, post_wdf, max_specs,
+                            syn_groups, uniq)
 
     return (lambda: kn._merge_special_plain(*a), check,
-            f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
-            f"max_specs={max_specs} syn_groups={syn_groups}", work, None)
+            f"{'syn' if syn_groups else 'max'} sid={spec.sid} "
+            f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} P={P} "
+            f"tiles={tiles}x{tile} max_specs={max_specs} "
+            f"syn_groups={syn_groups}", work, None)
+
+
+# merge_special's calls held in the other design (held_special)
+SPECIAL = {"other": 0}
 
 
 def held_distinct(a):
@@ -1884,18 +1980,20 @@ def held_metrics(a):
             None)
 
 
-# K20: every launch is held by the margin rule (ops/cluster.py
-# label_margin_bound): labels equal wherever the row's top-2 margin over
-# the launch's centroids exceeds 2 gamma_V, against the plain version and
-# against float64 numpy on the same inputs; the new centroids within
-# C_RTOL of the float64 update of the kernel's own labels, and of the
-# plain version's where the labels agree. The launches of one
-# kmeans_cosine call (its steps, then the assignment alone) are kept, and
-# the call is replayed by KMEANS_REPLICA.
+# K20: every kmeans_cosine call is one launch of kernels.kmeans_loop, held
+# step by step by its history (one more launch of the call with it, not
+# counted; the same labels and centroids bit for bit): at each step the
+# labels under the step's input centroids equal kmeans_step_plain's from
+# the same centroids and float64 numpy's wherever the row's top-2 margin
+# exceeds 2 gamma_V (ops/cluster.py label_margin_bound), and the next
+# centroids lie within C_RTOL of the float64 update of the kernel's own
+# labels, and of the plain step's where the labels agree; the last
+# assignment likewise. The call's steps are then replayed by
+# KMEANS_REPLICA from the same seeding.
 
 C_RTOL = 1e-5
 KMEANS = {"near": 0, "launches": 0, "calls": 0, "parted": 0,
-          "replica_near": 0, "steps": []}
+          "replica_near": 0, "steps": 0}
 
 
 def _update64(X64, labels, C, k):
@@ -1918,7 +2016,8 @@ def _close(got, want):
 
 def kmeans_replica(X, steps):
     """The float64 replica of ops/cluster.py kmeans_cosine over one call's
-    launches: the same numpy seeding (which must give the launches' first
+    assignments (each step's input centroids and labels, then the last
+    assignment's): the same numpy seeding (which must give the call's first
     centroids bit for bit), then per step the float64 labels against the
     kernel's wherever the margin exceeds label_margin_bound(V, dc), dc the
     distance between the two trajectories' centroids; the first step with
@@ -1957,61 +2056,80 @@ def kmeans_replica(X, steps):
         C = _update64(X64, lab, C, k)
 
 
-def held_kmeans(a, update=True):
+def work_kmeans(n, v, k, iters, assign_last):
+    """kmeans, a kmeans_cosine call: X and C0 read once, the labels and C
+    written once; each step's products, sums and norms (2nVk + nV + 3kV
+    operations), and the last assignment's products."""
+    return (4 * (n * v + 2 * k * v + n),
+            iters * (2 * n * v * k + n * v + 3 * k * v) +
+            (2 * n * v * k if assign_last else 0))
+
+
+def held_kmeans(a, assign_last=True, history=False):
     import numpy as np
     import torch
 
     from xapiand_tpu_torch.ops import cluster
     from xapiand_tpu_torch.ops import kernels as kn
 
-    X, C = a[0], a[1]
+    X, C0, iters = a[0], a[1], int(a[2])
+    if len(a) > 3:
+        assign_last = bool(a[3])
     n, v = X.shape
-    k = C.shape[0]
+    k = C0.shape[0]
+    tag = f"kmeans n{n} V{v} k{k} iters{iters}"
 
     def check(got, want):
+        with uncounted():
+            l_h, c_h, (hl, hc) = unwrapped(kn.kmeans_loop)(
+                X, C0, iters, assign_last, history=True)
+        if not torch.equal(l_h, got[0]) or \
+                not torch.equal(c_h.view(torch.int32),
+                                got[1].view(torch.int32)):
+            raise AssertionError(f"{tag}: the history changed the result")
         Xh = X.cpu().numpy()
-        Ch = C.cpu().numpy()
         X64 = Xh.astype(np.float64)
-        gl, wl = got[0].cpu().numpy(), want[0].cpu().numpy()
-        near = cluster.near_ties(X64, Ch)
-        lab64 = (X64 @ Ch.astype(np.float64).T).argmax(axis=1)
-        if ((gl != wl) & ~near).any() or ((gl != lab64) & ~near).any():
-            raise AssertionError(f"kmeans n{n} V{v} k{k}: labels differ "
-                                 "outside the margin")
-        KMEANS["near"] += int(near.sum())
-        KMEANS["launches"] += 1
-        KMEANS["steps"].append((Ch, gl))
+        hl, hc = hl.cpu().numpy(), hc.cpu().numpy()
+        gl, gc = got[0].cpu().numpy(), got[1].cpu().numpy()
+        if iters and not np.array_equal(hc[0], C0.cpu().numpy()):
+            raise AssertionError(f"{tag}: history C[0] is not C0")
+        steps = [(hc[t], hl[t]) for t in range(iters)] + \
+            ([(gc, gl)] if assign_last else [])
+        nexts = [hc[t + 1] for t in range(iters - 1)] + [gc]
         err = 0.0
-        if update:
-            gc = got[1].cpu().numpy()
-            if not _close(gc, _update64(X64, gl, Ch.astype(np.float64), k)):
-                raise AssertionError(f"kmeans n{n} V{v} k{k}: centroids "
-                                     f"beyond rtol {C_RTOL} of float64")
-            if np.array_equal(gl, wl):
-                wc = want[1].cpu().numpy()
-                if not _close(gc, wc):
-                    raise AssertionError(f"kmeans n{n} V{v} k{k}: centroids "
-                                         "beyond rtol of the plain version")
-                err = float(np.abs(gc - wc).max())
-        else:          # a call's last launch: replay the call in float64
-            KMEANS["calls"] += 1
-            kmeans_replica(Xh, KMEANS["steps"])
-            KMEANS["steps"] = []
+        for t, (Ch, lab) in enumerate(steps):
+            upd = t < iters
+            wl, wc = kn.kmeans_step_plain(X, torch.from_numpy(Ch).to(
+                X.device), upd)
+            wl = wl.cpu().numpy()
+            near = cluster.near_ties(X64, Ch)
+            lab64 = (X64 @ Ch.astype(np.float64).T).argmax(axis=1)
+            if ((lab != wl) & ~near).any() or ((lab != lab64) & ~near).any():
+                raise AssertionError(f"{tag} step {t}: labels differ "
+                                     "outside the margin")
+            KMEANS["near"] += int(near.sum())
+            if not upd:
+                continue
+            if not _close(nexts[t], _update64(X64, lab, Ch.astype(np.float64),
+                                              k)):
+                raise AssertionError(f"{tag} step {t}: centroids beyond "
+                                     f"rtol {C_RTOL} of float64")
+            if np.array_equal(lab, wl):
+                wc = wc.cpu().numpy()
+                if not _close(nexts[t], wc):
+                    raise AssertionError(f"{tag} step {t}: centroids beyond "
+                                         "rtol of the plain version")
+                err = max(err, float(np.abs(nexts[t] - wc).max()))
+        KMEANS["launches"] += 1
+        KMEANS["calls"] += 1
+        KMEANS["steps"] += len(steps)
+        kmeans_replica(Xh, steps)
         return err
 
-    def work():
-        # X and C read once, the labels and (with update) C written once;
-        # the products, and with update the sums and the norms
-        b = 4 * (n * v + k * v + n + (k * v if update else 0))
-        ops = 2 * n * v * k + ((n * v + 3 * k * v) if update else 0)
-        return b, ops
-
-    def library():
-        # the product alone, the step's largest part
-        return cuda_ms(lambda: torch.matmul(X, C.T), reps=5)
-
-    return (lambda: kn.kmeans_step_plain(X, C, update), check,
-            f"n{n} V{v} k{k}" + ("" if update else " assign"), work, library)
+    return (lambda: kn.kmeans_loop_plain(X, C0, iters, assign_last), check,
+            f"n{n} V{v} k{k} iters{iters}" +
+            ("" if assign_last else " no last"),
+            lambda: work_kmeans(n, v, k, iters, assign_last), None)
 
 
 HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
@@ -2025,6 +2143,11 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_filter": held_afilter, "kmeans": held_kmeans,
         "shard_merge": held_shard_merge, "shard_reduce": held_shard_reduce,
         "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge}
+
+# the port's wrapper Held and capture hold for a kernel where it is not the
+# kernel's own name: kmeans_cosine calls kmeans_loop (kernels.kmeans, one
+# step, calls it too)
+WRAPPERS = {"kmeans": "kmeans_loop"}
 
 # python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
 # replays, by their HELD keys or the start of them up to a space (None:
@@ -2063,7 +2186,16 @@ CAPTURE = {
                   "B=64 R=262144 k=10 keys=value",     # faceted A, off
                   "B=1 R=3127 k=10 keys=docid"),       # REST mesh
     "semijoin_rows": None,
-    "agg_filter": None}
+    "agg_filter": None,
+    # browse S and X at B16 and B32, the schemes' S under TfIdf (sid 2,
+    # B64) and X under PL2 (sid 10); no path makes a sparse launch (the
+    # probes are held on the card by tests/test_torch_cuda.py)
+    "merge_special": ("syn sid=0 B=16 R=4194304", "max sid=0 B=16 R=4194304",
+                      "syn sid=0 B=32 R=2097152", "max sid=0 B=32 R=2097152",
+                      "syn sid=2", "max sid=10"),
+    # kmeans_cosine calls: the _cluster _k 3 searches (V 1,024-1,360), the
+    # _k 8 ones, cluster_hits
+    "kmeans": ("n10", "n256 V2048 k8", "n4096 V2048 k16")}
 
 
 def capture(dirname):
@@ -2116,10 +2248,12 @@ def capture(dirname):
                     save(name, key, args, kw, f"{name} {key}.pt")
             return got
 
+        call.__wrapped__ = fn
         return call
 
     for name in CAPTURE:
-        setattr(kn, name, hook(name, getattr(kn, name)))
+        attr = WRAPPERS.get(name, name)
+        setattr(kn, attr, hook(name, getattr(kn, attr)))
 
 
 class Held:
@@ -2153,15 +2287,16 @@ class Held:
         from xapiand_tpu_torch.ops import kernels as kn
 
         for name in self.calls:
-            self.saved[name] = getattr(kn, name)
-            setattr(kn, name, self.hold(name, self.saved[name]))
+            attr = WRAPPERS.get(name, name)
+            self.saved[name] = getattr(kn, attr)
+            setattr(kn, attr, self.hold(name, self.saved[name]))
         return self
 
     def __exit__(self, *exc):
         from xapiand_tpu_torch.ops import kernels as kn
 
         for name, fn in self.saved.items():
-            setattr(kn, name, fn)
+            setattr(kn, WRAPPERS.get(name, name), fn)
         counts = dict(kn.launches)
         if exc[0] is None:
             for name, (_b, err, key, run, plain, work, library, yard) in \
@@ -2225,6 +2360,7 @@ class Held:
                 self.widest[name_] = best[:1] + (err,) + best[2:]
             return got
 
+        held.__wrapped__ = kernel
         return held
 
 
@@ -2378,14 +2514,21 @@ def browse_path(dev, rec, smi, corpus, searcher) -> dict:
     # the path once with every kernel it runs held against its plain
     # version at every launch
     t0 = time.time()
+    SPECIAL["other"] = 0
     with Held(rec, "browse", BROWSE_KERNELS) as held:
         run_all()
     torch.cuda.empty_cache()
     log(f"[kernels] browse: every launch equal to its plain version, the "
         f"kernels twice bit for bit: {held.calls} launches held, each "
-        f"kernel timed at its widest ({time.time() - t0:.1f} s)")
+        f"kernel timed at its widest ({time.time() - t0:.1f} s); "
+        f"merge_special's other design held bit for bit at "
+        f"{SPECIAL['other']} calls")
     if not all(held.calls.values()):
         raise AssertionError(f"a browse kernel was never held: {held.calls}")
+    if SPECIAL["other"] != held.calls["merge_special"]:
+        raise AssertionError(f"merge_special: the other design held at "
+                             f"{SPECIAL['other']} of "
+                             f"{held.calls['merge_special']} calls")
 
     # the path, counted
     kn.reset_launches()
@@ -2600,12 +2743,14 @@ def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
         names = ("score_slices",) if only_c else \
             ("score_slices", "dense_rows", "merge_special")
         t0 = time.time()
+        SPECIAL["other"] = 0
         with Held(rec, f"schemes catalogue {label}", names,
                   exact=True) as held:
             run()
         torch.cuda.synchronize()
         t1 = time.time()
         if not all(held.calls.values()) or \
+                SPECIAL["other"] != held.calls.get("merge_special", 0) or \
                 not (only_c or held.nonzero["dense_rows"]):
             raise AssertionError(f"schemes catalogue {label}: {held.calls}"
                                  f" held, nonzero floats {held.nonzero}")
@@ -4375,12 +4520,22 @@ def rest_path(dev, rec, smi, db_world) -> dict:
             torch.cuda.synchronize()
             return labels, time.perf_counter() - t
 
-        # the run is counted and held at once: every kmeans launch against
-        # its plain version and float64 (Held, counted: the comparison's
-        # launches are not counted)
+        # the run is counted and held at once: every kmeans_cosine call (one
+        # kmeans launch) step by step against its plain version and float64
+        # (Held, counted: the comparison's launches are not counted)
+        from xapiand_tpu_torch.ops import cluster as pcl
+
         KMEANS.update(near=0, launches=0, calls=0, parted=0,
-                      replica_near=0, steps=[])
+                      replica_near=0, steps=0)
+        cosine = pcl.kmeans_cosine
+        n_cosine = [0]
+
+        def counted_cosine(*a, **kw):
+            n_cosine[0] += 1
+            return cosine(*a, **kw)
+
         dbm.Database._doc_vectors = doc_vectors
+        pcl.kmeans_cosine = counted_cosine
         try:
             torch.cuda.synchronize()
             kn.reset_launches()
@@ -4390,6 +4545,7 @@ def rest_path(dev, rec, smi, db_world) -> dict:
             counts = dict(kn.launches)
         finally:
             dbm.Database._doc_vectors = orig_vec
+            pcl.kmeans_cosine = cosine
         X = last_x[0]
         zero = np.flatnonzero(~X.any(axis=1))
         log(f"[cluster] rest: {len(small)} searches with _cluster _k 3 "
@@ -4401,41 +4557,46 @@ def rest_path(dev, rec, smi, db_world) -> dict:
             f"{len(set(labels))} clusters; {len(zero)} of its rows are 0 (no "
             f"term among the vocabulary's {X.shape[1]} highest-idf terms), "
             f"row 0 {'among them' if 0 in set(zero.tolist()) else 'not'}; "
-            f"kmeans launches {counts['kmeans']}")
+            f"kmeans launches {counts['kmeans']} for {n_cosine[0]} "
+            f"kmeans_cosine calls")
         if not counts["kmeans"] or X.shape != (WIDE_N, 2048):
             raise AssertionError(f"clustering launches {counts}")
-        log(f"[held] rest: kmeans launches held {held.calls['kmeans']} "
-            f"(twice bit for bit; labels by the margin rule against the "
-            f"plain version and float64, {KMEANS['near']} rows inside the "
-            f"margin; centroids within rtol {C_RTOL}); {KMEANS['calls']} "
-            f"kmeans_cosine calls replayed in float64: "
-            f"{KMEANS['calls'] - KMEANS['parted']} followed to the end, "
-            f"{KMEANS['parted']} parted at a near tie; "
+        if counts["kmeans"] != n_cosine[0]:
+            raise AssertionError(f"kmeans: {counts['kmeans']} launches for "
+                                 f"{n_cosine[0]} kmeans_cosine calls")
+        log(f"[held] rest: kmeans calls held {held.calls['kmeans']} "
+            f"(one launch each, twice bit for bit; each call's "
+            f"{KMEANS['steps']} steps and last assignments in all, by its "
+            f"history, labels by the margin rule against the plain step and "
+            f"float64, {KMEANS['near']} rows inside the margin; centroids "
+            f"within rtol {C_RTOL}); {KMEANS['calls']} kmeans_cosine calls "
+            f"replayed in float64: {KMEANS['calls'] - KMEANS['parted']} "
+            f"followed to the end, {KMEANS['parted']} parted at a near tie; "
             f"{KMEANS['replica_near']} replica rows inside the margin")
         if held.calls["kmeans"] != counts["kmeans"] or \
                 KMEANS["launches"] != counts["kmeans"] or not KMEANS["calls"]:
             raise AssertionError(f"kmeans held {held.calls} of {counts}")
         # the cluster phase once more, traced: device ms by kernel, and
-        # kmeans' launches by shape
+        # kmeans' calls by shape
         shapes: dict = {}
-        kfn = kn.kmeans
+        kfn = kn.kmeans_loop
 
-        def by_shape(X, C, update=True):
-            key = f"n{X.shape[0]} V{X.shape[1]} k{C.shape[0]}" + \
-                ("" if update else " assign")
+        def by_shape(X, C, iters, *a, **kw):
+            key = f"n{X.shape[0]} V{X.shape[1]} k{C.shape[0]} iters{iters}"
             shapes[key] = shapes.get(key, 0) + 1
-            return kfn(X, C, update)
+            return kfn(X, C, iters, *a, **kw)
 
         class _Cluster:
             def run(self, _irs, stats=None):
                 return clustering()
 
-        kn.kmeans = by_shape
+        kn.kmeans_loop = by_shape
         try:
             device_trace([(_Cluster(), None)], None, "rest cluster")
         finally:
-            kn.kmeans = kfn
-        log(f"[trace] rest cluster: kmeans launches by shape {shapes}")
+            kn.kmeans_loop = kfn
+        log(f"[trace] rest cluster: kmeans calls (launches) by shape "
+            f"{shapes}")
         srv.stop()
         srv = None
 
@@ -4878,6 +5039,12 @@ def wide_table_phase(dev, rec):
     kn.launches["wide_topk"] = before
 
 
+# the paths that need no other path's world, for --only
+ALONE = {"relevance": "relevance_path", "positional": "positional_path",
+         "geo": "geo_path", "mesh": "mesh_path",
+         "rest_mesh": "rest_mesh_path"}
+
+
 def main() -> int:
     t_script = time.time()
     import argparse
@@ -4889,7 +5056,12 @@ def main() -> int:
                     help="save the CAPTURE launches to DIR, for "
                          "tools/sort_pairs.py (this run's times are not "
                          "kept)")
+    ap.add_argument("--only", choices=sorted(ALONE),
+                    help="with --capture: run this path alone, for its "
+                         "captures, and print no result")
     args = ap.parse_args()
+    if args.only and not args.capture:
+        ap.error("--only captures: give --capture DIR")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4927,6 +5099,11 @@ def main() -> int:
     # the earlier paths time the device path of BatchSearcher.run; the
     # Database path routes as the JAX package does (XT_HOST_PATH=1)
     os.environ["XT_HOST_PATH"] = "0"
+    if args.only:
+        t0 = time.time()
+        globals()[ALONE[args.only]](dev, rec, smi)
+        log(f"[time] {args.only} path alone {time.time() - t0:.1f} s")
+        return 0
     t0 = time.time()
     rel, rel_world = relevance_path(dev, rec, smi)
     torch.cuda.empty_cache()

@@ -3,14 +3,14 @@ one, and ``Database.cluster_hits`` / ``diversify`` against the JAX
 ``Database``.
 
 ``kmeans_cosine`` runs K20's plain version here (``kernels.
-kmeans_step_plain`` on CPU tensors). The JAX loop sums its dot products
-in another order, so labels are held by the margin rule
-(``cluster.label_margin_bound``): at every step t of the loop, rows whose
-top-2 margin over the JAX centroids C_t exceeds the bound (2 gamma_V plus
-twice the largest distance between the two sides' centroids) carry the
-same label on both sides; while every label agrees the centroids agree
-within rtol 1e-5. Block-structured data has no row inside the margin;
-the random case reports its rows inside it."""
+kmeans_loop_plain``, ``kmeans_step_plain`` a step, on CPU tensors). The
+JAX loop sums its dot products in another order, so labels are held by
+the margin rule (``cluster.label_margin_bound``): at every step t of the
+loop, rows whose top-2 margin over the JAX centroids C_t exceeds the
+bound (2 gamma_V plus twice the largest distance between the two sides'
+centroids) carry the same label on both sides; while every label agrees
+the centroids agree within rtol 1e-5. Block-structured data has no row
+inside the margin; the random case reports its rows inside it."""
 
 import numpy as np
 import pytest
@@ -112,6 +112,38 @@ def test_kmeans_cosine_random_by_the_margin_rule():
         np.testing.assert_allclose(pc, jc, rtol=C_RTOL, atol=0)
         agree = bool((pl == jl).all())
     print(f"rows inside the margin over the steps compared: {inside_total}")
+
+
+@pytest.mark.parametrize("data", ["blocks", "random"])
+def test_kmeans_loop_plain_history_is_the_jax_trajectory(data):
+    """kmeans_loop_plain with its history (csrc/kmeans.cu's history
+    output, which chip_smoke.py's held check reads) from JAX's seeds: step
+    t's input centroids are JAX's after t steps (kmeans_cosine at
+    iters=t), within rtol 1e-5 while every label has agreed, and step t's
+    labels are JAX's assignment under them outside the margin; the last
+    assignment is JAX's labels at iters=20."""
+    X = _blocks(300, 96, 5, seed=1) if data == "blocks" else \
+        _random(400, 48, seed=2)
+    k = 5 if data == "blocks" else 8
+    _, c0 = jcl.kmeans_cosine(X, k, iters=0)
+    labels, C, (hl, hc) = kernels.kmeans_loop_plain(
+        torch.from_numpy(X), torch.from_numpy(np.asarray(c0)), 20,
+        history=True)
+    assert hl.shape == (20, X.shape[0]) and hc.shape == (20, k, X.shape[1])
+    agree = True
+    for t in range(21):
+        jl, jc = jcl.kmeans_cosine(X, k, iters=t)
+        pc = hc[t].numpy() if t < 20 else C.numpy()
+        pl = hl[t].numpy() if t < 20 else labels.numpy()
+        if not agree:
+            break          # a near-tie row parted the trajectories
+        dc = float(np.linalg.norm(pc.astype(np.float64) - jc, axis=1).max())
+        inside = pcl.near_ties(X, jc, dc)
+        assert not ((pl != np.asarray(jl)) & ~inside).any(), t
+        np.testing.assert_allclose(pc, jc, rtol=C_RTOL, atol=0)
+        agree = bool((pl == np.asarray(jl)).all())
+    if data == "blocks":
+        assert agree
 
 
 def test_kmeans_step_plain_is_one_jax_step():

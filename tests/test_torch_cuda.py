@@ -682,9 +682,11 @@ def test_dense_rows_matches_plain_version(browse):
 
 def test_merge_special_matches_plain_version(browse):
     """merge_special on the S (synonym) and X (max) groups' rows against
-    its plain version, twice bit for bit."""
+    its plain version, twice bit for bit (the design special_plan takes
+    there)."""
     _corpus, searcher, qs, _aggs = browse
     seg = searcher.device_segment.arrays_pytree()
+    n_docs = seg["deleted"].shape[0]
     seen = set()
     for cfg, _fn, batch, _chunk in _plans(searcher, qs, "SX"):
         post, _imp, widths, prefix, params = _inputs(searcher, cfg, batch)
@@ -694,7 +696,7 @@ def test_merge_special_matches_plain_version(browse):
         args = (ids, w, widths, batch["group_bits"], batch["offsets"],
                 seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
                 cfg.syn_groups, batch.get("syn_tconst"), params)
-        got = _twice(lambda: kernels.merge_special(*args))
+        got = _twice(lambda: kernels.merge_special(*args, n_docs=n_docs))
         _close(got, kernels._merge_special_plain(*args))
         assert bool((got > 0).any())
         seen.add((bool(cfg.max_specs), bool(cfg.syn_groups)))
@@ -909,7 +911,8 @@ def test_scheme_dense_and_special_match_plain_versions(browse, label):
         args = (ids, w, widths, batch["group_bits"], batch["offsets"],
                 seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
                 cfg.syn_groups, batch.get("syn_tconst"), spec, uniq)
-        got = _twice(lambda: kernels.merge_special(*args))
+        got = _twice(lambda: kernels.merge_special(
+            *args, n_docs=seg["deleted"].shape[0]))
         assert _equal(got, kernels._merge_special_plain(*args))
         assert bool((got > 0).any())
         seen.add("syn" if cfg.syn_groups else "max")
@@ -1913,4 +1916,193 @@ def test_merge_docs_rule_border_matches_plain_version(cuda):
             assert _equal(got[0], plain[0]) and \
                 torch.equal(got[1], plain[1]) and \
                 torch.equal(got[2], plain[2]), (W, how)
+    torch.cuda.synchronize()
+
+
+# -- slice 15: merge_special's doc tiles; kmeans, one launch a call ----------
+
+@contextlib.contextmanager
+def _special_forced(design, tile=None):
+    """merge_special by the probes or by the doc tiles (of ``tile``
+    docids, else the rule's tile, else 1024) inside the block, whatever
+    kernels.special_plan would choose."""
+    rule = kernels.special_plan
+
+    def tiles(w, n, p):
+        t = tile or rule(w, n, p)[1] or 1024
+        return -(-int(n) // t), t
+
+    kernels.special_plan = tiles if design == "tiles" else \
+        (lambda w, n, p: (0, 0))
+    try:
+        yield
+    finally:
+        kernels.special_plan = rule
+
+
+@pytest.mark.parametrize("label", ["bm25", "tfidf", "pl2", "dicecoeff",
+                                   "lm-absolute_discount"])
+def test_merge_special_designs_match_plain_version(browse, label):
+    """merge_special on the browse S and X groups under a scheme (BM25's
+    own instance and the generic one, two constants a term, uniqterms),
+    by the rule, the probes, and the doc tiles of 4096 and 1024 docids,
+    each forced: every design equal to the plain version bit for bit (a
+    NaN equal to a NaN), twice, one launch a call."""
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    corpus, searcher, qs, _aggs = browse
+    scheme = _config(label) if label != "bm25" else searcher.scheme
+    st = ss.real_stats(corpus.seg)
+    spec = scheme.kernel_spec(st)
+    seg = searcher.device_segment.arrays_pytree()
+    n_docs = seg["deleted"].shape[0]
+    uniq = torch.from_numpy(ss.uniqterms(corpus.seg)).to(searcher.device) \
+        if spec.needs_uniq else None
+    post = (seg["post_docids"], seg["post_wdf"], seg["post_doclen"])
+    seen = set()
+    for cfg, _fn, batch, _chunk in _plans(searcher, qs, "SX",
+                                          scheme=scheme):
+        _p, _i, widths, prefix, _s = _inputs(searcher, cfg, batch)
+        ids, w, _ = kernels.score_slices(
+            post, None, batch["offsets"], batch["lens"], batch["tconst"],
+            batch["scoring"], widths, prefix, spec, uniq)
+        args = (ids, w, widths, batch["group_bits"], batch["offsets"],
+                seg["post_wdf"], seg["post_doclen"], cfg.max_specs,
+                cfg.syn_groups, batch.get("syn_tconst"), spec, uniq)
+        want = kernels._merge_special_plain(*args)
+        for design, tile in (("rule", None), ("probes", None),
+                             ("tiles", 4096), ("tiles", 1024)):
+            with _special_forced(design, tile) if design != "rule" else \
+                    contextlib.nullcontext():
+                n0 = kernels.launches["merge_special"]
+                got = _twice(lambda: kernels.merge_special(*args,
+                                                           n_docs=n_docs))
+                assert kernels.launches["merge_special"] == n0 + 2
+            assert _equal(got, want), (label, design, tile)
+        seen.add("syn" if cfg.syn_groups else "max")
+    assert seen == {"syn", "max"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("P", [20, 34])
+def test_merge_special_wide_plans_match_plain_version(cuda, P):
+    """Plans of many channels over a million docids (shared docs, synonym
+    groups and overlapping masks): at 20 channels special_plan halves the
+    tile to 2048, at 34 (past the tiles' channel word) it takes the
+    probes; by the rule, the probes and the tiles (where they fit), each
+    equal to the plain version bit for bit."""
+    from test_torch_special_kmeans_design import special_world
+
+    branches = (1, 2, 4, 8, 16, 32) * 6
+    max_specs = (branches[:P - 2],) if P == 20 else (branches[:32],)
+    widths = (65536, 32768, 16384, 4096)
+    args = special_world(21, 3, widths, 1_000_000, max_specs, (0b101,),
+                         hot=300_000, fill=0.9, scheme="pl2")
+    P_ = kernels.special_channels(max_specs, (0b101,))
+    assert P_ == (20 if P == 20 else 34)
+    rule = kernels.special_plan(widths, 1_000_001, P_)
+    assert rule[1] == (2048 if P_ <= 24 else 0)
+    args = tuple(x.to(cuda) if isinstance(x, torch.Tensor) else x
+                 for x in args)
+    want = kernels._merge_special_plain(*args)
+    designs = [("rule", None), ("probes", None)] + \
+        ([("tiles", 2048), ("tiles", 1024)] if P_ <= 32 else [])
+    for design, tile in designs:
+        with _special_forced(design, tile) if design != "rule" else \
+                contextlib.nullcontext():
+            got = _twice(lambda: kernels.merge_special(*args,
+                                                       n_docs=1_000_001))
+        assert _equal(got, want), (P_, design, tile)
+    torch.cuda.synchronize()
+
+
+def _kmeans_held(X, C0, iters, got):
+    """One kmeans_loop result with its history against the plain version
+    step by step from the kernel's own centroids: labels equal outside the
+    margin (ops/cluster.py near_ties), the next centroids within rtol 1e-5
+    where the labels agree; the first step's centroids C0 bit for bit."""
+    from xapiand_tpu_torch.ops import cluster
+
+    labels, C, (hl, hc) = got
+    assert hl.shape == (iters, X.shape[0]) and \
+        hc.shape == (iters, *C0.shape)
+    if iters:
+        assert torch.equal(hc[0], C0)
+    nexts = [hc[t + 1] for t in range(iters - 1)] + [C]
+    for t in range(iters):
+        want_l, want_c = kernels.kmeans_step_plain(X, hc[t])
+        outside = torch.from_numpy(~cluster.near_ties(
+            X.cpu().numpy(), hc[t].cpu().numpy())).to(X.device)
+        assert torch.equal(hl[t][outside], want_l[outside]), t
+        if torch.equal(hl[t], want_l):
+            torch.testing.assert_close(nexts[t], want_c, rtol=1e-5, atol=0)
+    want_l, _ = kernels.kmeans_step_plain(X, C, update=False)
+    outside = torch.from_numpy(~cluster.near_ties(
+        X.cpu().numpy(), C.cpu().numpy())).to(X.device)
+    assert torch.equal(labels[outside], want_l[outside])
+
+
+@pytest.mark.parametrize("n,v,k", [(4096, 2048, 16), (256, 2048, 8),
+                                   (10, 300, 3), (37, 17, 20), (1, 5, 1)])
+def test_kmeans_loop_matches_plain_version(cuda, n, v, k):
+    """A kmeans_cosine call in one launch at the five shapes of
+    test_kmeans_matches_plain_version: with its history every step held to
+    kmeans_step_plain from the kernel's own centroids (the margin rule,
+    rtol 1e-5), twice bit for bit, the history changing nothing, one
+    launch a call; at the cluster size and count kmeans_plan takes, in one
+    cluster, and at 1 and 4 blocks a cluster (KMEANS_CLUSTER,
+    KMEANS_GRID)."""
+    k = min(k, n)
+    X = torch.from_numpy(_unit_rows(n, v, max(k, 1), seed=n + v)).to(cuda)
+    C0 = X[torch.arange(k, device=cuda) * (n // k)].clone()
+    sizes, grids = set(), set()
+    full = (kernels.KMEANS_CLUSTER, kernels.KMEANS_GRID)
+    for cap, grid in (full, (full[0], 1), (4, full[1]), (1, full[1])):
+        saved = kernels.KMEANS_CLUSTER, kernels.KMEANS_GRID
+        kernels.KMEANS_CLUSTER, kernels.KMEANS_GRID = cap, grid
+        try:
+            plan = kernels.kmeans_plan(n, v, k)
+            sizes.add(plan[0])
+            grids.add(plan[3])
+            n0 = kernels.launches["kmeans"]
+            got = _twice(lambda: kernels.kmeans_loop(X, C0, 6, history=True))
+            plain = kernels.kmeans_loop(X, C0, 6)
+            assert kernels.launches["kmeans"] == n0 + 3
+        finally:
+            kernels.KMEANS_CLUSTER, kernels.KMEANS_GRID = saved
+        assert torch.equal(plain[0], got[0]) and \
+            torch.equal(plain[1].view(torch.int32), got[1].view(torch.int32))
+        _kmeans_held(X, C0, 6, got)
+        print(f"n{n} V{v} k{k}: plan {plan}")
+    if v >= 2048:
+        assert max(sizes) == kernels.KMEANS_CLUSTER
+    if n >= 4096:
+        assert max(grids) > 1
+    torch.cuda.synchronize()
+
+
+def test_kmeans_loop_workspace_matches_plain_version(cuda):
+    """k * V past a cluster's shared memory (k 300 at V 2048): one block
+    with its buffers in a device workspace, held the same way."""
+    n, v, k = 600, 2048, 300
+    assert kernels.kmeans_plan(n, v, k)[2]
+    X = torch.from_numpy(_unit_rows(n, v, 40, seed=5)).to(cuda)
+    C0 = X[torch.arange(k, device=cuda) * 2].clone()
+    got = _twice(lambda: kernels.kmeans_loop(X, C0, 3, history=True))
+    _kmeans_held(X, C0, 3, got)
+    torch.cuda.synchronize()
+
+
+def test_kmeans_step_is_a_loop_of_one_step(cuda):
+    """kernels.kmeans (one step; the assignment alone) equals kmeans_loop of
+    one step (of none, with the last assignment) bit for bit."""
+    X = torch.from_numpy(_unit_rows(256, 2048, 8, seed=3)).to(cuda)
+    C = X[torch.arange(8, device=cuda) * 32].clone()
+    l1, c1 = kernels.kmeans(X, C)
+    l2, c2 = kernels.kmeans_loop(X, C, 1, assign_last=False)
+    assert torch.equal(l1, l2) and \
+        torch.equal(c1.view(torch.int32), c2.view(torch.int32))
+    l0, none = kernels.kmeans(X, C, update=False)
+    assert none is None and torch.equal(l0, kernels.kmeans_loop(X, C, 0)[0])
+    assert torch.equal(l0, l1)
     torch.cuda.synchronize()

@@ -34,7 +34,7 @@
 import numpy as np
 import pytest
 import torch
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
 from xapiand_tpu_torch.models.weights import (CollectionStats, get_scheme,
@@ -252,6 +252,8 @@ def check_slices(wd, threads=256, rpt=8):
        rpt=st.sampled_from([1, 2, 8]), threads=st.sampled_from([32, 256]),
        scheme=st.sampled_from(["bm25", "dicecoeff"]),
        guard=st.booleans())
+@example(seed=707418, B=1, T=1, n_pref=0, rpt=1, threads=32, scheme="bm25",
+         guard=False)  # a pool of 124 rows under a width of 128
 def test_score_slices_row_tiles_equal_plain(seed, B, T, n_pref, rpt,
                                             threads, scheme, guard):
     """Row tiles across term borders, mixed prefix groups (a prefix width

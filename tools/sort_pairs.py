@@ -11,7 +11,11 @@ make at the shapes of its ``CAPTURE`` table (sort_topk at geo, browse N, C
 and M, faceted A and B, a REST mesh shape; the widest agg_filter and
 semijoin_rows; score_slices and merge_docs at browse C, the mesh, browse
 B16, faceted A, geo, geo aggregations and the relevance prefix group;
-shard_reduce at the REST mesh and mesh shapes). DIR is a checkout of the
+shard_reduce at the REST mesh and mesh shapes; merge_special at browse S
+and X and the schemes' S and X; kmeans' kmeans_cosine calls, a capture a
+call, which a version without ``kmeans_loop`` replays as its step calls
+and the assignment, 21 wrapper calls, and every version holds by the
+margin rule). DIR is a checkout of the
 version to compare with (for example a ``git archive`` of the parent
 commit unpacked under ``_archive/``). The versions, each built with the
 flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
@@ -25,16 +29,18 @@ then timed in the order parent, change, the variants, the variants
 reversed, change, parent, ``--rounds`` times. One JSON line a launch: its
 key, the eligible rows' share (sort_topk, agg_filter), every time and each
 version's median, device-only (``utils/cudatime.device_ms``: CUDA activity
-alone, the mean a call over 20 calls) and by CUDA events around the same
-20 wrapper calls (``event_ms``), the change's time by kernel, the library
-call's (HELD's yardstick: ``torch.topk(largest=False)`` of the masked
+alone, the mean a call over 20 calls, a call all the launches it makes)
+and by CUDA events around the same 20 wrapper calls (``event_ms``), the
+change's time by kernel, the library call's (HELD's yardstick: ``torch.topk(largest=False)`` of the masked
 docids for the docid key, ``torch.searchsorted`` for agg_filter and
 semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
 shard_reduce) and the bound (HELD's work over ``chip_smoke.py``'s rates).
 Then the card's name and power limit.
 
-``build_many`` and ``using`` are also the harness of ``tools/topk_pairs.py``
-and ``tools/dense_pairs.py``.
+``tools/synth_captures.py`` writes launches made from a seed in the same
+format (kmeans calls at the REST path's shapes, sparse merge_special
+launches no path makes). ``build_many`` and ``using`` are also the harness
+of ``tools/topk_pairs.py`` and ``tools/dense_pairs.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import importlib.util
 import inspect
 import json
@@ -56,7 +63,8 @@ sys.path.insert(0, ROOT)
 SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "semijoin_rows": "semijoin_rows.cu",
            "score_slices": "score_slices.cu", "merge_docs": "merge_docs.cu",
-           "shard_reduce": "shard_merge.cu"}
+           "shard_reduce": "shard_merge.cu",
+           "merge_special": "merge_special.cu", "kmeans": "kmeans.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -73,6 +81,15 @@ VARIANTS = {
     "md_tiles": ("merge_docs", (), {"merge_plan": "tiles"}),
     "md_tiles2048": ("merge_docs", (), {"merge_plan": "tiles",
                                         "MERGE_TILE": 2048}),
+    # merge_special: the probes wherever, the doc tiles wherever (the
+    # widest tile whose slots fit, or 2048 docids), 4 rows a thread
+    "ms_probes": ("merge_special", (), {"special_plan": "probes"}),
+    "ms_tiles": ("merge_special", (), {"special_plan": "tiles"}),
+    "ms_tiles2048": ("merge_special", (), {"special_plan": "tiles2048"}),
+    "ms_rpt4": ("merge_special", ("-DMS_RPT=4",), {}),
+    # kmeans: clusters of at most 4 or 8 blocks
+    "km_cluster4": ("kmeans", (), {"KMEANS_CLUSTER": 4}),
+    "km_cluster8": ("kmeans", (), {"KMEANS_CLUSTER": 8}),
 }
 REPS = 20
 
@@ -128,11 +145,21 @@ def using(lib, mod=None):
 @contextlib.contextmanager
 def patched(mod, attrs):
     """mod's attributes set to attrs inside the block ("tiles": merge_plan
-    taking the doc tiles wherever)."""
+    or special_plan taking the doc tiles wherever, "tiles2048":
+    special_plan's tiles of 2048 docids, "probes": special_plan taking the
+    probes)."""
+    import chip_smoke as cs
+
     saved = {k: getattr(mod, k) for k in attrs}
     for k, v in attrs.items():
-        if v == "tiles":
+        if (k, v) == ("merge_plan", "tiles"):
             v = (lambda w, n: -(-int(n) // mod.MERGE_TILE))
+        elif (k, v) == ("special_plan", "tiles"):
+            v = (lambda w, n, p: cs.special_other(w, n, p, 0))
+        elif (k, v) == ("special_plan", "tiles2048"):
+            v = (lambda w, n, p: (-(-int(n) // 2048), 2048))
+        elif (k, v) == ("special_plan", "probes"):
+            v = (lambda w, n, p: (0, 0))
         setattr(mod, k, v)
     try:
         yield
@@ -149,6 +176,45 @@ def load_kernels(parent: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def parent_kmeans_loop(mod, X, C0, iters, assign_last=True):
+    """A kmeans_cosine call as a version without kmeans_loop runs it: its
+    iters step calls of mod.kmeans, then the assignment alone."""
+    C, labels = C0, None
+    for _ in range(iters):
+        labels, C = mod.kmeans(X, C)
+    if assign_last:
+        labels, _ = mod.kmeans(X, C, update=False)
+    return labels, C
+
+
+def check_kmeans_call(X, C0, iters):
+    """A replayed kmeans_cosine call held by the margin rule, whatever the
+    version: the last labels equal float64's under the version's own last
+    centroids outside the margin, and where they equal the plain version's,
+    the centroids lie within rtol 1e-5 of its."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from xapiand_tpu_torch.ops import cluster
+
+    X64 = X.cpu().numpy().astype(np.float64)
+
+    def check(got, want):
+        gl, gc = got[0].cpu().numpy(), got[1].cpu().numpy()
+        near = cluster.near_ties(X64, gc)
+        if ((gl != (X64 @ gc.astype(np.float64).T).argmax(axis=1)) &
+                ~near).any():
+            raise AssertionError(f"kmeans n{X.shape[0]}: labels differ "
+                                 "outside the margin")
+        if np.array_equal(gl, want[0].cpu().numpy()) and \
+                not cs._close(gc, want[1].cpu().numpy()):
+            raise AssertionError(f"kmeans n{X.shape[0]}: centroids beyond "
+                                 "rtol of the plain version")
+        return 0.0
+
+    return check
 
 
 def smi() -> str:
@@ -169,15 +235,19 @@ def replay(path, libs, pmod, rounds):
     cap = torch.load(path, weights_only=False)
     name, args, kw = cap["name"], cap["args"], cap["kw"]
     plain, check, key, work, _library, *yard = cs.HELD[name](args, **kw)
+    if name == "kmeans":
+        check = check_kmeans_call(*args[:3])
     want = plain()
     # the call's arguments by name, as this tree's wrapper takes them; a
     # version gets those its wrapper has (the parent's may lack some)
-    given = inspect.signature(getattr(kn, name)).bind(*args, **kw).arguments
+    attr = cs.WRAPPERS.get(name, name)
+    given = inspect.signature(getattr(kn, attr)).bind(*args, **kw).arguments
     run = {}
     for v in ("parent", "change", *(v for v, (k, _f, _a) in
                                     VARIANTS.items() if k == name)):
         mod = pmod if v == "parent" else kn
-        wrapper = getattr(mod, name)
+        wrapper = getattr(mod, attr) if hasattr(mod, attr) else \
+            functools.partial(parent_kmeans_loop, mod)
         params = inspect.signature(wrapper).parameters
         kwv = {k: x for k, x in given.items() if k in params}
         attrs = VARIANTS[v][2] if v in VARIANTS else {}
@@ -187,7 +257,8 @@ def replay(path, libs, pmod, rounds):
             with using(lib, mod), patched(mod, attrs):
                 return wrapper(**kwv)
 
-        check(call(), want)
+        with using(libs["change"]):   # a check's own launches
+            check(call(), want)
         run[v] = call
     torch.cuda.synchronize()
     names = list(run)

@@ -248,6 +248,121 @@ __device__ __forceinline__ int upper_bound_i32(const int* a, int n, int x) {
     return lo;
 }
 
+// lower_bound_i32 by the 32 lanes of a warp (every lane gets the
+// answer): each round the lanes read 32 pivots that cut [lo, hi) in 33
+// and keep the part that holds the answer, so a search is ~log33 n
+// dependent loads, not log2 n
+__device__ __forceinline__ int warp_lower_bound(const int* a, int n, int x,
+                                                int lane) {
+    int lo = 0, hi = n;   // the answer lies in [lo, hi]
+    while (hi - lo > 32) {
+        const long long span = hi - lo;
+        const int pos = lo + (int)(span * (lane + 1) / 33);
+        const unsigned below = __ballot_sync(0xffffffffu, a[pos] < x);
+        const int c = __popc(below);    // pivots below x: lanes 0..c-1
+        const int nlo = c ? lo + (int)(span * c / 33) + 1 : lo;
+        hi = c < 32 ? lo + (int)(span * (c + 1) / 33) : hi;
+        lo = nlo;
+    }
+    const bool in = lane < hi - lo && a[lo + lane] < x;
+    return lo + __popc(__ballot_sync(0xffffffffu, in));
+}
+
+// the last u in [0, n) with a[u] <= k (a ascending, a[0] = 0 <= k)
+__device__ __forceinline__ int last_le(const int* a, int n, long long k) {
+    int lo = 0, hi = n - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (a[mid] <= k) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+}
+
+// Doc tiles (merge_docs.cu, merge_special.cu): the bracket of each of
+// one query's term blocks (docid-ascending, SENTINEL rows last) in the
+// docid range [lo, lo + tile), lo = j * tile, of tile j of nt. 3T
+// searches: the first SENTINEL row, the first row at or past lo (row 0 in
+// the first tile, which also takes the rows below its range) and past
+// lo + tile (the first SENTINEL in the last tile, which takes every real
+// row above its range: the probes' rows). A search is a chain of
+// dependent loads, the tile's fixed cost: a warp a search (33-ary,
+// ~log33 W loads) where the warps take them in two rounds or fewer, else a
+// thread a search. Then one warp scans the counts. Out, in shared memory:
+// a0[u] the bracket's first row, pr[0..T] the prefix of the brackets'
+// rows (the tile's N = pr[T] rows: row k lies in term last_le(pr, T + 1,
+// k), at row_off[u] + a0[u] + k - pr[u]), z0[u] where term u's SENTINEL
+// rows start, ps[0..T] the prefix of their counts. Every thread of the
+// block, NTH threads, calls it; it ends with a barrier. clear(), the
+// caller's clearing of its tile's slots, runs between the searches and
+// the barrier after them, so its stores overlap the searches' loads.
+template <int NTH, class Clear>
+__device__ __forceinline__ void tile_brackets(
+    const int* __restrict__ ids, long long base,
+    const int* __restrict__ widths, const int* __restrict__ row_off, int T,
+    int j, int nt, int tile, int* a0, int* pr, int* z0, int* ps,
+    Clear clear) {
+    const long long lo = (long long)j * tile;
+    const bool by_warp = 3 * T <= 2 * (NTH / 32);
+    const int lane = threadIdx.x & 31;
+    for (int i = by_warp ? threadIdx.x >> 5 : threadIdx.x; i < 3 * T;
+         i += by_warp ? NTH / 32 : NTH) {
+        const int u = i % T, which = i / T;
+        const int* blk = ids + base + row_off[u];
+        const int W = widths[u];
+        if (which == 1 && j == 0) {
+            if (lane == 0 || !by_warp) a0[u] = 0;
+            continue;
+        }
+        if (which == 2 && j == nt - 1) continue;
+        const int x = which == 0 ? XT_SENTINEL
+                                 : (int)(which == 1 ? lo : lo + tile);
+        const int pos = by_warp ? warp_lower_bound(blk, W, x, lane)
+                                : lower_bound_i32(blk, W, x);
+        if (by_warp && lane) continue;
+        if (which == 0) {
+            z0[u] = pos;
+            ps[u + 1] = W - pos;
+        } else if (which == 1) {
+            a0[u] = pos;
+        } else {
+            pr[u + 1] = pos;
+        }
+    }
+    clear();
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        const unsigned full = 0xffffffffu;
+        int c1 = 0, c2 = 0;
+        for (int v0 = 0; v0 < T; v0 += 32) {
+            const int u = v0 + lane;
+            int x = 0, y = 0;
+            if (u < T) {
+                x = (j == nt - 1 ? z0[u] : pr[u + 1]) - a0[u];
+                y = ps[u + 1];
+            }
+            for (int o = 1; o < 32; o <<= 1) {
+                const int xs = __shfl_up_sync(full, x, o);
+                const int ys = __shfl_up_sync(full, y, o);
+                if (lane >= o) {
+                    x += xs;
+                    y += ys;
+                }
+            }
+            if (u < T) {
+                pr[u + 1] = x + c1;
+                ps[u + 1] = y + c2;
+            }
+            c1 += __shfl_sync(full, x, 31);
+            c2 += __shfl_sync(full, y, 31);
+        }
+        if (lane == 0) {
+            pr[0] = 0;
+            ps[0] = 0;
+        }
+    }
+    __syncthreads();
+}
+
 // K6: the static boolean tree (xapiand_tpu/ops/executor.py _eval_tree
 // 249-282) compiled on the host into a postfix program of int32
 // instructions, op | arg << 8 (ops/kernels.py tree_program). It runs per

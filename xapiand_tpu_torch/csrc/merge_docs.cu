@@ -19,8 +19,8 @@
 // - Doc tiles (merge_tiles_kernel), grid (tiles, B): a block takes one
 //   query's docids [j * tile, (j + 1) * tile) (tile: the wrapper's, by
 //   kernels.merge_plan). It brackets each term block's rows in that range
-//   (three binary searches a term a block, one a thread, not T - 1 a row;
-//   one warp scans the counts), then goes through the
+//   (common.cuh tile_brackets: three binary searches a term a block, not
+//   T - 1 a row; one warp scans the counts), then goes through the
 //   terms in order, adding each term's rows into a shared accumulator
 //   indexed by docid - j * tile, OR-ing its bits and marking the first
 //   term of each doc; one barrier between terms keeps the float sum in
@@ -145,36 +145,6 @@ __global__ void merge_docs_kernel(
     if (threadIdx.x == 0 && n) atomicAdd(count + b, n);
 }
 
-// lower_bound_i32 by the 32 lanes of a warp (every lane gets the
-// answer): each round the lanes read 32 pivots that cut [lo, hi) in 33
-// and keep the part that holds the answer, so a search is ~log33 n
-// dependent loads, not log2 n
-__device__ __forceinline__ int warp_lower_bound(const int* a, int n, int x,
-                                                int lane) {
-    int lo = 0, hi = n;   // the answer lies in [lo, hi]
-    while (hi - lo > 32) {
-        const long long span = hi - lo;
-        const int pos = lo + (int)(span * (lane + 1) / 33);
-        const unsigned below = __ballot_sync(0xffffffffu, a[pos] < x);
-        const int c = __popc(below);    // pivots below x: lanes 0..c-1
-        const int nlo = c ? lo + (int)(span * c / 33) + 1 : lo;
-        hi = c < 32 ? lo + (int)(span * (c + 1) / 33) : hi;
-        lo = nlo;
-    }
-    const bool in = lane < hi - lo && a[lo + lane] < x;
-    return lo + __popc(__ballot_sync(0xffffffffu, in));
-}
-
-// the last u in [0, n) with a[u] <= k (a ascending, a[0] = 0 <= k)
-__device__ __forceinline__ int last_le(const int* a, int n, long long k) {
-    int lo = 0, hi = n - 1;
-    while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (a[mid] <= k) lo = mid; else hi = mid - 1;
-    }
-    return lo;
-}
-
 __global__ void __launch_bounds__(MD_THREADS) merge_tiles_kernel(
     const int* __restrict__ ids, const float* __restrict__ w,
     const int* __restrict__ widths, const int* __restrict__ row_off, int T,
@@ -200,79 +170,15 @@ __global__ void __launch_bounds__(MD_THREADS) merge_tiles_kernel(
     const long long base = (long long)b * R;
     const int* qbits = bits ? bits + (long long)b * T : nullptr;
     const long long lo = (long long)j * tile;
-    // the bracket of each term (3T searches): the first SENTINEL row, the
-    // first row at or past lo (row 0 in the first tile, which also takes
-    // the rows below its range) and past lo + tile (the first SENTINEL in
-    // the last tile, which takes every real row above its range: the
-    // probes' rows). A search is a chain of dependent loads, the tile's
-    // fixed cost: a warp a search (33-ary, ~log33 W loads) where the
-    // warps take them in two rounds or fewer, else a thread a search.
-    const bool by_warp = 3 * T <= 2 * (MD_THREADS / 32);
-    const int lane = threadIdx.x & 31;
-    for (int i = by_warp ? threadIdx.x >> 5 : threadIdx.x; i < 3 * T;
-         i += by_warp ? MD_THREADS / 32 : MD_THREADS) {
-        const int u = i % T, which = i / T;
-        const int* blk = ids + base + row_off[u];
-        const int W = widths[u];
-        if (which == 1 && j == 0) {
-            if (lane == 0 || !by_warp) a0[u] = 0;
-            continue;
+    tile_brackets<MD_THREADS>(ids, base, widths, row_off, T, j, nt, tile, a0,
+                              pr, z0, ps, [&] {
+        for (int i = threadIdx.x; i < tile; i += MD_THREADS) {
+            acc[i] = 0.0f;
+            sob[i] = 0u;
+            first[i] = MD_NONE;
         }
-        if (which == 2 && j == nt - 1) continue;
-        const int x = which == 0 ? XT_SENTINEL
-                                 : (int)(which == 1 ? lo : lo + tile);
-        const int pos = by_warp ? warp_lower_bound(blk, W, x, lane)
-                                : lower_bound_i32(blk, W, x);
-        if (by_warp && lane) continue;
-        if (which == 0) {
-            z0[u] = pos;
-            ps[u + 1] = W - pos;
-        } else if (which == 1) {
-            a0[u] = pos;
-        } else {
-            pr[u + 1] = pos;
-        }
-    }
-    for (int i = threadIdx.x; i < tile; i += MD_THREADS) {
-        acc[i] = 0.0f;
-        sob[i] = 0u;
-        first[i] = MD_NONE;
-    }
-    __syncthreads();
-    // the bracket's rows and the SENTINEL rows, scanned by one warp
-    if (threadIdx.x < 32) {
-        const unsigned full = 0xffffffffu;
-        const int lane = threadIdx.x;
-        int c1 = 0, c2 = 0;
-        for (int v0 = 0; v0 < T; v0 += 32) {
-            const int u = v0 + lane;
-            int x = 0, y = 0;
-            if (u < T) {
-                x = (j == nt - 1 ? z0[u] : pr[u + 1]) - a0[u];
-                y = ps[u + 1];
-            }
-            for (int o = 1; o < 32; o <<= 1) {
-                const int xs = __shfl_up_sync(full, x, o);
-                const int ys = __shfl_up_sync(full, y, o);
-                if (lane >= o) {
-                    x += xs;
-                    y += ys;
-                }
-            }
-            if (u < T) {
-                pr[u + 1] = x + c1;
-                ps[u + 1] = y + c2;
-            }
-            c1 += __shfl_sync(full, x, 31);
-            c2 += __shfl_sync(full, y, 31);
-        }
-        if (lane == 0) {
-            pr[0] = 0;
-            ps[0] = 0;
-            *s_cnt = 0;
-        }
-    }
-    __syncthreads();
+        if (threadIdx.x == 0) *s_cnt = 0;
+    });
     const int N = pr[T];
 
     // 1. the terms in order: each chunk's rows in registers, a barrier

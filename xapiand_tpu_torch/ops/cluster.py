@@ -7,8 +7,9 @@ cosine similarity, K-means over an MSet) and src/xapian/diversify/
 ``diversify_mmr`` are numpy, the JAX file's text. ``kmeans_cosine`` keeps
 the JAX farthest-first seeding in numpy on the host, line for line, so
 both packages start from the same centroids on the same X; its 20 steps
-and last assignment run through the K20 kernel (``kernels.kmeans``,
-``csrc/kmeans.cu``) on the card, or its plain version on CPU tensors.
+and last assignment run in one launch of the K20 kernel
+(``kernels.kmeans_loop``, ``csrc/kmeans.cu``) on the card, or its plain
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -65,9 +66,7 @@ def kmeans_cosine(X: np.ndarray, k: int, iters: int = 20,
     dev = torch.device("cuda" if device is None else device)
     C = torch.from_numpy(np.ascontiguousarray(X[chosen], np.float32)).to(dev)
     Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
-    for _ in range(iters):
-        _, C = kernels.kmeans(Xd, C)
-    labels, _ = kernels.kmeans(Xd, C, update=False)
+    labels, C = kernels.kmeans_loop(Xd, C, iters)
     return labels.cpu().numpy(), C.cpu().numpy()
 
 

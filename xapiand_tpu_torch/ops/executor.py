@@ -507,7 +507,8 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
             sums = kernels.merge_special(
                 ids, w, widths, bits, offsets, seg["post_wdf"],
                 seg["post_doclen"], cfg.max_specs, cfg.syn_groups,
-                batch.get("syn_tconst"), spec, uniq)
+                batch.get("syn_tconst"), spec, uniq,
+                n_docs=seg["deleted"].shape[0])
         return sums, mask, count, orbits
 
     # phrase leaves read every owner row: no precompaction (execute

@@ -40,7 +40,9 @@ what bounds it on the H100 and what its design does about that):
                          doc): scores, group bits and the live mask, each
                          doc tile's postings walked term by term
   merge_special   K13    the per-doc sums of OP_MAX (best branch) and
-                         OP_SYNONYM (summed wdf scored once) plans
+                         OP_SYNONYM (summed wdf scored once) plans: doc
+                         tiles with a shared slot a (doc, channel), or a
+                         binary-search join (special_plan)
   agg_distinct    K17b   cardinality: the exact distinct count of value
                          keys and 1024 HyperLogLog registers (geo_stats,
                          K17b's other half, is two columns of agg_metrics)
@@ -57,8 +59,10 @@ what bounds it on the H100 and what its design does about that):
   agg_filter      K17c   the filter bucket's rows: each docid looked up in
                          each filter term's posting window
 
-  kmeans          K20    one step of spherical k-means (ops/cluster.py):
-                         each row's label and the renormalised centroids
+  kmeans          K20    a kmeans_cosine call (ops/cluster.py): its steps
+                         of spherical k-means and the last assignment in
+                         one launch of a thread-block cluster that splits
+                         the columns (kmeans_loop; kmeans, one step)
 
   wide_topk       K4+K8  topk_rows and sort_topk at any k and any number
                          of sort key words: select by radix passes, then
@@ -155,7 +159,14 @@ MAX_COLLAPSE = 8          # _collapse keeps min(collapse_max, 8) rows a key
 MAX_COLLAPSE_ROWS = 2**28  # collapse_rows: slots of the key table fit int32
 MAX_SPECIAL = 32          # merge_special: max specs / branches / synonyms
 HLL_REGS = 1024           # ops/aggs.py _HLL_M (p = 10)
-KMEANS_CHUNK = 256        # kmeans: rows a block of its sums
+SPECIAL_CHANNELS = 32     # merge_special's doc tiles: channels at most
+SPECIAL_MIN_TILE = 1024   # special_plan halves the tile down to this
+KMEANS_THREADS = 256      # kmeans: threads a block (csrc KM_THREADS)
+KMEANS_CLUSTER = 16       # kmeans: blocks a cluster at most (non-portable)
+KMEANS_WORK = 1 << 18     # kmeans: products a block a step, the cluster size
+KMEANS_SMEM = 232448      # kmeans: shared memory a block (csrc KM_SMEM)
+KMEANS_GRID = 16          # kmeans: clusters a launch at most (KM_MAX_GRID)
+KMEANS_SMS = 132          # kmeans: the H100's SMs, the clusters' blocks
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -300,10 +311,11 @@ _SIGNATURES = {
     "xt_dense_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _I, *_SPEC, _I, _P, _P, _P, _P, _P],
     "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
-                         _P, _P, _I, *_SPEC, _I, _P, _P],
+                         _P, _P, _I, *_SPEC, _I, _I, _I, _I, _P, _P],
     "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _P, _P, _LL, _P, _LL, _P,
                         _P, _P],
-    "xt_kmeans": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "xt_kmeans_loop": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _P],
     "xt_wide_topk_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "xt_wide_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P, _P],
@@ -604,7 +616,11 @@ def _score_slices_plain(post, imp, offsets, lens, tconst, scoring, widths,
         off = offsets[:, t].long()
         # lax.dynamic_slice clamps the start so the slice stays in bounds
         start = off.clamp(max=n - W).clamp(min=0)
-        idx = start[:, None] + torch.arange(W, device=dev)
+        # rows past lens are masked out, so a pool shorter than W (no
+        # guard rows) gathers them from its last row, as the kernel reads
+        # nothing past lens
+        idx = (start[:, None] + torch.arange(W, device=dev)).clamp(
+            max=max(n - 1, 0))
         inl = torch.arange(W, device=dev)[None, :] < lens[:, t:t + 1]
         d = torch.where(inl, src[0][idx], SENTINEL)
         # the doc's uniqterms at min(docid, ND) (executor.py:716-721)
@@ -2309,9 +2325,12 @@ def _dense_rows_plain(post, offsets, lens, tconst, scoring, bits, classes,
 # --------------------------------------------------------------------------
 
 def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
-                  max_specs, syn_groups, syn_tconst, spec, uniq=None):
+                  max_specs, syn_groups, syn_tconst, spec, uniq=None, *,
+                  n_docs):
     """The per-doc sums of a plan with OP_MAX or OP_SYNONYM (executor.py
-    execute 746-756, 787-812), on merge_docs' rows.
+    execute 746-756, 787-812), on merge_docs' rows: doc tiles with one
+    shared slot a (doc, channel), each channel added in term order, or a
+    binary-search join, as special_plan chooses.
 
     ids i32[B,R] / w f32[B,R]: score_slices' rows (no prefix block);
     widths per term; bits / offsets i32[B,T]; post_wdf / post_doclen
@@ -2319,7 +2338,8 @@ def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
     over group bits); syn_groups: ExecConfig.syn_groups (one mask each);
     syn_tconst f32[B,NS] or f32[B,NS,C], NS >= len(syn_groups) (None
     without synonyms); spec and uniq (read at the row's doc) as
-    score_slices takes them.
+    score_slices takes them; n_docs the segment's docid bound (its deleted
+    flags' rows), as merge_docs takes it.
     -> sums f32[B,R], on every real row of a doc, 0 on SENTINEL rows: the
        doc's weights in term order without the terms of any branch mask;
        plus per max spec the maximum over its branches of the branch
@@ -2366,6 +2386,8 @@ def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
     for br in max_specs:
         table += [len(br), *(_i32(m) for m in br)]
     table += [len(syn_groups), *(_i32(m) for m in syn_groups)]
+    P = special_channels(max_specs, syn_groups)
+    tiles, tile = special_plan(widths, n_docs, P)
     sums = torch.empty((B, R), dtype=torch.float32, device=dev)
     _launch("merge_special", "xt_merge_special", ids.data_ptr(),
             w.data_ptr(), _ints(widths, dev).data_ptr(),
@@ -2374,9 +2396,57 @@ def merge_special(ids, w, widths, bits, offsets, post_wdf, post_doclen,
             post_doclen.data_ptr(), post_wdf.shape[0],
             _ints(tuple(table), dev).data_ptr(),
             _ptr(syn_tconst if syn_groups else None), NS,
-            *_spec_args(spec, C, uniq_used), _nd1(uniq_used),
-            sums.data_ptr(), _stream())
+            *_spec_args(spec, C, uniq_used), _nd1(uniq_used), P, tiles,
+            tile, sums.data_ptr(), _stream())
     return sums
+
+
+def special_channels(max_specs, syn_groups) -> int:
+    """merge_special's sums a doc: the base, one a branch of each max
+    spec, one a synonym group."""
+    return 1 + sum(len(br) for br in max_specs) + len(syn_groups)
+
+
+def special_tile(T: int, channels: int) -> int:
+    """merge_special's doc tile for a plan of ``channels`` float slots a
+    docid over T term blocks: the widest, from MERGE_TILE halved down to
+    SPECIAL_MIN_TILE, whose 4 * channels * tile bytes and the terms' 32
+    bytes fit merge_plan's 200 KB of shared memory; 0 where none fits or
+    past SPECIAL_CHANNELS channels (the tiles' channel word)."""
+    if T < 1 or not 1 <= channels <= SPECIAL_CHANNELS:
+        return 0
+    tile = MERGE_TILE
+    while 4 * channels * tile + 32 * T + 8 > 200 * 1024:
+        if tile <= SPECIAL_MIN_TILE:
+            return 0
+        tile //= 2
+    return tile
+
+
+def special_plan(widths, n_docs, channels) -> tuple:
+    """merge_special's design for one query's term blocks: (tiles, tile),
+    the number of doc tiles of ``tile`` docids (special_tile) over
+    [0, n_docs), or (0, 0) for the probes, which take a plan whose slots
+    do not fit. The costs are merge_plan's, the probes' search passes
+    times the channels (the base, each branch and each synonym group
+    search every term block), the tiles' row cost plus one add a
+    channel. On the card (tools/synth_captures.py's S and X launches, B16,
+    four blocks of W rows over a million docids) the rule took the faster
+    design at each W: the probes at 1024 and 8192, the tiles at 65,536 and
+    262,144, where merge_plan's own rule would still take the probes at
+    65,536; the paths' launches (browse S and X, the schemes') take the
+    tiles."""
+    T, R = len(widths), sum(widths)
+    tile = special_tile(T, channels)
+    if not tile:
+        return 0, 0
+    tiles = -(-int(n_docs) // tile)
+    if tiles < MERGE_MIN_TILES:
+        return 0, 0
+    probe = channels * R * (T - 1) * sum(log2c(x) for x in widths) / T
+    cost = (MERGE_ROW_COST + channels) * R + tiles * (
+        MERGE_TILE_COST * tile / MERGE_TILE + MERGE_TERM_COST * T)
+    return (tiles, tile) if cost < probe else (0, 0)
 
 
 def _i32(m: int) -> int:
@@ -2523,30 +2593,128 @@ def kmeans(X, C, update: bool = True):
     body, K20): each row's label, the first centroid of the greatest dot
     product, and with ``update`` the new centroids: the sum of each
     label's rows, divided by its norm where that exceeds 1e-6, else the
-    old centroid.
+    old centroid. A kmeans_loop of one step (or of the assignment alone).
 
     X f32[n,V] (L2-normalised rows), C f32[k,V]. -> (labels i32[n], new C
     f32[k,V] or None)."""
+    if update:
+        return kmeans_loop(X, C, 1, assign_last=False)
+    return kmeans_loop(X, C, 0)[0], None
+
+
+def kmeans_loop(X, C0, iters: int, assign_last: bool = True,
+                history: bool = False):
+    """A kmeans_cosine call (ops/cluster.py, K20) in one launch: ``iters``
+    steps from the centroids C0, then with ``assign_last`` the assignment
+    to the last centroids alone. Each step is ``kmeans``'s: the labels
+    under its input centroids, then the renormalised sums.
+
+    X f32[n,V] (L2-normalised rows), C0 f32[k,V], 1 <= k <= n.
+    -> (labels i32[n]: the last assignment's, or the last step's without
+    it; C f32[k,V], the centroids after the last step) and with
+    ``history`` a third item (labels i32[iters,n], C f32[iters,k,V]): each
+    step's labels and input centroids."""
     n, V = X.shape
-    k = C.shape[0]
+    k = C0.shape[0]
+    iters = int(iters)
     _check("kmeans.X", X, torch.float32, (n, V))
-    _check("kmeans.C", C, torch.float32, (k, V))
+    _check("kmeans.C", C0, torch.float32, (k, V))
     if k < 1 or k > n:
         raise ValueError(f"kmeans: {k} centroids for {n} rows")
-    if not _on_cuda("kmeans", X, C):
-        return kmeans_step_plain(X, C, update)
-    labels = torch.empty(n, dtype=torch.int32, device=X.device)
-    part = new_c = None
-    if update:
-        # each chunk of KMEANS_CHUNK rows' sums (csrc/kmeans.cu KM_CHUNK)
-        chunks = -(-n // KMEANS_CHUNK)
-        part = torch.empty((chunks * k, V), dtype=torch.float32,
-                           device=X.device)
-        new_c = torch.empty((k, V), dtype=torch.float32, device=X.device)
-    _launch("kmeans", "xt_kmeans", X.data_ptr(), C.data_ptr(), n, V, k,
-            int(update), labels.data_ptr(), _ptr(part), _ptr(new_c),
-            _stream())
-    return labels, new_c
+    if iters < 0 or (iters == 0 and not assign_last):
+        raise ValueError(f"kmeans: {iters} steps and no last assignment")
+    if not _on_cuda("kmeans", X, C0):
+        return kmeans_loop_plain(X, C0, iters, assign_last, history)
+    dev = X.device
+    S, RC, glob, G = kmeans_plan(n, V, k)
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    C = torch.empty((k, V), dtype=torch.float32, device=dev)
+    work = torch.empty(_km_words(V, k, 1, RC), dtype=torch.float32,
+                       device=dev) if glob else None
+    # G clusters: each one's sums by the step's parity, a barrier counter
+    # a column slice
+    part = torch.empty(2 * G * k * V, dtype=torch.float32, device=dev) \
+        if G > 1 else None
+    bar = torch.zeros(S, dtype=torch.int32, device=dev) if G > 1 else None
+    hist = (torch.empty((iters, n), dtype=torch.int32, device=dev),
+            torch.empty((iters, k, V), dtype=torch.float32, device=dev)) \
+        if history else (None, None)
+    _launch("kmeans", "xt_kmeans_loop", X.data_ptr(), C0.data_ptr(), n, V,
+            k, iters, int(bool(assign_last)), S, RC, G, _ptr(work),
+            _ptr(part), _ptr(bar), labels.data_ptr(), C.data_ptr(),
+            _ptr(hist[0]), _ptr(hist[1]), _stream())
+    return (labels, C, hist) if history else (labels, C)
+
+
+def _km_words(V: int, k: int, S: int, RC: int) -> int:
+    """csrc/kmeans.cu km_layout's total: a block's buffers in 4-byte
+    words (C and sums slices, the staged X chunk, the partials, the
+    reduced sums or the warps' places, the chunk's labels, its rows by
+    label and each warp's counts, each label's count and start, norms)."""
+    def r4(x):
+        return (x + 3) // 4 * 4
+
+    w = -(-V // S)
+    kp = r4(k)
+    RCp = RC if RC % 8 else RC + 4
+    return (r4(w * kp) + r4(w * RCp) + r4(kp * w) +
+            r4(max(RC * kp, 4096)) + r4(max(-(-RC // S) * kp, 8 * kp)) +
+            2 * RC + 8 * kp + r4(2 * kp) + 2 * kp)
+
+
+def kmeans_plan(n: int, V: int, k: int) -> tuple:
+    """kmeans_loop's launch: (S blocks a cluster, RC rows a chunk, global,
+    G clusters) for csrc/kmeans.cu. RC from k: each of KMEANS_THREADS
+    threads holds a 4-row x 4-centroid tile of a chunk's products, so a
+    chunk is 4 * floor(256 / ceil(k / 4)) rows (at least 4, at most n
+    rounded up to 4); S the blocks the products need, one a KMEANS_WORK
+    products of a step (at most KMEANS_CLUSTER, each at least 32
+    columns). Where a block's buffers do not fit KMEANS_SMEM, first more
+    blocks, then fewer rows a chunk; where nothing fits (k * V large), one
+    block with its buffers in a device workspace (global True). G
+    clusters split the rows where one would take more than one chunk a
+    step (and restage its rows every step on S SMs): a cluster a chunk, at
+    most KMEANS_GRID and KMEANS_SMS blocks in all (the kernel cuts G to
+    the clusters the card holds at once)."""
+    ncg = -(-k // 4)
+    RC0 = min(4 * max(1, KMEANS_THREADS // ncg), -(-n // 4) * 4)
+    cap = max(1, min(KMEANS_CLUSTER, V // 32))
+    S0 = max(1, min(cap, -(-n * k * V // KMEANS_WORK)))
+    for S in range(S0, max(cap, S0) + 1):
+        RC = RC0
+        while True:
+            if 4 * _km_words(V, k, S, RC) <= KMEANS_SMEM:
+                G = min(-(-n // RC), KMEANS_GRID, max(1, KMEANS_SMS // S))
+                return S, RC, False, G
+            if RC <= 4:
+                break
+            RC = max(4, RC // 8 * 4)
+    return 1, RC0, True, 1
+
+
+def kmeans_loop_plain(X, C0, iters: int, assign_last: bool = True,
+                      history: bool = False):
+    """kmeans_loop in PyTorch ops: kmeans_step_plain ``iters`` times, then
+    the assignment alone."""
+    n, V = X.shape
+    C, hl, hc = C0, [], []
+    labels = None
+    for _ in range(iters):
+        labels, new_c = kmeans_step_plain(X, C)
+        hl.append(labels)
+        hc.append(C)
+        C = new_c
+    if assign_last:
+        labels, _ = kmeans_step_plain(X, C, update=False)
+    C = C.clone() if iters == 0 else C
+    if not history:
+        return labels, C
+    k = C0.shape[0]
+    hist = (torch.stack(hl) if hl else torch.empty(
+                (0, n), dtype=torch.int32, device=X.device),
+            torch.stack(hc) if hc else torch.empty(
+                (0, k, V), dtype=torch.float32, device=X.device))
+    return labels, C, hist
 
 
 def kmeans_step_plain(X, C, update: bool = True):
