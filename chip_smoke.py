@@ -249,7 +249,11 @@ every path, timed once where it first came (kernel, plain version, bound
 and library call, the path's tag first), outside the counted runs; and
 wide_topk's key-word table (a sort of 40 value keys, 82 words, past
 MAX_WIDE_WORDS; no path drives it), held against its plain version and
-timed in its own phase after the paths.
+timed in its own phase after the paths; then each design of collapse_rows
+(the tiles, in one block and in several, and the global design) forced
+at the edge shapes of tests/test_torch_cuda.py's collapse tests, each call
+twice bit for bit and against its plain version. Every held collapse_rows
+call's key names the design kernels.collapse_plan took for it.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
@@ -263,13 +267,18 @@ shapes, the widest agg_filter and semijoin_rows; score_slices and
 merge_docs at
 browse C, the mesh, browse B16, faceted A, geo, geo aggregations and the
 relevance prefix group; shard_reduce at the REST mesh and mesh shapes and
-its min / max) as the paths make them.
+its min / max; collapse_rows at browse C's, its dense plans' and the REST
+mesh's shapes; agg_buckets' widest launch of faceted A and D with and
+without subs, browse M, the geo aggregations, the Database path's
+trixels and nested level of 144 buckets, the REST mesh's histogram with
+a sub) as the paths make them.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -834,10 +843,12 @@ def compare_aggs(values, specs, ids, elig, rec, what):
             err = check_stats(f"agg_buckets {sp}", got[1], want[1])
         S = len(args[5])
         n_val = sum(c is not None for c in args[5])
+        # as held_buckets counts it: the flag a row, an eligible row's
+        # docid, code and value subs
+        b, ops = work_selected(B, R, 1, ne, CODE_BYTES[sp[0]] + 5 * n_val,
+                               4 * B * args[4] * (1 + 5 * S), n_rows(values))
         note("agg_buckets", err, lambda: kn.agg_buckets(*args),
-             lambda: kn._agg_buckets_plain(*args),
-             work_selected(B, R, 5, ne, 4 + 5 * n_val,
-                           4 * B * args[4] * (1 + 5 * S), n_rows(values)))
+             lambda: kn._agg_buckets_plain(*args), (b + 4 * ne, ops))
     if rec is None:
         log(f"[kernels] {what}: kernel/plain ms {line}")
 
@@ -1146,12 +1157,13 @@ def device_trace(runs, stats, tag):
 # --------------------------------------------------------------------------
 
 def work_collapse(ids, elig, cmax, n_col):
-    """collapse_rows: docid, score and flag read per row, the key column
-    (hi, lo, present; n_col rows) per eligible row, keep and tie written
-    per row; one table operation per eligible row and round."""
+    """collapse_rows: the flag read per row, keep and tie written per row
+    (6 bytes); docid and score read per eligible row (8) and the key column
+    (hi, lo, present; n_col rows) per eligible row, 9 bytes, the column
+    read once at most; one table operation per eligible row and round."""
     B, R = ids.shape
     ne = n_true(elig)
-    return 14 * B * R + 9 * min(ne, n_col), B * R + ne * cmax
+    return 6 * B * R + 8 * ne + 9 * min(ne, n_col), B * R + ne * cmax
 
 
 def work_dense(lens, classes, B, nd1):
@@ -1240,10 +1252,15 @@ def held_collapse(a):
         check_equal("collapse_rows tie", got[1], want[1])
         return 0.0
 
+    # the design kernels.collapse_plan takes for the call (the table's
+    # slots and the tile blocks a query, or the global design)
+    ts, G = kn.collapse_plan(ids.shape[0], ids.shape[1],
+                             kn.collapse_keys(c))
     return (lambda: kn._collapse_rows_plain(ids, sums, elig, c, cm,
                                             row_order), check,
             f"B={ids.shape[0]} R={ids.shape[1]} max={cm}"
-            f"{' row order' if row_order else ''}",
+            f"{' row order' if row_order else ''} "
+            f"{f'tiles TS={ts} G={G}' if ts else 'global'}",
             lambda: work_collapse(ids, elig, cm, c["present"].shape[0]),
             None)
 
@@ -1602,33 +1619,42 @@ def held_buckets(a, **kw):
     n_val = sum(c is not None for c in subs)
 
     def work():
-        # eligible flag and docid a row (the mask a row in mask mode), the
-        # code's column bytes and each value sub's fval and flag per
-        # eligible row; the counts and statistics out. A nested level's
-        # codes, written for the next level and read back by it, are the
-        # chain's own intermediates, not the function's
-        per_sel = CODE_BYTES[mode] + 5 * n_val
+        # the eligible flag a row; per eligible row its docid (unless the
+        # mask mode has no value sub to gather), then the code's column
+        # bytes (the mask's byte in mask mode) and each value sub's fval and
+        # flag, gathered from columns each read once at most; the counts
+        # and statistics out. A nested level's codes, written for the next
+        # level and read back by it, are the chain's own intermediates, not
+        # the function's
+        ne = n_true(elig)
+        docid = 0 if mode == "mask" and not n_val else 4 * ne
         out = 4 * B * size * (1 + 5 * len(subs)) + \
             (4 * B * nb if mode == "trixels" else 0)
-        per_row = 5 + (1 if mode == "mask" else 0)
-        return work_selected(B, R, per_row, n_true(elig), per_sel, out,
-                             _code_rows(mode, codes))
+        b, ops = work_selected(B, R, 1, ne, CODE_BYTES[mode] + 5 * n_val,
+                               out, _code_rows(mode, codes))
+        return b + docid, ops
 
-    def library():
-        # torch.bincount of each eligible row's (query, bucket) code: the
-        # counts, not the sub statistics
+    flat = []
+
+    def yard():
+        # torch.bincount of each eligible row's (query, bucket) code, the
+        # codes made beforehand: the counts, not the sub statistics
         import torch
 
-        code = kn._agg_buckets_plain(ids, elig, mode, codes, nb, (), prev,
-                                     size, True)[2]
-        flat = (code + size * torch.arange(B, device=ids.device)[:, None])
-        flat = flat[code >= 0]
-        return cuda_ms(lambda: torch.bincount(flat, minlength=B * size),
-                       reps=5)
+        if not flat:
+            code = kn._agg_buckets_plain(ids, elig, mode, codes, nb, (),
+                                         prev, size, True)[2]
+            f = code + size * torch.arange(B, device=ids.device)[:, None]
+            flat.append(f[code >= 0])
+        return torch.bincount(flat[0], minlength=B * size)
+
+    def library():
+        return cuda_ms(yard, reps=5)
 
     return (plain, check,
             f"B={B} R={R} {mode} nb={nb} size={size} subs={len(subs)}",
-            work, library if mode not in ("terms", "missing") else None)
+            work, library if mode not in ("terms", "missing") else None,
+            yard)
 
 
 def held_ranges(a, **kw):
@@ -2150,8 +2176,11 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
 WRAPPERS = {"kmeans": "kmeans_loop"}
 
 # python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
-# replays, by their HELD keys or the start of them up to a space (None:
-# the kernel's widest launch, the most rows), as the paths make them
+# replays, by their HELD keys or the start of them up to a space (the
+# first launch of each), or by a pattern the whole key matches, alone or
+# after the tag of the Held block the launch must come in (the widest
+# launch that matches, the most rows; None: the kernel's widest launch),
+# as the paths make them
 CAPTURE = {
     "score_slices": ("B=1 R=2105472 T=4",        # browse C
                      "B=36 R=3670144 T=4",       # mesh
@@ -2195,17 +2224,44 @@ CAPTURE = {
                       "syn sid=2", "max sid=10"),
     # kmeans_cosine calls: the _cluster _k 3 searches (V 1,024-1,360), the
     # _k 8 ones, cluster_hits
-    "kmeans": ("n10", "n256 V2048 k8", "n4096 V2048 k16")}
+    "kmeans": ("n10", "n256 V2048 k8", "n4096 V2048 k16"),
+    # browse C (its collapse on the category), the dense plans' rows, the
+    # REST mesh's and the join path's one-query launches
+    "collapse_rows": ("B=1 R=2359424 max=3", "B=1 R=1312896 max=1",
+                      "B=1 R=1312896 max=3", "B=1 R=1000001 max=1",
+                      "B=1 R=1000001 max=8", "B=1 R=139392 max=1",
+                      re.compile(r"B=1 R=57472 max=1 (tiles|global).*"),
+                      re.compile(r"B=1 R=57472 max=1 row order .*")),
+    # the widest launch of each: faceted A (B64) and D (B32) terms without
+    # subs and with them, browse M's 64 buckets, the geo aggregations, the
+    # Database path's trixels and its nested level of 144 buckets, the REST
+    # mesh's histogram with a sub; the K21 join's and semijoin's count-only
+    # launches (faceted A's shape)
+    "agg_buckets": (re.compile(r"B=64 R=\d+ terms nb=\d+ size=\d+ subs=0"),
+                    re.compile(r"B=64 R=\d+ terms nb=\d+ size=\d+ subs=1"),
+                    re.compile(r"B=64 R=\d+ terms nb=\d+ size=\d+ subs=3"),
+                    re.compile(r"B=32 R=\d+ terms nb=\d+ size=\d+ subs=0"),
+                    re.compile(r"B=32 R=\d+ terms nb=\d+ size=\d+ subs=1"),
+                    re.compile(r"B=256 R=1000001 .* nb=64 .*"),
+                    re.compile(r"B=64 R=25728 .*"),
+                    re.compile(r"B=1 R=\d+ trixels nb=4096 .*"),
+                    re.compile(r"B=1 R=\d+ \w+ nb=\d+ size=144 .*"),
+                    re.compile(r"B=1 R=57472 histogram .* subs=1"),
+                    ("k21 join", re.compile(r"B=64 R=\d+ terms .* subs=0")),
+                    ("k21 semijoin",
+                     re.compile(r"B=64 R=\d+ terms .* subs=0")))}
+# the tags of the Held blocks open, innermost last
+HELD_TAGS: list = []
 
 
 def capture(dirname):
     """From here on, the CAPTURE launches' arguments are saved to dirname
     (torch.save: the tensors stay on their device), one file a launch,
-    {"name", "key", "args", "kw"}: the first launch of a listed key, or the
-    widest so far. The hook sits under Held's, and saves after the launch
-    returns, so the counts and answers are the run's own; the saving's
-    time falls in whatever block timed the launch, so a capturing run's
-    times are not kept."""
+    {"name", "key", "tag", "args", "kw"}: the first launch of a listed key,
+    or the widest so far. The hook sits under Held's, and saves after the
+    launch returns, so the counts and answers are the run's own; the
+    saving's time falls in whatever block timed the launch, so a capturing
+    run's times are not kept."""
     import torch
 
     from xapiand_tpu_torch.ops import kernels as kn
@@ -2225,9 +2281,12 @@ def capture(dirname):
         return x
 
     def save(name, key, args, kw, file):
-        torch.save({"name": name, "key": key, "args": compact(args),
-                    "kw": compact(kw)}, os.path.join(dirname, file))
-        log(f"[capture] {name} {key}")
+        # the Held block's tag the launch came in (None outside one)
+        tag = HELD_TAGS[-1] if HELD_TAGS else None
+        torch.save({"name": name, "key": key, "tag": tag,
+                    "args": compact(args), "kw": compact(kw)},
+                   os.path.join(dirname, file))
+        log(f"[capture] {name} {key}{f' ({tag})' if tag else ''}")
 
     def hook(name, fn):
         def call(*args, **kw):
@@ -2241,11 +2300,23 @@ def capture(dirname):
                     widest[name] = rows
                     save(name, key, args, kw, f"{name} widest.pt")
             else:
-                at = [p for p in CAPTURE[name]
-                      if key == p or key.startswith(p + " ")]
-                if at and (name, at[0]) not in done:
-                    done.add((name, at[0]))
-                    save(name, key, args, kw, f"{name} {key}.pt")
+                for i, p in enumerate(CAPTURE[name]):
+                    if isinstance(p, tuple):
+                        tag, p = p
+                        if HELD_TAGS[-1:] != [tag]:
+                            continue
+                    if isinstance(p, re.Pattern):
+                        # collapse_rows' and agg_buckets' ids i32[B,R]
+                        rows = args[0].numel() if p.fullmatch(key) else 0
+                        if rows > widest.get((name, i), 0):
+                            widest[(name, i)] = rows
+                            save(name, key, args, kw,
+                                 f"{name} pattern{i} widest.pt")
+                    elif key == p or key.startswith(p + " "):
+                        if (name, p) not in done:
+                            done.add((name, p))
+                            save(name, key, args, kw, f"{name} {key}.pt")
+                        break
             return got
 
         call.__wrapped__ = fn
@@ -2290,6 +2361,7 @@ class Held:
             attr = WRAPPERS.get(name, name)
             self.saved[name] = getattr(kn, attr)
             setattr(kn, attr, self.hold(name, self.saved[name]))
+        HELD_TAGS.append(self.tag)
         return self
 
     def __exit__(self, *exc):
@@ -2297,6 +2369,7 @@ class Held:
 
         for name, fn in self.saved.items():
             setattr(kn, WRAPPERS.get(name, name), fn)
+        HELD_TAGS.pop()
         counts = dict(kn.launches)
         if exc[0] is None:
             for name, (_b, err, key, run, plain, work, library, yard) in \
@@ -5039,6 +5112,75 @@ def wide_table_phase(dev, rec):
     kn.launches["wide_topk"] = before
 
 
+def collapse_designs_phase(dev):
+    """Each design of collapse_rows forced (kernels.collapse_plan) once at
+    the edge shapes of tests/test_torch_cuda.py's collapse tests: 3
+    queries of 3,000 rows, 23 categorical keys (negative words among them),
+    one key, a query with no eligible row, the all-ones key, a slot the
+    segment lacks; collapse_max 1, 3, 8 and 9; docid and row order. Each
+    call twice, bit for bit, and equal to the plain version. Outside
+    every counted run."""
+    import numpy as np
+    import torch
+
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    designs = {"global": lambda B, R, n: (0, 0),
+               "tiles": lambda B, R, n: (kn.COLLAPSE_TABLE, 1),
+               "tiles in 4 blocks": lambda B, R, n: (kn.COLLAPSE_TABLE, 4)}
+    rule, before = kn.collapse_plan, kn.launches["collapse_rows"]
+    calls = 0
+    try:
+        for case in ("keys", "one_key", "empty_query", "all_ones_key",
+                     "no_column"):
+            rng = np.random.Generator(np.random.PCG64(41))
+            B, R, nd = 3, 3000, 9000
+            ids = np.stack([np.sort(rng.choice(nd, R, replace=False))
+                            for _ in range(B)]).astype(np.int32)
+            sums = (rng.integers(1, 7, (B, R)) / 4).astype(np.float32)
+            elig = rng.random((B, R)) < 0.8
+            ids[:, -7:] = kn.SENTINEL
+            elig[:, -7:] = False
+            key = rng.integers(0, 1 if case == "one_key" else 23, nd + 1)
+            col = {"hi": (key // 3 - 2).astype(np.int32),
+                   "lo": (key % 3 - 1).astype(np.int32),
+                   "present": rng.random(nd + 1) >=
+                   (0.0 if case == "one_key" else 0.15)}
+            if case == "empty_query":
+                elig[1] = False
+            if case == "all_ones_key":
+                col["hi"][::3] = -1
+                col["lo"][::3] = -1
+            dcol = None if case == "no_column" else \
+                {c: torch.from_numpy(v).to(dev) for c, v in col.items()}
+            pcol = kn.absent_column(dev) if dcol is None else dcol
+            args = tuple(torch.from_numpy(x).to(dev)
+                         for x in (ids, sums, elig))
+            for cmax in (1, 3, 8, 9):
+                for ro in (False, True):
+                    want = kn._collapse_rows_plain(
+                        *args, pcol, min(cmax, kn.MAX_COLLAPSE), ro)
+                    for name, plan in designs.items():
+                        kn.collapse_plan = plan
+                        got = twice(f"collapse_rows {name} {case}",
+                                    lambda: kn.collapse_rows(*args, dcol,
+                                                             cmax, ro))
+                        check_equal(f"collapse_rows {name} {case} keep",
+                                    got[0], want[0])
+                        check_equal(f"collapse_rows {name} {case} tie",
+                                    got[1], want[1])
+                        calls += 1
+    finally:
+        kn.collapse_plan = rule
+        kn.launches["collapse_rows"] = before
+    torch.cuda.synchronize()
+    log(f"[held] collapse_rows designs: the tiles (one block, 4 blocks a "
+        f"query) and the global design forced at {calls // 3} edge calls each "
+        "(5 cases, collapse_max 1, "
+        "3, 8, 9, docid and row order), twice bit for bit, equal to the "
+        "plain version")
+
+
 # the paths that need no other path's world, for --only
 ALONE = {"relevance": "relevance_path", "positional": "positional_path",
          "geo": "geo_path", "mesh": "mesh_path",
@@ -5151,6 +5293,9 @@ def main() -> int:
     t0 = time.time()
     wide_table_phase(dev, rec)
     log(f"[time] wide_topk table {time.time() - t0:.1f} s")
+    t0 = time.time()
+    collapse_designs_phase(dev)
+    log(f"[time] collapse_rows designs {time.time() - t0:.1f} s")
     rec.shape_lines()
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:

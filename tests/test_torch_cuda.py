@@ -629,6 +629,58 @@ def test_collapse_rows_matches_plain_version(cuda, case):
     torch.cuda.synchronize()
 
 
+COLLAPSE_DESIGNS = {
+    # the global design wherever; the tiles wherever the table fits (a
+    # table of 1024 slots: up to 512 keys): a block a chunk, one block, 8
+    # blocks (blocks past the chunks hold no key)
+    "global": lambda B, R, n: (0, 0),
+    "tiles": lambda B, R, n: (kernels.COLLAPSE_TABLE,
+                              -(-R // kernels.COLLAPSE_CHUNK)),
+    "tiles_one_block": lambda B, R, n: (kernels.COLLAPSE_TABLE, 1),
+    "tiles_eight_blocks": lambda B, R, n: (kernels.COLLAPSE_TABLE, 8),
+}
+
+
+@pytest.mark.parametrize("design", sorted(COLLAPSE_DESIGNS))
+@pytest.mark.parametrize("case", ["keys", "one_key", "empty_query",
+                                  "all_ones_key", "no_column", "many_keys",
+                                  "nan_scores"])
+def test_collapse_rows_designs_match_plain_version(cuda, monkeypatch, case,
+                                                   design):
+    """Each design of collapse_rows forced (kernels.collapse_plan) at the
+    edge shapes of test_collapse_rows_matches_plain_version, and at 400
+    keys over 20,000 rows a query (several chunks a tile block), and NaN
+    scores: keep and tie equal to the plain version's, the same bits
+    twice."""
+    monkeypatch.setattr(kernels, "collapse_plan", COLLAPSE_DESIGNS[design])
+    rng = np.random.Generator(np.random.PCG64(43))
+    many = case == "many_keys"
+    ids, sums, elig, col = _collapse_case(
+        rng, 3, 20000 if many else 3000, 60000 if many else 9000,
+        1 if case == "one_key" else 400 if many else 23,
+        0.0 if case == "one_key" else 0.15, 0.8)
+    if case == "empty_query":
+        elig[1] = False
+    if case == "all_ones_key":
+        col["hi"][::3] = -1
+        col["lo"][::3] = -1
+    if case == "nan_scores":
+        sums[rng.random(sums.shape) < 0.2] = np.nan
+    dcol = None if case == "no_column" else \
+        {c: torch.from_numpy(v).to(cuda) for c, v in col.items()}
+    args = tuple(torch.from_numpy(x).to(cuda) for x in (ids, sums, elig))
+    for cmax in (1, 3, 8, 9):
+        for ro in (False, True):
+            keep, tie = _twice(lambda: kernels.collapse_rows(
+                *args, dcol, cmax, ro))
+            pkeep, ptie = kernels.collapse_rows(
+                *(x.cpu() for x in args),
+                None if dcol is None else _cpu_col(dcol), cmax, ro)
+            assert torch.equal(keep.cpu(), pkeep), (case, cmax, ro)
+            assert torch.equal(tie.cpu(), ptie), (case, cmax, ro)
+    torch.cuda.synchronize()
+
+
 @pytest.fixture(scope="module")
 def browse(faceted):
     from xapiand_tpu_torch.utils import synth_browse as sb
@@ -1238,6 +1290,68 @@ def test_agg_buckets_remap_matches_plain_version(cuda):
                               cats.to(cuda), 32, remap=remap.to(cuda))
     want = kernels.agg_buckets(ids, elig, "terms", cats, 32, remap=remap)
     assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("case", ["terms", "remap", "missing", "mask",
+                                  "histogram", "range", "trixels",
+                                  "nested"])
+@pytest.mark.parametrize("B,R", [(2, 9000), (64, 40000)])
+def test_agg_buckets_one_launch_matches_plain_version(cuda, case, B, R):
+    """agg_buckets' one launch (every row's code written, warps' sub
+    partials, the last block's fold) in every mode, a nested level of
+    8 x 300 buckets, a mesh remap, with and without subs (one of values
+    near 5e5 of both signs, a count sub): counts and codes equal to the
+    plain version's, sub n, min and max equal, s2 within rtol 1e-5 of its
+    float64 sums and s within 1e-5 of the sums of |value| (where a few
+    values of both signs cancel, no float32 sum is within rtol of the
+    float64 one), the same bits twice; 64 queries of 40,000 rows split each
+    query over several blocks."""
+    from test_torch_collapse_buckets_design import bucket_world, mode_codes
+
+    w = bucket_world(31, B, R)
+    ids, elig = w["ids"], w["elig"]
+    if case == "nested":
+        codes, nb, _kw = mode_codes(w, "histogram")
+        prev = kernels._agg_buckets_plain(ids, elig, "terms", w["cats"], 8,
+                                          (), want_codes=True)[2]
+        kw, mode = {"prev": prev, "size": 8 * nb}, "histogram"
+    else:
+        codes, nb, kw = mode_codes(w, case)
+        mode = "terms" if case == "remap" else case
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(cuda)
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(to(v) for v in x)
+        return x
+
+    # the sums of |value|: a float32 sum of values of both signs is held
+    # within 1e-5 of them (its rounding bound), not of a sum they cancel
+    absum = kernels.agg_buckets(
+        ids, elig, mode, codes, nb,
+        tuple(None if c is None else (c[0].abs(), c[1])
+              for c in w["subs"]), **kw)[1][1].numpy()
+    for subs in ((), w["subs"]):
+        got = _twice(lambda: kernels.agg_buckets(
+            to(ids), to(elig), mode, to(codes), nb, to(subs),
+            want_codes=True, **to(kw)))
+        want = kernels.agg_buckets(ids, elig, mode, codes, nb, subs,
+                                   want_codes=True, **kw)
+        assert torch.equal(got[0].cpu(), want[0]), (case, "counts")
+        assert torch.equal(got[2].cpu(), want[2]), (case, "codes")
+        if subs:
+            for st in range(5):
+                g, x = got[1][st].cpu().numpy(), want[1][st].numpy()
+                if st in (0, 3, 4):
+                    assert np.array_equal(g, x), (case, st)
+                elif st == 1:
+                    assert (np.abs(g - x) <= 1e-5 * absum).all(), case
+                else:
+                    np.testing.assert_allclose(g, x, rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
 
 
 def test_repaired_limits_cuda_equals_cpu(cuda):

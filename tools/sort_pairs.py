@@ -12,7 +12,10 @@ and M, faceted A and B, a REST mesh shape; the widest agg_filter and
 semijoin_rows; score_slices and merge_docs at browse C, the mesh, browse
 B16, faceted A, geo, geo aggregations and the relevance prefix group;
 shard_reduce at the REST mesh and mesh shapes; merge_special at browse S
-and X and the schemes' S and X; kmeans' kmeans_cosine calls, a capture a
+and X and the schemes' S and X; collapse_rows at browse C's, its dense
+plans' and the REST mesh's shapes; agg_buckets' widest launches of
+faceted A and D, browse M, the geo aggregations, the Database path and
+the REST mesh; kmeans' kmeans_cosine calls, a capture a
 call, which a version without ``kmeans_loop`` replays as its step calls
 and the assignment, 21 wrapper calls, and every version holds by the
 margin rule). DIR is a checkout of the
@@ -27,14 +30,16 @@ Each captured launch of the ``--kernels`` named is replayed through each
 version, its answer held to the plain version's (``chip_smoke.HELD``),
 then timed in the order parent, change, the variants, the variants
 reversed, change, parent, ``--rounds`` times. One JSON line a launch: its
-key, the eligible rows' share (sort_topk, agg_filter), every time and each
-version's median, device-only (``utils/cudatime.device_ms``: CUDA activity
-alone, the mean a call over 20 calls, a call all the launches it makes)
-and by CUDA events around the same 20 wrapper calls (``event_ms``), the
+key, the Held block's tag it came in, the eligible rows' share
+(sort_topk, agg_filter, agg_buckets, collapse_rows), every time and each
+version's median, device-only (``utils/cudatime.device_ms``: CUDA
+activity alone, the mean a call over 20 calls, a call all the launches it
+makes) and by CUDA events around the same 20 wrapper calls (``event_ms``), the
 change's time by kernel, the library call's (HELD's yardstick: ``torch.topk(largest=False)`` of the masked
 docids for the docid key, ``torch.searchsorted`` for agg_filter and
 semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
-shard_reduce) and the bound (HELD's work over ``chip_smoke.py``'s rates).
+shard_reduce, ``torch.bincount`` of the rows' precomputed codes for
+agg_buckets) and the bound (HELD's work over ``chip_smoke.py``'s rates).
 Then the card's name and power limit.
 
 ``tools/synth_captures.py`` writes launches made from a seed in the same
@@ -64,7 +69,9 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "semijoin_rows": "semijoin_rows.cu",
            "score_slices": "score_slices.cu", "merge_docs": "merge_docs.cu",
            "shard_reduce": "shard_merge.cu",
-           "merge_special": "merge_special.cu", "kmeans": "kmeans.cu"}
+           "merge_special": "merge_special.cu", "kmeans": "kmeans.cu",
+           "collapse_rows": "collapse_rows.cu",
+           "agg_buckets": "agg_buckets.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -90,6 +97,13 @@ VARIANTS = {
     # kmeans: clusters of at most 4 or 8 blocks
     "km_cluster4": ("kmeans", (), {"KMEANS_CLUSTER": 4}),
     "km_cluster8": ("kmeans", (), {"KMEANS_CLUSTER": 8}),
+    # collapse_rows: the global design wherever; the tiles over 66 blocks
+    "cr_global": ("collapse_rows", (), {"collapse_plan":
+                                        lambda B, R, n: (0, 0)}),
+    "cr_blocks66": ("collapse_rows", (), {"COLLAPSE_BLOCKS": 66}),
+    # agg_buckets: 8 queued rows a lane at once; blocks of 16,384 rows
+    "ab_u8": ("agg_buckets", ("-DAB_U=8",), {}),
+    "ab_rows16384": ("agg_buckets", (), {"AGG_ROWS": 16384}),
 }
 REPS = 20
 
@@ -273,9 +287,10 @@ def replay(path, libs, pmod, rounds):
     device_ms(run["change"], REPS, by=by)
     b, ops = work()
     elig = args[3] if name == "sort_topk" else \
-        args[1] if name == "agg_filter" else None
+        args[2] if name == "collapse_rows" else \
+        args[1] if name in ("agg_filter", "agg_buckets") else None
     return {
-        "kernel": name, "key": key,
+        "kernel": name, "key": key, "tag": cap.get("tag"),
         "eligible_share": float(elig.float().mean()) if elig is not None
         else None,
         "device_ms": dev, "event_ms": ev,

@@ -11,6 +11,16 @@ format, for ``tools/sort_pairs.py`` to replay where no path makes them.
   k blocks plus noise, L2-normalised, and ops/cluster.py's farthest-first
   seeding. The calls' times do not depend on the values beyond the labels'
   spread.
+- ``collapse_rows``: one query's rows over 1,000,001 docids, sorted and
+  distinct where eligible (40% of them), scores in [0, 1), on a column of
+  40 categories drawn zipf-like, 3% without a value (browse C's collapse
+  on the category): at R 2,359,424 with collapse_max 3 and R 1,000,001
+  with 8.
+- ``agg_buckets``: terms over 64 categories, count only, at faceted A's
+  B64 R1310720 with 0.5% of the rows eligible, all of them in a tenth of
+  the queries, each in one stretch of its rows (a query whose matches
+  crowd its first term's rows), and at D's B32 R1835136 with 11% eligible
+  everywhere.
 - ``merge_special``: the browse S plan (one synonym group over the first
   three terms) and the X plan (a max spec of three branches, the last the
   third and fourth terms) under BM25, B16, T4 over 1,000,001 docids, at
@@ -107,6 +117,42 @@ def special_args(rng, B, W, plan, dev):
     return args
 
 
+def collapse_args(rng, R, cmax, dev):
+    """One browse-C-like collapse_rows call (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    cat = np.minimum(rng.zipf(1.3, N_DOCS) - 1, 39).astype(np.int32)
+    col = {"hi": torch.zeros(N_DOCS, dtype=torch.int32, device=dev),
+           "lo": torch.from_numpy(cat).to(dev),
+           "present": torch.from_numpy(rng.random(N_DOCS) < 0.97).to(dev)}
+    ids = np.sort(rng.integers(0, N_DOCS, R)).astype(np.int32)
+    elig = rng.random(R) < 0.4
+    elig[1:] &= ids[1:] != ids[:-1]
+    return (torch.from_numpy(ids).to(dev)[None],
+            torch.from_numpy(rng.random(R).astype(np.float32)).to(dev)[None],
+            torch.from_numpy(elig).to(dev)[None], col, cmax)
+
+
+def bucket_args(rng, B, R, share, crowded, dev):
+    """One terms agg_buckets call, count only (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    ids = np.sort(rng.integers(0, N_DOCS, (B, R)), 1).astype(np.int32)
+    elig = np.zeros((B, R), bool)
+    if crowded:
+        dense = max(1, B // 10)
+        span = int(share * B * R / dense)
+        for b in range(dense):
+            elig[b, :span] = True
+    else:
+        elig = rng.random((B, R)) < share
+    cats = rng.integers(-1, 64, N_DOCS).astype(np.int32)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(elig).to(dev),
+            "terms", torch.from_numpy(cats).to(dev), 64)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -138,6 +184,10 @@ def main() -> int:
         for plan in ("syn", "max"):
             save("merge_special", special_args(rng, 16, W, plan, dev),
                  {"n_docs": N_DOCS})
+    for R, cmax in ((2359424, 3), (1000001, 8)):
+        save("collapse_rows", collapse_args(rng, R, cmax, dev), {})
+    save("agg_buckets", bucket_args(rng, 64, 1310720, 0.005, True, dev), {})
+    save("agg_buckets", bucket_args(rng, 32, 1835136, 0.11, False, dev), {})
     return 0
 
 

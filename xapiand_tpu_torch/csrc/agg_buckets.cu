@@ -33,7 +33,7 @@
 // the previous level's composite code: comp = prev * radix + code, valid
 // only where prev >= 0; counts are over `size` buckets (the product of the
 // radices so far, <= 4096). codes_out (optional) receives each eligible
-// row's composite code or -1 (prefilled with -1 by the wrapper). A sub
+// row's composite code, -1 elsewhere (every row written here). A sub
 // reads the row's docid, clamped to sub_clamp - 1 first where sub_clamp >
 // 0 (geo_trixels' subs read the clamped d, :393).
 //
@@ -41,38 +41,53 @@
 // sub's rows are the bucket's rows whose present_sub[d] holds ("count"
 // subs: all of them, s = s2 = 0, min +inf, max -inf).
 //
-// Grid (G, B), 256 threads: G blocks split one query's rows into ranges of
-// 16-row groups; each thread reads one group's eligible flags with one
-// 16-byte load and computes codes for the set bits only.
-//   counts  a shared-memory histogram (int atomics, order-free), added
-//           into the zeroed output with int atomics: size <= 4096 ints,
-//           16 KB of shared memory at the widest spec;
-//   subs    deterministic float sums without float atomics: per tile of
-//           4096 rows the block packs its in-bucket rows, in row order,
-//           into shared memory (docid, code: 24 KB; a block prefix sum
-//           over the threads' counts); one warp then walks that list 32
-//           rows at a time, gathers the sub's value per lane, groups the
-//           lanes by code (__match_any_sync), sums each group in lane
-//           order and adds it to the bucket's partial in the block's
-//           scratch [B][G][S][size] x 5, so every bucket's sum runs in row
-//           order however skewed the codes are (config 3's A queries
-//           hold one category: a thread per bucket walks all of them
-//           alone, 70 ms a launch at the widest group on an NVIDIA H100
-//           80GB HBM3 at 700 W). A second kernel folds the G partials in
-//           order. Two runs give the same bits; the float sums agree with
-//           the plain version to float32 rounding (tests: rtol 1e-5).
-// 41 KB of static shared memory in all, below the 48 KB static limit.
+// One launch, grid (G, B), 256 threads, one kernel a mode (a template
+// argument): G blocks split one query's rows into ranges of 16-row groups.
+// Warp w of a block takes, at each step, 32 groups (a lane a group: its
+// eligible flags one 16-byte load, the next step's loaded ahead), writes
+// -1 as the code of each row whose flag is off (so codes_out needs no
+// prefill) and queues its eligible rows, in row order, in shared memory
+// (a warp prefix sum of the lanes' counts). Whenever 32 rows or more wait,
+// the warp drains them 32 at a time, 4 batches a lane at once (their
+// docids, then their codes, loaded together): a row in every lane, so the
+// gathers of a sparse query do not wait on empty groups. G comes from
+// kernels.bucket_plan: blocks of a few thousand rows, so that a query whose
+// eligible rows crowd one stretch spreads them over many blocks.
+//   counts  a shared-memory histogram, an int atomic a row (grouping a
+//           batch's lanes by code first, __match_any_sync, cost more than
+//           the conflicts of config 3's one-category A queries);
+//   subs    deterministic float sums without float atomics: per batch
+//           each sub's value is gathered per lane, the lanes of one code
+//           summed in lane order and added by one lane to the warp's own
+//           partial of the bucket; after the rows, a thread a (sub,
+//           bucket) adds the 8 warps' partials in warp order into the
+//           block's partial [B][G][S][size] x 5. The warps' partials sit
+//           in shared memory up to 12,288 floats (8 warps x S x size x 5),
+//           else in a device-memory scratch of the wrapper's (a wide
+//           spec: the trixels' 4,096 buckets). Every bucket's sum runs in
+//           a fixed order - batches in a warp's row order, lanes, warps,
+//           blocks - so two runs give the same bits; the float sums agree
+//           with the float64 plain version to float32 rounding (tests:
+//           rtol 1e-5, or 1e-5 of the sum of |value| where values of both
+//           signs cancel).
+//   fold    each block writes its counts to device memory and takes a
+//           ticket (a counter a query, after __threadfence); the last
+//           block of the query adds the G blocks' counts and statistics
+//           in block order into the outputs and resets the counter. The
+//           counters (i32[B], zeros) are the wrapper's, kept from call to
+//           call, so nothing is cleared before a launch.
 //
 // Bound on the H100: the eligible flags (one byte a row), then one code
 // computation per eligible row (one or two gathers; a range code scans the
-// query's ranges, a trixel code binary-searches its table), and per sub
-// one pass over the rows again with two gathers per in-bucket row, the
-// sub's part by a single warp of each block (32 rows a step).
+// query's ranges, a trixel code binary-searches its table), the codes
+// written (4 bytes a row) where asked, and per sub two gathers per
+// in-bucket row, the sub's walk spread over every warp of the block.
 #include "common.cuh"
 
 #define AB_THREADS 256
+#define AB_WARPS (AB_THREADS / 32)
 #define AB_MAXNB 4096
-#define AB_TILE (AB_THREADS * 16)
+#define AB_FULL 0xffffffffu
 
 struct BucketSrc {
     int mode;             // 0 terms, 1 missing, 2 mask, 3 histogram,
@@ -92,13 +107,15 @@ struct BucketSrc {
     long long sub_clamp;  // > 0: subs read min(d, sub_clamp - 1)
 };
 
-// the composite code of row (b, row) with docid d, or -1
+// the composite code of row (b, row) with docid d, or -1; the mode is the
+// kernel's template argument, so each launch runs one mode's code
+template <int MODE>
 __device__ __forceinline__ int row_code(const BucketSrc& s, int b,
                                         long long R, long long row, int d) {
     int code = -1;
     const long long n = s.n0;
     const long long dd = (long long)d < n - 1 ? d : n - 1;
-    switch (s.mode) {
+    switch (MODE) {
     case 0: {
         int c = (s.p0 != nullptr && n > 0) ? ((const int*)s.p0)[dd] : -1;
         if (s.p1 != nullptr && c >= 0)   // the mesh's cat_remap row
@@ -151,105 +168,102 @@ __device__ __forceinline__ long long sub_row(const BucketSrc& s, int d) {
     return (s.sub_clamp > 0 && d > s.sub_clamp - 1) ? s.sub_clamp - 1 : d;
 }
 
-__global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
+// the warps' sub partials [warps][S][nb][5] sit in shared memory up to
+// this many floats, else in a device-memory scratch of the wrapper's
+#define AB_WP_SMEM (12 * 1024)
+#define AB_QCAP 544           // a warp's queue: 16 rows x 32 lanes, and 32
+#ifndef AB_U
+#define AB_U 4                // queued rows a lane, their loads together
+#endif
+
+__host__ __device__ inline bool ab_wp_shared(int nb, int S) {
+    return (long long)AB_WARPS * S * nb * 5 <= AB_WP_SMEM;
+}
+
+// the shared memory of a launch: hist[nb], the warps' queues, and the
+// warps' sub partials where they fit
+__host__ __device__ inline int ab_smem(int nb, int S) {
+    return 4 * nb + 4 * AB_WARPS * AB_QCAP +
+           (S > 0 && ab_wp_shared(nb, S) ? 4 * AB_WARPS * S * nb * 5 : 0);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(AB_THREADS) agg_buckets_kernel(
     const int* __restrict__ ids, const unsigned char* __restrict__ elig,
     long long R, int G, const BucketSrc src, int nb, int S,
     const long long* __restrict__ subs, int* __restrict__ counts,
-    int* __restrict__ codes_out, float* __restrict__ part) {
-    __shared__ int hist[AB_MAXNB];
-    __shared__ int ent_d[AB_TILE];
-    __shared__ short ent_c[AB_TILE];
-    __shared__ int scan[AB_THREADS];
+    int* __restrict__ codes_out, float* __restrict__ part,
+    int* __restrict__ pcount, int* __restrict__ ctr,
+    float* __restrict__ out, float* __restrict__ wpg) {
+    extern __shared__ int ab_sm[];
+    int* hist = ab_sm;                                        // [nb]
     const int g = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+    const int lane = t & 31, warp = t >> 5;
+    int* queue = hist + nb + warp * AB_QCAP;          // this warp's rows
+    const long long wstride = (long long)S * nb * 5;
+    float* wp = ab_wp_shared(nb, S)
+                    ? (float*)(hist + nb + AB_WARPS * AB_QCAP) + warp * wstride
+                    : wpg + (((long long)b * G + g) * AB_WARPS + warp) *
+                                wstride;
+    __shared__ bool last;
     const long long base = (long long)b * R;
     const unsigned char* e = elig + base;
     const bool aligned = (reinterpret_cast<uintptr_t>(e) & 15) == 0;
     const long long ng = (R + 15) / 16;
     const long long g0 = ng * g / G, g1 = ng * (g + 1) / G;
-    for (int c = t; c < nb; c += AB_THREADS) hist[c] = 0;
-    __syncthreads();
-    for (long long gi = g0 + t; gi < g1; gi += AB_THREADS) {
-        unsigned msk = elig_mask16(e, R, gi, aligned);
-        while (msk) {
-            const int j = __ffs(msk) - 1;
-            msk &= msk - 1;
-            const long long row = gi * 16 + j;
-            const int c = row_code(src, b, R, row, ids[base + row]);
-            if (c >= 0 && c < nb) atomicAdd(&hist[c], 1);
-            if (codes_out != nullptr)
-                codes_out[base + row] = (c >= 0 && c < nb) ? c : -1;
-        }
-    }
-    __syncthreads();
-    for (int c = t; c < nb; c += AB_THREADS)
-        if (hist[c]) atomicAdd(&counts[(long long)b * nb + c], hist[c]);
-
     const float inf = __int_as_float(0x7f800000);
-    const int lane = t & 31;
-    for (int si = 0; si < S; ++si) {
-        const float* fval = (const float*)subs[si * 3];
-        const unsigned char* pres = (const unsigned char*)subs[si * 3 + 1];
-        const long long nr = subs[si * 3 + 2];
-        // this block's partials for the sub, [nb][5], accumulated in place
-        float* acc = part + (((long long)b * G + g) * S + si) * nb * 5;
-        for (int i = t; i < nb * 5; i += AB_THREADS)
-            acc[i] = (i % 5) == 3 ? inf : ((i % 5) == 4 ? -inf : 0.0f);
-        __syncthreads();
-        for (long long tg = g0; tg < g1; tg += AB_THREADS) {
-            // pack this tile's in-bucket rows in row order
-            const long long gi = tg + t;
-            const unsigned msk0 = gi < g1 ? elig_mask16(e, R, gi, aligned)
-                                          : 0u;
-            int mine = 0;
-            for (unsigned msk = msk0; msk; msk &= msk - 1) {
-                const long long row = gi * 16 + __ffs(msk) - 1;
-                const int c = row_code(src, b, R, row, ids[base + row]);
-                mine += c >= 0 && c < nb;
+    for (int c = t; c < nb; c += AB_THREADS) hist[c] = 0;
+    for (long long i = lane; i < wstride; i += 32)
+        wp[i] = (i % 5) == 3 ? inf : ((i % 5) == 4 ? -inf : 0.0f);
+    __syncthreads();
+    // a batch of 32 queued rows, AB_U batches at once (each lane's rows'
+    // docids, then their codes, loaded together); counts, codes written,
+    // each sub's values of a code summed in lane order and added to the
+    // warp's partial, batch after batch
+    auto drain = [&](int n) {
+        for (int i0 = 0; i0 < n; i0 += 32 * AB_U) {
+            int row[AB_U], d[AB_U], c[AB_U];
+#pragma unroll
+            for (int u = 0; u < AB_U; ++u) {
+                const int i = i0 + u * 32 + lane;
+                row[u] = i < n ? queue[i] : -1;
+                d[u] = row[u] >= 0 ? __ldg(ids + base + row[u]) : 0;
             }
-            scan[t] = mine;
-            __syncthreads();
-            for (int o = 1; o < AB_THREADS; o <<= 1) {
-                const int x = t >= o ? scan[t - o] : 0;
-                __syncthreads();
-                scan[t] += x;
-                __syncthreads();
+#pragma unroll
+            for (int u = 0; u < AB_U; ++u) {
+                const int k = row[u] >= 0
+                                  ? row_code<MODE>(src, b, R, row[u], d[u])
+                                  : -1;
+                c[u] = k >= 0 && k < nb ? k : -1;
             }
-            const int total = scan[AB_THREADS - 1];
-            int pos = scan[t] - mine;
-            for (unsigned msk = msk0; msk; msk &= msk - 1) {
-                const long long row = gi * 16 + __ffs(msk) - 1;
-                const int d = ids[base + row];
-                const int c = row_code(src, b, R, row, d);
-                if (c >= 0 && c < nb) {
-                    ent_d[pos] = (int)sub_row(src, d);
-                    ent_c[pos] = (short)c;
-                    ++pos;
-                }
-            }
-            __syncthreads();
-            // one warp walks the packed rows 32 at a time: lanes of one
-            // code (__match_any_sync) are summed in lane order and the
-            // group's lowest lane adds the sums to the bucket's partial
-            if (t < 32) {
-                for (int c0 = 0; c0 < total; c0 += 32) {
-                    const int i = c0 + lane;
-                    const int c = i < total ? ent_c[i] : -1;
+#pragma unroll
+            for (int u = 0; u < AB_U; ++u) {
+                if (i0 + u * 32 >= n) break;
+                if (c[u] >= 0) atomicAdd(&hist[c[u]], 1);
+                if (codes_out != nullptr && row[u] >= 0)
+                    codes_out[base + row[u]] = c[u];
+                for (int si = 0; si < S; ++si) {
+                    const float* fval = (const float*)subs[si * 3];
+                    const unsigned char* pres =
+                        (const unsigned char*)subs[si * 3 + 1];
+                    const long long nr = subs[si * 3 + 2];
+                    bool use = c[u] >= 0;
                     float v = 0.0f;
-                    bool use = c >= 0;
                     if (use && fval != nullptr) {
-                        const long long d = ent_d[i];
-                        const long long dd = d < nr - 1 ? d : nr - 1;
+                        const long long dr = sub_row(src, d[u]);
+                        const long long dd = dr < nr - 1 ? dr : nr - 1;
                         use = pres[dd] != 0;
                         v = use ? fval[dd] : 0.0f;
                     }
-                    const unsigned act = __ballot_sync(0xffffffffu, use);
+                    const unsigned act = __ballot_sync(AB_FULL, use);
                     const unsigned peers =
-                        __match_any_sync(0xffffffffu, use ? c : -1) & act;
-                    float n = 0.0f, sm = 0.0f, sq = 0.0f, mn = inf, mx = -inf;
-                    for (int src = 0; src < 32; ++src) {
-                        const float x = __shfl_sync(0xffffffffu, v, src);
-                        if ((peers >> src) & 1u) {
-                            n += 1.0f;
+                        __match_any_sync(AB_FULL, use ? c[u] : -1) & act;
+                    float n_ = 0.0f, sm = 0.0f, sq = 0.0f, mn = inf,
+                          mx = -inf;
+                    for (int sl = 0; sl < 32; ++sl) {
+                        const float x = __shfl_sync(AB_FULL, v, sl);
+                        if ((peers >> sl) & 1u) {
+                            n_ += 1.0f;
                             if (fval != nullptr) {
                                 sm += x;
                                 sq += x * x;
@@ -259,53 +273,126 @@ __global__ void __launch_bounds__(AB_THREADS) agg_buckets_part(
                         }
                     }
                     if (use && lane == __ffs(peers) - 1) {
-                        float* p = acc + (long long)c * 5;
-                        p[0] += n;
-                        p[1] += sm;
-                        p[2] += sq;
-                        p[3] = fminf(p[3], mn);
-                        p[4] = fmaxf(p[4], mx);
+                        float* q = wp + ((long long)si * nb + c[u]) * 5;
+                        q[0] += n_;
+                        q[1] += sm;
+                        q[2] += sq;
+                        q[3] = fminf(q[3], mn);
+                        q[4] = fmaxf(q[4], mx);
                     }
                     __syncwarp();
                 }
             }
-            __syncthreads();
+        }
+    };
+    // warp w takes the 32 groups g0 + (8 k + w) * 32 .. + 31 of each step
+    // k; a lane a group: its flags one 16-byte load (the next step's
+    // loaded ahead), its eligible rows queued in row order, -1 written for
+    // its other rows' codes
+    int qn = 0;
+    const long long wfirst = g0 + warp * 32 + lane;
+    unsigned next = wfirst < g1 ? elig_mask16(e, R, wfirst, aligned) : 0u;
+    for (long long gs = g0 + warp * 32; gs < g1; gs += AB_WARPS * 32) {
+        const long long gi = gs + lane;
+        const unsigned msk = next;
+        const long long gn = gi + AB_WARPS * 32;
+        next = gn < g1 ? elig_mask16(e, R, gn, aligned) : 0u;
+        if (codes_out != nullptr && gi < g1)
+            for (int j = 0; j < 16 && gi * 16 + j < R; ++j)
+                if (!((msk >> j) & 1u)) codes_out[base + gi * 16 + j] = -1;
+        const int k = __popc(msk);
+        int incl = k;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int x = __shfl_up_sync(AB_FULL, incl, o);
+            if (lane >= o) incl += x;
+        }
+        const int total = __shfl_sync(AB_FULL, incl, 31);
+        int pos = qn + incl - k;
+        for (unsigned m = msk; m; m &= m - 1)
+            queue[pos++] = (int)(gi * 16 + __ffs(m) - 1);
+        qn += total;
+        __syncwarp();
+        if (qn >= 32) {
+            const int full = qn & ~31;
+            drain(full);
+            const int rest = qn - full;
+            const int moved = lane < rest ? queue[full + lane] : 0;
+            __syncwarp();
+            if (lane < rest) queue[lane] = moved;
+            qn = rest;
+            __syncwarp();
         }
     }
-}
-
-// grid (B), 256 threads: each (sub, bucket) folds its G partials in order
-// into out [S][5][B][nb]
-__global__ void __launch_bounds__(AB_THREADS) agg_buckets_fold(
-    int B, int G, int S, int nb, const float* __restrict__ part,
-    float* __restrict__ out) {
-    const int b = blockIdx.x;
-    for (int i = threadIdx.x; i < S * nb; i += AB_THREADS) {
+    drain(qn);
+    __syncthreads();
+    // the warps' partials in warp order onto the block's [S][nb][5], its
+    // counts, then the last block of the query folds
+    float* acc = part + ((long long)b * G + g) * wstride;
+    const float* wp0 = ab_wp_shared(nb, S)
+                           ? (const float*)(hist + nb + AB_WARPS * AB_QCAP)
+                           : wpg + ((long long)b * G + g) * AB_WARPS *
+                                       wstride;
+    for (long long i = t; i < (long long)S * nb; i += AB_THREADS) {
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = inf, a4 = -inf;
+        for (int w = 0; w < AB_WARPS; ++w) {
+            const float* q = wp0 + w * wstride + i * 5;
+            a0 += q[0];
+            a1 += q[1];
+            a2 += q[2];
+            a3 = fminf(a3, q[3]);
+            a4 = fmaxf(a4, q[4]);
+        }
+        float* o = acc + i * 5;
+        o[0] = a0;
+        o[1] = a1;
+        o[2] = a2;
+        o[3] = a3;
+        o[4] = a4;
+    }
+    int* pc = pcount + ((long long)b * G + g) * nb;
+    for (int c = t; c < nb; c += AB_THREADS) pc[c] = hist[c];
+    __threadfence();
+    __syncthreads();
+    if (t == 0) last = atomicAdd(&ctr[b], 1) == G - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const int* pcq = pcount + (long long)b * G * nb;
+    for (int c = t; c < nb; c += AB_THREADS) {
+        int n = 0;
+        for (int q = 0; q < G; ++q) n += __ldcg(pcq + (long long)q * nb + c);
+        counts[(long long)b * nb + c] = n;
+    }
+    const int B = gridDim.y;
+    const float* pq = part + (long long)b * G * wstride;
+    for (int i = t; i < S * nb; i += AB_THREADS) {
         const int si = i / nb, c = i % nb;
         float a[5];
-        for (int g = 0; g < G; ++g) {
-            const float* p =
-                part + ((((long long)b * G + g) * S + si) * nb + c) * 5;
-            if (g == 0) {
-                for (int st = 0; st < 5; ++st) a[st] = p[st];
+        for (int q = 0; q < G; ++q) {
+            const float* p = pq + (((long long)q * S + si) * nb + c) * 5;
+            if (q == 0) {
+                for (int st = 0; st < 5; ++st) a[st] = __ldcg(p + st);
             } else {
-                a[0] += p[0];
-                a[1] += p[1];
-                a[2] += p[2];
-                a[3] = fminf(a[3], p[3]);
-                a[4] = fmaxf(a[4], p[4]);
+                a[0] += __ldcg(p);
+                a[1] += __ldcg(p + 1);
+                a[2] += __ldcg(p + 2);
+                a[3] = fminf(a[3], __ldcg(p + 3));
+                a[4] = fmaxf(a[4], __ldcg(p + 4));
             }
         }
         for (int st = 0; st < 5; ++st)
             out[(((long long)si * 5 + st) * B + b) * nb + c] = a[st];
     }
+    if (t == 0) ctr[b] = 0;
 }
 
 // subs: int64 [S][3] = (fval pointer or 0 for a count sub, present
-// pointer, rows); counts i32[B][nb] zeroed by the wrapper; codes_out
-// i32[B][R] prefilled with -1, or null; part f32 [B*G*S*nb*5] scratch;
-// out f32[S][5][B][nb]. nb is the count width (`size`), radix the level's
-// buckets (both the spec's buckets outside a nested chain).
+// pointer, rows); counts i32[B][nb] and codes_out i32[B][R] (or null),
+// written whole; part f32 [B*G*S*nb*5] and pcount i32[B*G*nb] scratch; ctr
+// i32[>= B] zeros, left zeros; out f32[S][5][B][nb]. nb is the count width
+// (`size`), radix the level's buckets (both the spec's buckets outside a
+// nested chain).
 extern "C" int xt_agg_buckets(const void* ids, const void* elig, int B,
                               long long R, int G, int mode, const void* p0,
                               const void* p1, const void* p2, long long n0,
@@ -314,7 +401,8 @@ extern "C" int xt_agg_buckets(const void* ids, const void* elig, int B,
                               int shift, const void* prev,
                               long long sub_clamp, int nb, int S,
                               const void* subs, void* counts,
-                              void* codes_out, void* part, void* out,
+                              void* codes_out, void* part, void* pcount,
+                              void* ctr, void* out, void* wpg,
                               void* stream) {
     if (B == 0) return 0;
     if (nb < 1 || nb > AB_MAXNB || G < 1 || S < 0 || radix < 1 ||
@@ -334,15 +422,28 @@ extern "C" int xt_agg_buckets(const void* ids, const void* elig, int B,
     src.shift = shift;
     src.prev = (const int*)prev;
     src.sub_clamp = sub_clamp;
-    cudaStream_t st = (cudaStream_t)stream;
-    agg_buckets_part<<<dim3(G, B), AB_THREADS, 0, st>>>(
+    using Kernel = void (*)(const int*, const unsigned char*, long long, int,
+                           const BucketSrc, int, int, const long long*,
+                           int*, int*, float*, int*, int*, float*, float*);
+    if (S > 0 && !ab_wp_shared(nb, S) && wpg == nullptr)
+        return (int)cudaErrorInvalidValue;
+    static const Kernel kernels[6] = {
+        agg_buckets_kernel<0>, agg_buckets_kernel<1>, agg_buckets_kernel<2>,
+        agg_buckets_kernel<3>, agg_buckets_kernel<4>, agg_buckets_kernel<5>};
+    static bool attrs = false;
+    if (!attrs) {
+        for (int m = 0; m < 6; ++m) {
+            const int rc = (int)cudaFuncSetAttribute(
+                kernels[m], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                4 * AB_MAXNB + 4 * AB_WARPS * AB_QCAP + 4 * AB_WP_SMEM);
+            if (rc) return rc;
+        }
+        attrs = true;
+    }
+    kernels[mode]<<<dim3(G, B), AB_THREADS, ab_smem(nb, S),
+                    (cudaStream_t)stream>>>(
         (const int*)ids, (const unsigned char*)elig, R, G, src, nb, S,
         (const long long*)subs, (int*)counts, (int*)codes_out,
-        (float*)part);
-    int rc = (int)cudaGetLastError();
-    if (rc || S == 0) return rc;
-    agg_buckets_fold<<<B, AB_THREADS, 0, st>>>(B, G, S, nb,
-                                               (const float*)part,
-                                               (float*)out);
+        (float*)part, (int*)pcount, (int*)ctr, (float*)out, (float*)wpg);
     return (int)cudaGetLastError();
 }

@@ -25,7 +25,9 @@ what bounds it on the H100 and what its design does about that):
   agg_metrics     K17a   count, masked n / sum / sum of squares / min /
                          max of value columns
   agg_buckets     K17a   terms / missing bucket counts with per-bucket
-                         metric sub-aggregations
+                         metric sub-aggregations, in one launch: every
+                         warp walks the subs' rows, the last block of a
+                         query folds the others' partials
   phrase_leaves   K14    PHRASE / NEAR verdicts of the first cand_cap
                   +K15   candidates of each phrase leaf, found by binary
                          search (wrapper and plain version: ops/phrase.py)
@@ -35,7 +37,10 @@ what bounds it on the H100 and what its design does about that):
 
   collapse_rows   K10    the survivors of a collapse (per key the best
                          min(collapse_max, 8) rows by score) and each
-                         row's tie rank, which topk_rows then orders by
+                         row's tie rank, which topk_rows then orders by:
+                         per-block key tables in shared memory merged by
+                         one block a query, or a global table a query for
+                         a column of many keys (collapse_plan)
   dense_rows      K12    the dense match-all path's rows, one per (query,
                          doc): scores, group bits and the live mask, each
                          doc tile's postings walked term by term
@@ -108,6 +113,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -147,6 +153,15 @@ FULLWIDTH_WINDOW = 64     # K9's tie window (executor.py:428)
 MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
 MAX_AGG_METRICS = 8       # agg_metrics per-thread partials per launch
 MAX_AGG_BUCKETS = 4096    # agg_buckets / agg_ranges shared-memory histogram
+AGG_WARPS = 8             # agg_buckets: warps a block (csrc AB_WARPS)
+AGG_WP_SMEM = 12 * 1024   # agg_buckets: the warps' sub partials in shared
+                          # memory up to this many floats (csrc AB_WP_SMEM)
+AGG_ROWS = 4096           # bucket_plan: rows a block at least
+AGG_BLOCKS = 4096         # bucket_plan: blocks a launch at most
+AGG_FOLD = 65536          # bucket_plan: a query's G x size partials, which
+                          # its last block folds, at most
+AGG_WIDE = 1 << 22        # bucket_plan: the warps' sub partials in device
+                          # memory (past AGG_WP_SMEM), floats at most
 MAX_HIST_BINS = 2048      # agg_hist's shared histogram (ORDER_STAT_BINS)
 SPLIT_BLOCKS = 528        # split-row kernels: B x G ~ 4 blocks an SM
 MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
@@ -157,6 +172,11 @@ MAX_GEO_QR = 1024         # query/plan.py QR_BUCKETS: the cover in 8 KB smem
 MAX_GEO_RMAX = 256        # query/plan.py's RMAX cap
 MAX_COLLAPSE = 8          # _collapse keeps min(collapse_max, 8) rows a key
 MAX_COLLAPSE_ROWS = 2**28  # collapse_rows: slots of the key table fit int32
+COLLAPSE_CHUNK = 4096     # collapse_rows' tiles: rows a chunk (csrc CT_CHUNK)
+COLLAPSE_TABLE = 1024     # collapse_rows' tiles: a shared table's slots at
+                          # most, twice the column's distinct keys or more
+COLLAPSE_BLOCKS = 132     # collapse_rows' tiles: tile blocks of a call (one
+                          # an SM)
 MAX_SPECIAL = 32          # merge_special: max specs / branches / synonyms
 HLL_REGS = 1024           # ops/aggs.py _HLL_M (p = 10)
 SPECIAL_CHANNELS = 32     # merge_special's doc tiles: channels at most
@@ -296,7 +316,7 @@ _SIGNATURES = {
     "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _LL, _LL, _P,
                        _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P, _P, _P,
-                       _P],
+                       _P, _P, _P, _P],
     "xt_agg_ranges": [_P, _P, _I, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P],
     "xt_agg_hist": [_P, _P, _I, _LL, _I, _P, _P, _LL, _P, _I, _P, _P, _I,
@@ -308,6 +328,8 @@ _SIGNATURES = {
     "xt_topk_rows_tie": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P,
                          _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "xt_collapse_tiles": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _I,
+                          _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "xt_dense_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _I, *_SPEC, _I, _P, _P, _P, _P, _P],
     "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
@@ -1674,27 +1696,61 @@ def agg_buckets(ids, eligible, mode: str, codes, nb: int, subs=(), *,
         return _agg_buckets_plain(ids, eligible, mode, codes, nb, subs,
                                   prev, size, want_codes, sub_clamp, remap)
     dev = ids.device
-    G = _split(B, R)
+    G = bucket_plan(B, R, size, S)
     table = _ints(tuple(x for c in subs
                         for x in ((c[0].data_ptr(), c[1].data_ptr(),
                                    c[0].shape[0]) if c is not None
                                   else (0, 0, 0))),
                   dev, torch.int64) if subs else None
-    counts = torch.zeros((B, size), dtype=torch.int32, device=dev)
-    out_codes = torch.full((B, R), -1, dtype=torch.int32, device=dev) \
+    counts = torch.empty((B, size), dtype=torch.int32, device=dev)
+    out_codes = torch.empty((B, R), dtype=torch.int32, device=dev) \
         if want_codes else None
     part = torch.empty(max(B * G * S * size * 5, 1), dtype=torch.float32,
                        device=dev)
+    pcount = torch.empty(B * G * size, dtype=torch.int32, device=dev)
     out = torch.empty((S, 5, B, size), dtype=torch.float32, device=dev)
+    # the warps' sub partials past shared memory (csrc AB_WP_SMEM floats)
+    wide = AGG_WARPS * S * size * 5 > AGG_WP_SMEM
+    wpg = torch.empty(B * G * AGG_WARPS * S * size * 5, dtype=torch.float32,
+                      device=dev) if wide else None
     p0, p1, p2, n0, n1, fpar, ipar, fstride, shift = src
     _launch("agg_buckets", "xt_agg_buckets", ids.data_ptr(),
             eligible.data_ptr(), B, R, G, BUCKET_MODES[mode], _ptr(p0),
             _ptr(p1), _ptr(p2), n0, n1, _ptr(fpar), _ptr(ipar), fstride, nb,
             shift, _ptr(prev), sub_clamp, size, S, _ptr(table),
             counts.data_ptr(), _ptr(out_codes), part.data_ptr(),
-            out.data_ptr(), _stream())
+            pcount.data_ptr(), _tickets(B, dev).data_ptr(), out.data_ptr(),
+            _ptr(wpg), _stream())
     res = (counts, tuple(out.transpose(0, 1)) if S else None)
     return res + (out_codes,) if want_codes else res
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(n: int, device) -> torch.Tensor:
+    """i32 zeros, n or more, kept on the device from call to call: the
+    counters a query of a kernel whose last block folds the others'
+    partials (agg_buckets), which that block sets back to 0."""
+    key = (device.type, device.index)
+    t = _TICKETS.get(key)
+    if t is None or t.shape[0] < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def bucket_plan(B: int, R: int, size: int, S: int = 0) -> int:
+    """agg_buckets' blocks a query (G): one a AGG_ROWS rows, so that a
+    query whose eligible rows crowd one stretch spreads them over many
+    blocks; at most AGG_BLOCKS over the queries, AGG_FOLD // size (its last
+    block folds the G blocks' counts and statistics) and, where the warps'
+    sub partials pass shared memory, AGG_WIDE floats of them."""
+    G = min(-(-R // AGG_ROWS), AGG_BLOCKS // max(B, 1), AGG_FOLD // size)
+    wp = AGG_WARPS * S * size * 5
+    if wp > AGG_WP_SMEM:
+        G = min(G, AGG_WIDE // (max(B, 1) * wp))
+    return max(1, G)
 
 
 def _bucket_src(name, mode, codes, B, R, nb, remap=None) -> tuple:
@@ -2167,14 +2223,31 @@ def collapse_rows(ids, sums, eligible, col, collapse_max: int,
                          f"{MAX_COLLAPSE_ROWS} (the key table's slots are "
                          "int32)")
     dev = ids.device
+    keep = torch.empty((B, R), dtype=torch.bool, device=dev)
+    tie = torch.empty((B, R), dtype=torch.int32, device=dev)
+    ts, G = collapse_plan(B, R, collapse_keys(col))
+    if ts:
+        i64 = dict(dtype=torch.int64, device=dev)
+        lists = B * G
+        ent_n = torch.empty(lists, dtype=torch.int32, device=dev)
+        ent = torch.empty(lists * (ts + 1) * (1 + cmax), **i64)
+        mkeys = torch.empty(B * ts, **i64)
+        mwords = torch.empty(B * (ts + 1) * cmax, **i64)
+        mrank = torch.empty(B * (ts + 1), dtype=torch.int32, device=dev)
+        _launch("collapse_rows", "xt_collapse_tiles", ids.data_ptr(),
+                sums.data_ptr(), eligible.data_ptr(), B, R,
+                col["hi"].data_ptr(), col["lo"].data_ptr(),
+                col["present"].data_ptr(), n, cmax, int(row_order), ts, G,
+                ent_n.data_ptr(), ent.data_ptr(), mkeys.data_ptr(),
+                mwords.data_ptr(), mrank.data_ptr(), keep.data_ptr(),
+                tie.data_ptr(), _stream())
+        return keep, tie
     cap = _pow2_cover(2 * max(R, 1))
     lcap = _pow2_cover(max(R, 1))
     table = torch.empty((3, B, cap + 1), dtype=torch.int64, device=dev)
     slot = torch.empty((B, R), dtype=torch.int32, device=dev)
     lst = torch.empty((B, lcap), dtype=torch.int64, device=dev)
     nkeys = torch.empty(B, dtype=torch.int32, device=dev)
-    keep = torch.empty((B, R), dtype=torch.bool, device=dev)
-    tie = torch.empty((B, R), dtype=torch.int32, device=dev)
     _launch("collapse_rows", "xt_collapse_rows", ids.data_ptr(),
             sums.data_ptr(), eligible.data_ptr(), B, R, col["hi"].data_ptr(),
             col["lo"].data_ptr(), col["present"].data_ptr(), n, cmax,
@@ -2182,6 +2255,53 @@ def collapse_rows(ids, sums, eligible, col, collapse_max: int,
             table[2].data_ptr(), slot.data_ptr(), lst.data_ptr(), lcap,
             nkeys.data_ptr(), keep.data_ptr(), tie.data_ptr(), _stream())
     return keep, tie
+
+
+def collapse_plan(B: int, R: int, n_keys: int) -> tuple:
+    """collapse_rows' design for B queries of R rows over a column of
+    n_keys distinct keys: (TS, G), the tiles' shared table of TS slots (a
+    power of two, at least 16 and twice the keys) and G tile blocks a
+    query (one a chunk of COLLAPSE_CHUNK rows, up to COLLAPSE_BLOCKS over
+    the queries), or (0, 0), the global design, where the table would pass
+    COLLAPSE_TABLE slots."""
+    ts = 16
+    while ts < 2 * n_keys:
+        ts *= 2
+    if ts > COLLAPSE_TABLE:
+        return 0, 0
+    cap = max(1, COLLAPSE_BLOCKS // max(B, 1))
+    return ts, max(1, min(-(-R // COLLAPSE_CHUNK), cap))
+
+
+_KEY_COUNTS: dict = {}
+
+
+def _tensor_tag(t):
+    """(the tensor whose storage t views, a key of t's place and contents
+    there): a view (a shard of the mesh's stacked columns, made anew each
+    call) shares its base's version counter."""
+    base = t._base if t._base is not None else t
+    return base, (id(base), base._version, t.storage_offset(),
+                  tuple(t.shape), tuple(t.stride()))
+
+
+def collapse_keys(col) -> int:
+    """The distinct (hi, lo) keys of a value column's present rows: a
+    bound on any query's keys, counted once a column (one torch.unique and
+    a read back) and cached while its tensors live unchanged."""
+    tags = [_tensor_tag(col[ch]) for ch in _COLLAPSE_CH]
+    key = tuple(k for _b, k in tags)
+    hit = _KEY_COUNTS.get(key)
+    if hit is not None and all(r() is b for r, (b, _k) in zip(hit[0], tags)):
+        return hit[1]
+    hi, lo, present = (col[ch] for ch in _COLLAPSE_CH)
+    packed = ((hi.long() << 32) | (lo.long() & 0xFFFFFFFF))[present]
+    n = int(torch.unique(packed).numel())
+    for k in [k for k, (refs, _n) in _KEY_COUNTS.items()
+              if any(r() is None for r in refs)]:
+        del _KEY_COUNTS[k]
+    _KEY_COUNTS[key] = ([weakref.ref(b) for b, _k in tags], n)
+    return n
 
 
 def _collapse_rows_plain(ids, sums, eligible, col, cmax, row_order=False):
