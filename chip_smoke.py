@@ -257,7 +257,7 @@ call's key names the design kernels.collapse_plan took for it.
 Without a CUDA device, or outside a checkout of the repo, it exits
 non-zero with no result.
 
-    python3 chip_smoke.py [--capture DIR]
+    python3 chip_smoke.py [--capture DIR [--only PATH]]
 
 --capture DIR saves the arguments of the launches tools/sort_pairs.py
 replays (CAPTURE: merge_special at browse S and X, B16 and B32, and a
@@ -271,7 +271,11 @@ its min / max; collapse_rows at browse C's, its dense plans' and the REST
 mesh's shapes; agg_buckets' widest launch of faceted A and D with and
 without subs, browse M, the geo aggregations, the Database path's
 trixels and nested level of 144 buckets, the REST mesh's histogram with
-a sub) as the paths make them.
+a sub; phrase_leaves at the positional launch groups B64 R65536, R196736,
+R262144 and R393344; geo_leaves at geo's B8 R184448 and R312960 and the
+geo aggregations' B64 R25728) as the paths make them. With --only PATH
+(relevance, positional, geo, mesh, rest_mesh) it runs that path alone
+for its captures and prints no result.
 """
 
 from __future__ import annotations
@@ -1563,6 +1567,20 @@ def held_filter(a):
             f"base={base is not None} geo={geobits is not None}", work, None)
 
 
+def lazy_call(make):
+    """A call that runs make()'s call, made at its first run: a capture
+    takes a HELD entry at every launch, a yardstick's inputs are formed
+    only for the launches timed."""
+    made: list = []
+
+    def call():
+        if not made:
+            made.append(make())
+        return made[0]()
+
+    return call
+
+
 def held_geo(a):
     from xapiand_tpu_torch.ops import kernels as kn
 
@@ -1572,11 +1590,57 @@ def held_geo(a):
         check_equal("geo_leaves verdicts", got, want)
         return 0.0
 
+    yard = lazy_call(lambda: geo_lookups(cols, specs, queries, ids))
     return (lambda: kn._geo_leaves_plain(*a), check,
             f"B={ids.shape[0]} R={ids.shape[1]} geo_specs={tuple(specs)} "
             f"base={base is not None}",
             lambda: work_geo(ids, base, cols, specs, queries),
-            lambda: searchsorted_ms(cols, specs, queries, ids))
+            lambda: cuda_ms(yard, reps=5), yard)
+
+
+def phrase_lookups(a):
+    """The library yardstick of K15 inside K14, on phrase_leaves'
+    arguments ``a``: torch.searchsorted of each candidate's docid (the
+    plain version's candidates, formed beforehand) in each phrase term's
+    block. -> the call."""
+    import torch
+
+    from xapiand_tpu_torch.ops import phrase as ph
+    from xapiand_tpu_torch.ops.kernels import row_offsets
+
+    ids, widths, offsets, _lens, orbits, first, posoff, poslen, _pos, \
+        phrases, cand_cap, pmax = a[:12]
+    ro = row_offsets(widths)
+    look = []
+    for tidx, gidx, _w, _e in phrases:
+        cand_d = ph.phrase_candidates(ids, widths, offsets, orbits, first,
+                                      posoff, poslen, tidx, gidx, cand_cap,
+                                      pmax)[0]
+        look += [(ids[:, ro[t]:ro[t + 1]].contiguous(), cand_d)
+                 for t in tidx]
+    return lambda: [torch.searchsorted(x, y) for x, y in look]
+
+
+def held_phrase(a, **_kw):
+    from xapiand_tpu_torch.ops import phrase as ph
+
+    ids, widths = a[0], a[1]
+    phrases, cand_cap, pmax = a[9:12]
+    yard = lazy_call(lambda: phrase_lookups(a))
+
+    def plain():
+        return ph._phrase_leaves_plain(*a[:12])
+
+    def check(got, want):
+        check_equal("phrase_leaves verdicts", got[0], want[0])
+        check_equal("phrase_leaves candidates", got[1], want[1])
+        return 0.0
+
+    return (plain, check,
+            f"B={ids.shape[0]} R={ids.shape[1]} T={len(widths)} "
+            f"NP={len(phrases)} cand_cap={cand_cap} pmax={pmax}",
+            lambda: work_phrase(*a[:8], *a[9:12], plain()[1]),
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 # bytes a bucket code reads per eligible row, by agg_buckets mode
@@ -2164,6 +2228,7 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_metrics": held_metrics, "score_slices": held_slices,
         "merge_docs": held_merge, "compact_rows": held_compact,
         "filter_leaves": held_filter, "geo_leaves": held_geo,
+        "phrase_leaves": held_phrase,
         "agg_buckets": held_buckets, "prefix_certify": held_certify,
         "agg_ranges": held_ranges, "agg_hist": held_hist,
         "agg_filter": held_afilter, "kmeans": held_kmeans,
@@ -2174,6 +2239,19 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
 # kernel's own name: kmeans_cosine calls kmeans_loop (kernels.kmeans, one
 # step, calls it too)
 WRAPPERS = {"kmeans": "kmeans_loop"}
+# the module of xapiand_tpu_torch.ops that holds a kernel's wrapper, where
+# it is not ops/kernels.py
+WRAPPER_HOMES = {"phrase_leaves": "phrase"}
+
+
+def wrapper_home(name):
+    """-> (the module holding the wrapper of kernel ``name``, the
+    wrapper's attribute there)."""
+    import importlib
+
+    mod = importlib.import_module(
+        "xapiand_tpu_torch.ops." + WRAPPER_HOMES.get(name, "kernels"))
+    return mod, WRAPPERS.get(name, name)
 
 # python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
 # replays, by their HELD keys or the start of them up to a space (the
@@ -2216,6 +2294,11 @@ CAPTURE = {
                   "B=1 R=3127 k=10 keys=docid"),       # REST mesh
     "semijoin_rows": None,
     "agg_filter": None,
+    # positional's launch groups (pmax 8 at R65536, 16 past it); geo's two
+    # widths and its aggregation run
+    "phrase_leaves": ("B=64 R=65536", "B=64 R=262144", "B=64 R=196736",
+                      "B=64 R=393344"),
+    "geo_leaves": ("B=8 R=184448", "B=8 R=312960", "B=64 R=25728"),
     # browse S and X at B16 and B32, the schemes' S under TfIdf (sid 2,
     # B64) and X under PL2 (sid 10); no path makes a sparse launch (the
     # probes are held on the card by tests/test_torch_cuda.py)
@@ -2264,8 +2347,6 @@ def capture(dirname):
     run's times are not kept."""
     import torch
 
-    from xapiand_tpu_torch.ops import kernels as kn
-
     os.makedirs(dirname, exist_ok=True)
     done, widest = set(), {}
 
@@ -2306,8 +2387,12 @@ def capture(dirname):
                         if HELD_TAGS[-1:] != [tag]:
                             continue
                     if isinstance(p, re.Pattern):
-                        # collapse_rows' and agg_buckets' ids i32[B,R]
-                        rows = args[0].numel() if p.fullmatch(key) else 0
+                        # the rows of the first tensor argument (ids
+                        # i32[B,R] of collapse_rows, agg_buckets, the
+                        # leaves)
+                        rows = next(x for x in args if isinstance(
+                            x, torch.Tensor)).numel() \
+                            if p.fullmatch(key) else 0
                         if rows > widest.get((name, i), 0):
                             widest[(name, i)] = rows
                             save(name, key, args, kw,
@@ -2323,8 +2408,8 @@ def capture(dirname):
         return call
 
     for name in CAPTURE:
-        attr = WRAPPERS.get(name, name)
-        setattr(kn, attr, hook(name, getattr(kn, attr)))
+        mod, attr = wrapper_home(name)
+        setattr(mod, attr, hook(name, getattr(mod, attr)))
 
 
 class Held:
@@ -2355,12 +2440,10 @@ class Held:
         self.saved: dict = {}
 
     def __enter__(self):
-        from xapiand_tpu_torch.ops import kernels as kn
-
         for name in self.calls:
-            attr = WRAPPERS.get(name, name)
-            self.saved[name] = getattr(kn, attr)
-            setattr(kn, attr, self.hold(name, self.saved[name]))
+            mod, attr = wrapper_home(name)
+            self.saved[name] = getattr(mod, attr)
+            setattr(mod, attr, self.hold(name, self.saved[name]))
         HELD_TAGS.append(self.tag)
         return self
 
@@ -2368,7 +2451,8 @@ class Held:
         from xapiand_tpu_torch.ops import kernels as kn
 
         for name, fn in self.saved.items():
-            setattr(kn, WRAPPERS.get(name, name), fn)
+            mod, attr = wrapper_home(name)
+            setattr(mod, attr, fn)
         HELD_TAGS.pop()
         counts = dict(kn.launches)
         if exc[0] is None:
@@ -3436,33 +3520,34 @@ def faceted_parity(qs, results, want, ncat, tag):
             f"{want[qi]['ranked'][:K]} aggs {want[qi]['aggs']}")
 
 
-def work_phrase(ids, widths, batch, orbits, first, seg, cfg, ncand):
+def work_phrase(ids, widths, offsets, lens, orbits, first, posoff, poslen,
+                phrases, cand_cap, pmax, ncand):
     """phrase_leaves: per (query, leaf) the walked term block's docids up
     to the last candidate kept (the walk stops at cand_cap), per kept
     candidate its first flag and, per phrase term, posoff / poslen and
     its positions; the verdict words written. Operations: a binary search
     per walked row and other phrase term, and per kept candidate one per
     position of t0 and other term. The candidates are the plain version's
-    (ops/phrase.py phrase_candidates)."""
+    (ops/phrase.py phrase_candidates); the arguments are the wrapper's,
+    ncand its candidate counts."""
     import torch
 
     from xapiand_tpu_torch.ops import phrase as ph
     from xapiand_tpu_torch.ops.kernels import row_offsets
 
     B, R = ids.shape
-    lens = batch["lens"]
     ro = row_offsets(widths)
-    nbytes = 4 * B * R + 4 * B * len(cfg.phrases)
+    nbytes = 4 * B * R + 4 * B * len(phrases)
     ops = 0
-    for p, (tidx, gidx, _win, _ex) in enumerate(cfg.phrases):
+    for p, (tidx, gidx, _win, _ex) in enumerate(phrases):
         cand_d, _src, valid, per_term = ph.phrase_candidates(
-            ids, widths, batch["offsets"], orbits, first, seg["post_posoff"],
-            seg["post_poslen"], tidx, gidx, cfg.cand_cap, cfg.pmax)
+            ids, widths, offsets, orbits, first, posoff, poslen, tidx, gidx,
+            cand_cap, pmax)
         rows = torch.minimum(lens[:, list(tidx)], torch.tensor(
             [widths[t] for t in tidx], device=ids.device))
         nw, tw = rows.min(1)
         walked = nw.clone()
-        full = ncand[:, p] >= cfg.cand_cap
+        full = ncand[:, p] >= cand_cap
         if bool(full.any()):
             C = cand_d.shape[1]
             for b in torch.nonzero(full).flatten().tolist():
@@ -3476,7 +3561,7 @@ def work_phrase(ids, widths, batch, orbits, first, seg, cfg, ncand):
                     per_term)
         nbytes += 4 * n_walk + n_cand + 8 * n_cand * len(tidx) + 4 * n_pos
         ops += n_walk * sum(log2c(widths[t]) for t in tidx[1:]) + \
-            n_pos * log2c(cfg.pmax)
+            n_pos * log2c(pmax)
     return nbytes, ops
 
 
@@ -3492,7 +3577,6 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
 
     from xapiand_tpu_torch.ops import kernels as kn
     from xapiand_tpu_torch.ops import phrase as ph
-    from xapiand_tpu_torch.ops.kernels import row_offsets
 
     seg, _params, _post, _args, widths, ids, w, _tail = slices(
         searcher, cfg, batch, stats_d, rec)
@@ -3518,29 +3602,17 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
         pargs = (ids, widths, batch["offsets"], batch["lens"], orbits, mask,
                  seg["post_posoff"], seg["post_poslen"], seg["positions"],
                  cfg.phrases, cfg.cand_cap, cfg.pmax)
+        pkw = {"deleted": deleted, "bits": bits}
+        plain, check, _key, work, _lib, yard = held_phrase(pargs, **pkw)
         phb, ncand = twice("phrase_leaves",
-                           lambda: ph.phrase_leaves(*pargs))
-        pphb, pncand = ph._phrase_leaves_plain(*pargs)
-        check_equal("phrase_leaves verdicts", phb, pphb)
-        check_equal("phrase_leaves candidates", ncand, pncand)
+                           lambda: ph.phrase_leaves(*pargs, **pkw))
+        check((phb, ncand), plain())
         rec.note("phrase_leaves", 0.0,
-                 cuda_ms(lambda: ph.phrase_leaves(*pargs)),
-                 cuda_ms(lambda: ph._phrase_leaves_plain(*pargs), reps=3),
-                 work_phrase(ids, widths, batch, orbits, mask, seg, cfg,
-                             ncand))
+                 cuda_ms(lambda: ph.phrase_leaves(*pargs, **pkw)),
+                 cuda_ms(plain, reps=3), work())
         # the library yardstick of the K15 lookups: torch.searchsorted of
         # the candidates in each phrase term's block
-        ro = row_offsets(widths)
-        look = []
-        for tidx, gidx, _w, _e in cfg.phrases:
-            cand_d = ph.phrase_candidates(
-                ids, widths, batch["offsets"], orbits, mask,
-                seg["post_posoff"], seg["post_poslen"], tidx, gidx,
-                cfg.cand_cap, cfg.pmax)[0]
-            look += [(ids[:, ro[t]:ro[t + 1]].contiguous(), cand_d)
-                     for t in tidx]
-        lookup_ms = cuda_ms(lambda: [torch.searchsorted(a, x)
-                                     for a, x in look])
+        lookup_ms = cuda_ms(yard)
         fargs = (seg["values"], (), (), ids.new_empty((B, 0, 4)), ids, mask,
                  orbits, prog, phb)
         got, want = kn.filter_leaves(*fargs), \
@@ -3709,10 +3781,10 @@ def work_geo(ids, base, cols, specs, queries):
     return nbytes, ops
 
 
-def searchsorted_ms(cols, specs, queries, ids):
+def geo_lookups(cols, specs, queries, ids):
     """The library yardstick of K15 inside K16: torch.searchsorted of the
     same two counts over every row's first RMAX ranges (#qs <= re, #qe <
-    rs), the ranges gathered beforehand."""
+    rs), the ranges gathered beforehand. -> the call."""
     import torch
 
     B = ids.shape[0]
@@ -3725,9 +3797,8 @@ def searchsorted_ms(cols, specs, queries, ids):
         ins.append((q[..., 0].contiguous(), q[..., 1].contiguous(),
                     col["flat_start"][ridx].reshape(B, -1),
                     col["flat_end"][ridx].reshape(B, -1)))
-    return cuda_ms(lambda: [(torch.searchsorted(qs, re, right=True),
-                             torch.searchsorted(qe, rs))
-                            for qs, qe, rs, re in ins], reps=5)
+    return lambda: [(torch.searchsorted(qs, re, right=True),
+                     torch.searchsorted(qe, rs)) for qs, qe, rs, re in ins]
 
 
 def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
@@ -3802,7 +3873,7 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     rec.note("geo_leaves", 0.0, cuda_ms(lambda: kn.geo_leaves(*gargs)),
              cuda_ms(lambda: kn._geo_leaves_plain(*gargs), reps=3),
              work_geo(ids, mask, *gargs[:3]),
-             searchsorted_ms(*gargs[:4]))
+             cuda_ms(geo_lookups(*gargs[:4]), reps=5))
     values = seg["values"]
     fparams = batch["fparams"] if cfg.n_filters else \
         ids.new_empty((B, 0, 4))

@@ -413,7 +413,10 @@ def test_phrase_kernel_matches_plain_version(positional):
         args = (ids, widths, batch["offsets"], batch["lens"], orbits, first,
                 seg["post_posoff"], seg["post_poslen"], seg["positions"],
                 cfg.phrases, cfg.cand_cap, cfg.pmax)
-        got = _twice(lambda: phrase.phrase_leaves(*args))
+        # merge_docs applied no deleted flags; its group bits as the
+        # executor passes them
+        kw = {"deleted": None, "bits": batch["group_bits"]}
+        got = _twice(lambda: phrase.phrase_leaves(*args, **kw))
         want = phrase._phrase_leaves_plain(*args)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         hit_cap += int((got[1] == cfg.cand_cap).sum())
@@ -426,6 +429,89 @@ def test_phrase_kernel_matches_plain_version(positional):
         n += 1
     assert n >= 3 and hit_cap > 0
     torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def leaves_world(cuda):
+    import test_torch_leaves_design as ld
+
+    _corpus, searcher, irs = ld.positional_world(cuda)
+    return {k: ld.phrase_args(searcher, ir) for k, ir in irs.items()}
+
+
+@pytest.mark.parametrize("case", ["common", "apart", "repeated", "near1",
+                                  "near5", "zero", "long", "or_group"])
+def test_phrase_leaves_edge_cases_match_plain_version(leaves_world, case):
+    """The edge shapes of tests/test_torch_leaves_design.py on the card,
+    deleted docs and phrases with no candidate among them: the common
+    phrase with the cap inside the first 1,024-row tile, in the middle of
+    a later one and never reached. Verdict words and candidate counts
+    equal the plain version's, bit for bit twice."""
+    import test_torch_leaves_design as ld
+
+    args, kw, _cfg = leaves_world[case]
+    assert kw["deleted"] is not None
+    caps = [args[10]]
+    if case == "common":
+        _p, _n, info = ld.emulate_phrase_leaves(
+            ld.with_cap(args, 1 << 30), kw, verify=False)
+        at = info[(0, 0)][1]
+        last = int(at[-1]) // ld.PH_TILE
+        assert last >= 1
+        inside = at[at >= last * ld.PH_TILE]
+        caps = [max(1, int((at < ld.PH_TILE).sum()) // 2),
+                int((at < last * ld.PH_TILE).sum()) + len(inside) // 2,
+                len(at) + 5]
+    n = 0
+    for cap in caps:
+        a = ld.with_cap(args, cap)
+        want = phrase._phrase_leaves_plain(*a)
+        got = _twice(lambda: phrase.phrase_leaves(*a, **kw))
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        n += int(want[1].sum())
+    assert (n == 0) == (case in ("zero", "apart"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["qr1", "qr1024", "all_real", "past_rmax",
+                                  "no_base", "wide"])
+def test_geo_leaves_edge_cases_match_plain_version(cuda, case):
+    """geo_leaves on tests/test_torch_leaves_design.py's synthetic columns
+    and covers: a cover of one range and of 1,024, INT32_MAX pads and
+    none, ranges touching a cover range's ends, re = INT32_MAX, docs past
+    RMAX ranges, packed rows (no base), a launch of several row tiles.
+    Verdicts equal the plain version's, bit for bit twice."""
+    import test_torch_leaves_design as ld
+
+    kw = {"qr1": {"QR": 1, "n_real": 1}, "qr1024": {"QR": 1024},
+          "all_real": {"QR": 64, "n_real": 64},
+          "past_rmax": {"RMAX": 4, "max_ranges": 12},
+          "no_base": {"base": False},
+          "wide": {"B": 2, "C": 9000, "QR": 1024, "nd": 4000}}[case]
+    cols, specs, queries, docids, base = ld.geo_case(31 + len(case), **kw)
+    on = (lambda t: None if t is None else t.to(cuda))
+    a = ([{k: v.to(cuda) for k, v in cols[0].items()}], specs,
+         [queries[0].to(cuda)], docids.to(cuda), on(base))
+    want = kernels._geo_leaves_plain(cols, specs, queries, docids, base)
+    got = _twice(lambda: kernels.geo_leaves(*a))
+    assert torch.equal(got.cpu(), want)
+    assert int((want != 0).sum()) > 0
+    torch.cuda.synchronize()
+
+
+def test_geo_leaves_refuses_a_column_without_pairs(cuda):
+    """The kernel reads a geo column's int2 pairs (models/segment.py
+    geo_arrays) and nothing else: a column without them is refused by
+    name, not read as another layout."""
+    import test_torch_leaves_design as ld
+
+    cols, specs, queries, docids, base = ld.geo_case(4)
+    bare = {k: v.to(cuda) for k, v in cols[0].items()
+            if k not in ("span", "flat")}
+    with pytest.raises(ValueError, match="int2 pairs"):
+        kernels.geo_leaves([bare], specs, [queries[0].to(cuda)],
+                           docids.to(cuda), base.to(cuda))
 
 
 def test_phrase_search_cuda_equals_cpu(positional):

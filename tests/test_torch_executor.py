@@ -337,12 +337,14 @@ OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
     # of them than the kernel's table holds
     ("syn_groups", {"syn_groups": (1,) * 33}, "K13"),
     ("max_specs", {"max_specs": ((1, 2),) * 33}, "K13"),
-    # phrases are ported (K14): the case carries a cap beyond the kernel's
+    # phrases are ported (K14): the case carries a cap beyond the kernel's,
+    # refused by the planner's limit it meets
     ("phrases", {"phrases": (((0, 1), (0, 1), 0, True),),
-                 "cand_cap": 8192}, "K14"),
+                 "cand_cap": 8192}, "query/plan.py DEFAULT_CAND_CAP"),
     # geo leaves are ported (K16): the case carries a cover beyond the
-    # kernel's
-    ("geo_specs", {"geo_specs": ((1, 2048, 16),)}, "K16"),
+    # kernel's, refused by the planner's limit it meets
+    ("geo_specs", {"geo_specs": ((1, 2048, 16),)},
+     "query/plan.py QR_BUCKETS"),
     ("with_aggs", {"with_aggs": (("terms", 1, 8192, ()),)}, "K17c"),
     ("sort_kind", {"sort": (("bogus", 1, False),)}, "K8"),
     # the mesh's emitted sort keys (K19) and sorted pages beyond sort_topk's
@@ -448,7 +450,10 @@ def test_configs_outside_the_slice_raise(change, item):
         check_supported(replace(cfg, **change), BM25())
         _sort_vs_jax(replace(cfg, **change))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    # the refusal names the ROADMAP item that ports it, or the limit it
+    # meets
+    match = item if item.startswith("query/") else f"ROADMAP.*{item}"
+    with pytest.raises(NotImplementedError, match=match):
         check_supported(replace(cfg, **change), BM25())
 
 

@@ -298,7 +298,9 @@ def test_phrase_leaves_vs_jax(uniform, zipf, monkeypatch, fam, carry):
         phbits, ncand = phrase.phrase_leaves(
             ids, widths, pb["offsets"], pb["lens"], orbits, first,
             world.parr["post_posoff"], world.parr["post_poslen"],
-            world.parr["positions"], cfg.phrases, cfg.cand_cap, cfg.pmax)
+            world.parr["positions"], cfg.phrases, cfg.cand_cap, cfg.pmax,
+            deleted=world.parr["deleted"] if cfg.has_deletes else None,
+            bits=pb["group_bits"])
         want = _jax_phrase_verdicts(world, jcfg, pb, ids, w, widths)
         for p, wp in enumerate(want):
             got = _pairs(ids.numpy(), ((phbits.numpy() >> p) & 1) == 1)

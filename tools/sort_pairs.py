@@ -18,7 +18,10 @@ faceted A and D, browse M, the geo aggregations, the Database path and
 the REST mesh; kmeans' kmeans_cosine calls, a capture a
 call, which a version without ``kmeans_loop`` replays as its step calls
 and the assignment, 21 wrapper calls, and every version holds by the
-margin rule). DIR is a checkout of the
+margin rule; phrase_leaves at the positional launch groups, whose wrapper
+lives in ``ops/phrase.py``: DIR's copy of that module is loaded over
+DIR's ``ops/kernels.py``; geo_leaves at geo's two widths and the geo
+aggregations'). DIR is a checkout of the
 version to compare with (for example a ``git archive`` of the parent
 commit unpacked under ``_archive/``). The versions, each built with the
 flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
@@ -39,7 +42,9 @@ change's time by kernel, the library call's (HELD's yardstick: ``torch.topk(larg
 docids for the docid key, ``torch.searchsorted`` for agg_filter and
 semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
 shard_reduce, ``torch.bincount`` of the rows' precomputed codes for
-agg_buckets) and the bound (HELD's work over ``chip_smoke.py``'s rates).
+agg_buckets, ``torch.searchsorted`` of the K15 lookups for phrase_leaves
+and of the two counts for geo_leaves) and the bound (HELD's work over
+``chip_smoke.py``'s rates).
 Then the card's name and power limit.
 
 ``tools/synth_captures.py`` writes launches made from a seed in the same
@@ -71,7 +76,8 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "shard_reduce": "shard_merge.cu",
            "merge_special": "merge_special.cu", "kmeans": "kmeans.cu",
            "collapse_rows": "collapse_rows.cu",
-           "agg_buckets": "agg_buckets.cu"}
+           "agg_buckets": "agg_buckets.cu",
+           "phrase_leaves": "phrase_leaves.cu", "geo_leaves": "geo_leaves.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -189,6 +195,24 @@ def load_kernels(parent: str):
     spec = importlib.util.spec_from_file_location("parent_kernels", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    mod.__parent_dir__ = parent
+    return mod
+
+
+def load_home(parent: str, home: str, pmod):
+    """DIR's ops/<home>.py as a module of its own, its names from
+    ops/kernels.py taken from pmod (DIR's), so its wrappers launch from
+    the library pmod is given."""
+    path = os.path.join(parent, "xapiand_tpu_torch", "ops", f"{home}.py")
+    spec = importlib.util.spec_from_file_location(f"parent_{home}", path)
+    mod = importlib.util.module_from_spec(spec)
+    key = "xapiand_tpu_torch.ops.kernels"
+    saved = sys.modules[key]
+    sys.modules[key] = pmod
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.modules[key] = saved
     return mod
 
 
@@ -253,14 +277,20 @@ def replay(path, libs, pmod, rounds):
         check = check_kmeans_call(*args[:3])
     want = plain()
     # the call's arguments by name, as this tree's wrapper takes them; a
-    # version gets those its wrapper has (the parent's may lack some)
-    attr = cs.WRAPPERS.get(name, name)
-    given = inspect.signature(getattr(kn, attr)).bind(*args, **kw).arguments
+    # version gets those its wrapper has (the parent's may lack some); a
+    # wrapper outside ops/kernels.py (chip_smoke.WRAPPER_HOMES) is the
+    # parent's own module's, launching through pmod
+    home, attr = cs.wrapper_home(name)
+    phome = pmod if home is kn else load_home(
+        pmod.__parent_dir__, cs.WRAPPER_HOMES[name], pmod)
+    given = inspect.signature(getattr(home, attr)).bind(*args,
+                                                        **kw).arguments
     run = {}
     for v in ("parent", "change", *(v for v, (k, _f, _a) in
                                     VARIANTS.items() if k == name)):
         mod = pmod if v == "parent" else kn
-        wrapper = getattr(mod, attr) if hasattr(mod, attr) else \
+        where = phome if v == "parent" else home
+        wrapper = getattr(where, attr) if hasattr(where, attr) else \
             functools.partial(parent_kmeans_loop, mod)
         params = inspect.signature(wrapper).parameters
         kwv = {k: x for k, x in given.items() if k in params}

@@ -15,44 +15,82 @@
 // RMAX only, as JAX's [C, RMAX] gather is; each range index clamps to
 // GR - 1), and sets bit g iff one range [rs, re] satisfies
 // #(qs <= re) > #(qe < rs) over the query's cover, whose ranges are
-// sorted, merged and disjoint (htm.cover) and padded with INT32_MAX rows,
-// which neither count ever counts.
+// sorted, merged and disjoint (htm.cover) and padded with INT32_MAX rows.
 //
+// One search a range. The cover's starts qs and ends qe are both
+// ascending (pads included), so with k = #(qe < rs) (lower_bound of rs in
+// qe), #(qs <= re) > k holds exactly when k < QR and qs[k] <= re: the
+// (k+1)-th smallest start is at most re. That holds for any ascending qs,
+// so the verdict is JAX's bit for bit, pads and re = INT32_MAX included.
 // The TPU counted with two streaming sort-joins because its gathers
-// serialise; here each count is a binary search over the cover:
-// upper_bound_i32 over the range starts, lower_bound_i32 over the range
-// ends (common.cuh), the first hit ends the doc's scan.
+// serialise.
 //
-// One block per (query, tile of 256 rows); the block loops over the geo
-// leaves, staging each leaf's cover for its query in shared memory (QR <=
-// 1024 starts and ends, 8 KB) for every thread's searches. A block with no
-// live row writes zeros and returns.
+// Fewer steps. Each block stages its query's cover in shared memory
+// (QR <= 1024 starts and ends, 8 KB) and builds a table over it: GL_NB
+// buckets of 2^s ids from lo = qe[0], s the least shift that puts the
+// last real end (below INT32_MAX) in the table, tab[h] = #(qe < lo +
+// (h << s)). A range start rs in bucket h (h = 0 below lo, GL_NB - 1
+// past the table) has its k in [tab[h], tab[h + 1]] (QR for the last
+// bucket), so the search is a binary search of that bracket, most often a
+// step or two, and exact whatever the bracket's size.
 //
-// Column table, int64 per geo leaf: doc_off, doc_len, flat_start,
-// flat_end (device pointers), nd1 (doc_off rows), GR (flat rows), QR,
-// RMAX, the cover (device pointer to i32[B, QR, 2]).
+// One block a tile of GL_THREADS rows of one query (256), a row a
+// thread. The launch is bound by the latency of each row's chain of
+// gathers (docid, span, range), so what counts is the rows in flight:
+// 2,048 threads an SM, 32 registers a thread at most. More state a thread
+// lost more than it hid: 8 rows a thread took 1.4x the parent's time at
+// geo's shapes, and a row's 8 ranges gathered at once (58 registers)
+// 1.2x a range at a time. Staging the cover once a 1,024 rows (blocks of
+// 1,024) was 3-4% slower than once a 256 at geo's launches and 10% at
+// the geo aggregations' in the final design: a bigger block waits longer
+// at its barriers for its slowest row. A block with no live row writes
+// zeros and returns.
 //
-// Bound on the H100: latency. Per live row the bytes are few (its span,
-// 8 bytes, and 8 bytes a range) and the cover is read from shared memory,
-// but each range is two dependent 10-step searches and each row a
-// dependent chain of three loads; one row a thread keeps the loads of 256
-// rows in flight per block. A warp-cooperative search and a TMA-staged
-// cover are later work.
+// Column table, int64 per geo leaf: span (i32[nd1, 2], each doc's doc_off
+// and doc_len) and flat (i32[GR, 2], each range's start and end), device
+// pointers to the column's int2 pairs, which the segment uploads beside
+// its four channels (models/segment.py geo_arrays); nd1, GR, QR, RMAX,
+// the cover (device pointer to i32[B, QR, 2]).
+//
+// Bound on the H100: bytes - per row the docid and flag read and the word
+// written, per live row its span and ranges, 8 bytes each. The launch
+// takes ~4x that: it waits on each row's chain of gathers. Reading the
+// span and a range as one int2 each (two 32-byte sectors a live row where
+// the four int32 arrays took four) saved ~15%. Against one search of the
+// whole cover, the bracket table saves 6-8% at geo's launches (B8,
+// R184448 and R312960) and costs 5% at the geo aggregations' (B64
+// R25728), in this kernel's blocks of 256 rows (in blocks of 1,024 it
+// saved 10-18% and 4-9%); it is kept for geo, whose launches are the many
+// (161 a run against the aggregations' 4).
 #include "common.cuh"
 
-#define GL_COLS 9
-#define GL_THREADS 256
+#define GL_COLS 7
+#define GL_THREADS 256           // rows a block, a row a thread
+#define GL_NB_LOG 9
+#define GL_NB (1 << GL_NB_LOG)   // bucket table entries: 512
 
-__global__ void geo_leaves_kernel(const int* __restrict__ docids,
-                                  const unsigned char* __restrict__ base,
-                                  const long long* __restrict__ cols, int C,
-                                  int G, int qr_max,
-                                  int* __restrict__ geobits) {
-    extern __shared__ int cover[];   // qs[qr_max], then qe[qr_max]
-    int* qs = cover;
-    int* qe = cover + qr_max;
+// #(a[i] < x) over the ascending a[0, n), x 64-bit
+__device__ __forceinline__ int count_below(const int* a, int n, long long x) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if ((long long)a[mid] < x) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+__global__ void __launch_bounds__(GL_THREADS, 2048 / GL_THREADS)
+geo_leaves_kernel(
+    const int* __restrict__ docids, const unsigned char* __restrict__ base,
+    const long long* __restrict__ cols, int C, int G, int qr_max,
+    int* __restrict__ geobits) {
+    extern __shared__ int smem[];     // qs[qr_max], qe[qr_max], tab[NB + 1]
+    int* qs = smem;
+    int* qe = smem + qr_max;
+    int* tab = smem + 2 * qr_max;
+    __shared__ int shift;
     const int b = blockIdx.y;
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    const int r = blockIdx.x * GL_THREADS + threadIdx.x;
     const long long i = (long long)b * C + r;
     int d = 0;
     bool live = false;
@@ -60,36 +98,55 @@ __global__ void geo_leaves_kernel(const int* __restrict__ docids,
         d = docids[i];
         live = base ? base[i] != 0 : d != XT_SENTINEL;
     }
-    if (!__syncthreads_or(live)) {
-        if (r < C) geobits[i] = 0;
-        return;
-    }
     unsigned bits = 0;
-    for (int g = 0; g < G; ++g) {
-        const long long* c = cols + g * GL_COLS;
-        const int QR = (int)c[6];
-        const int* q = (const int*)c[8] + (long long)b * QR * 2;
-        __syncthreads();   // every thread is done with the last cover
-        for (int j = threadIdx.x; j < QR; j += blockDim.x) {
-            qs[j] = q[2 * j];
-            qe[j] = q[2 * j + 1];
-        }
-        __syncthreads();
-        if (!live) continue;
-        const long long nd1 = c[4], GR = c[5];
-        const int RMAX = (int)c[7];
-        const long long dd = (long long)d < nd1 - 1 ? (long long)d : nd1 - 1;
-        const long long off = ((const int*)c[0])[dd];
-        const int cnt = ((const int*)c[1])[dd];
-        const int n = cnt < RMAX ? cnt : RMAX;
-        const int* fs = (const int*)c[2];
-        const int* fe = (const int*)c[3];
-        for (int j = 0; j < n; ++j) {
-            const long long ri = off + j < GR - 1 ? off + j : GR - 1;
-            const int rs = fs[ri], re = fe[ri];
-            if (upper_bound_i32(qs, QR, re) > lower_bound_i32(qe, QR, rs)) {
-                bits |= 1u << g;
-                break;
+    if (__syncthreads_or(live)) {
+        for (int g = 0; g < G; ++g) {
+            const long long* c = cols + g * GL_COLS;
+            const int2* span = (const int2*)c[0];
+            const int2* flat = (const int2*)c[1];
+            const long long nd1 = c[2], GR = c[3];
+            const int QR = (int)c[4], RMAX = (int)c[5];
+            const int* q = (const int*)c[6] + (long long)b * QR * 2;
+            __syncthreads();   // every thread is done with the last cover
+            if (threadIdx.x == 0) shift = 0;
+            for (int j = threadIdx.x; j < QR; j += GL_THREADS) {
+                qs[j] = q[2 * j];
+                qe[j] = q[2 * j + 1];
+            }
+            __syncthreads();
+            const long long lo = qe[0];
+            // the thread holding the last end below INT32_MAX (the pads
+            // are INT32_MAX) sets the shift: the least s with
+            // (end - lo) >> s < GL_NB
+            for (int j = threadIdx.x; j < QR; j += GL_THREADS)
+                if (qe[j] != 2147483647 &&
+                    (j + 1 == QR || qe[j + 1] == 2147483647)) {
+                    const long long span_ids = (long long)qe[j] - lo;
+                    const int bits_ = 64 - __clzll(span_ids);
+                    shift = bits_ > GL_NB_LOG ? bits_ - GL_NB_LOG : 0;
+                }
+            __syncthreads();
+            const int s = shift;
+            for (int h = threadIdx.x; h < GL_NB; h += GL_THREADS)
+                tab[h] = count_below(qe, QR, lo + ((long long)h << s));
+            if (threadIdx.x == 0) tab[GL_NB] = QR;
+            __syncthreads();
+            if (!live) continue;
+            const int2 sp = span[(long long)d < nd1 - 1 ? (long long)d
+                                                        : nd1 - 1];
+            const int n = min(sp.y, RMAX);
+            for (int j = 0; j < n; ++j) {
+                const long long ri = (long long)sp.x + j;
+                const int2 fr = flat[ri < GR - 1 ? ri : GR - 1];
+                const long long x = fr.x;
+                const int h = x < lo ? 0
+                    : (int)min((x - lo) >> s, (long long)GL_NB - 1);
+                const int a = tab[h], e = tab[h + 1];
+                const int k = a + lower_bound_i32(qe + a, e - a, fr.x);
+                if (k < QR && qs[k] <= fr.y) {
+                    bits |= 1u << g;
+                    break;
+                }
             }
         }
     }
@@ -100,9 +157,10 @@ extern "C" int xt_geo_leaves(const void* docids, const void* base,
                              const void* cols, int B, int C, int G,
                              int qr_max, void* geobits, void* stream) {
     if (B == 0 || C == 0) return 0;
+    // qr_max <= 1024 (kernels.MAX_GEO_QR): at most 10 KB
+    const int smem = (2 * qr_max + GL_NB + 1) * (int)sizeof(int);
     dim3 grid((C + GL_THREADS - 1) / GL_THREADS, B);
-    geo_leaves_kernel<<<grid, GL_THREADS, 2 * qr_max * sizeof(int),
-                        (cudaStream_t)stream>>>(
+    geo_leaves_kernel<<<grid, GL_THREADS, smem, (cudaStream_t)stream>>>(
         (const int*)docids, (const unsigned char*)base,
         (const long long*)cols, C, G, qr_max, (int*)geobits);
     return (int)cudaGetLastError();

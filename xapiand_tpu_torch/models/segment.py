@@ -388,7 +388,9 @@ class Segment:
 # holds the two texts equal). Below is the port's own device mirror: the same
 # arrays, dtypes and arrays_pytree() key names as the JAX DeviceSegment
 # (xapiand_tpu/models/segment.py:386-532), as torch tensors on one device, so
-# a tree exported from either side feeds the other (device_segment_from_numpy).
+# a tree exported from either side feeds the other (device_segment_from_numpy),
+# plus each geo column's int2 pairs (geo_arrays), which only geo_leaves reads
+# on the card: a JAX tree feeds the port's plain versions as it is.
 
 import dataclasses  # noqa: E402
 import threading  # noqa: E402
@@ -401,6 +403,19 @@ _VALUE_DTYPES = {"hi": np.int32, "lo": np.int32, "max_hi": np.int32,
                  "mv_lo": np.int32, "mv_off": np.int32, "mv_len": np.int32}
 
 
+def geo_arrays(g: GeoColumn) -> dict:
+    """A geo column's device arrays: the four int32 channels the JAX
+    package uploads, and the int2 pairs csrc/geo_leaves.cu reads - span
+    i32[ND+1, 2] (each doc's doc_off, doc_len) and flat i32[GR, 2] (each
+    range's flat_start, flat_end) - so that a doc's span and a range are
+    one 8-byte gather each."""
+    out = {ch: np.asarray(getattr(g, ch), np.int32)
+           for ch in ("flat_start", "flat_end", "doc_off", "doc_len")}
+    out["span"] = np.stack((out["doc_off"], out["doc_len"]), 1)
+    out["flat"] = np.stack((out["flat_start"], out["flat_end"]), 1)
+    return out
+
+
 def _host_tree(seg: Segment) -> dict:
     """The numpy arrays a DeviceSegment uploads, keyed as arrays_pytree()."""
     uniq = seg.uniqterms if seg.uniqterms is not None \
@@ -410,9 +425,7 @@ def _host_tree(seg: Segment) -> dict:
         values[slot] = {ch: np.asarray(getattr(col, ch), dt)
                         for ch, dt in _VALUE_DTYPES.items()
                         if getattr(col, ch) is not None}
-    geo = {slot: {ch: np.asarray(getattr(g, ch), np.int32)
-                  for ch in ("flat_start", "flat_end", "doc_off", "doc_len")}
-           for slot, g in seg.geo.items()}
+    geo = {slot: geo_arrays(g) for slot, g in seg.geo.items()}
     return {
         "post_docids": np.asarray(seg.post_docids, np.int32),
         "post_wdf": np.asarray(seg.post_wdf, np.float32),
@@ -484,5 +497,6 @@ class DeviceSegment:
             return True
 
     def arrays_pytree(self) -> dict:
-        """All device arrays, keyed as the JAX package's arrays_pytree()."""
+        """All device arrays, keyed as the JAX package's arrays_pytree()
+        (and each geo column's int2 pairs, geo_arrays)."""
         return {**self.arrays, **self.impact}

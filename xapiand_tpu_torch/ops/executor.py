@@ -161,11 +161,13 @@ def check_supported(cfg: ExecConfig, scheme):
         (cfg.collapse_slot is not None and not cfg.dense and any(cfg.prefix),
          "a collapse in impact-prefix mode (ROADMAP queue 2, K10)"),
         (len(cfg.geo_specs) > kernels.MAX_GEO,
-         f"more than {kernels.MAX_GEO} geo leaves (ROADMAP queue 2, K16)"),
+         f"more than {kernels.MAX_GEO} geo leaves (K16 writes one int32 "
+         "verdict word a row)"),
         (any(qr > kernels.MAX_GEO_QR or rm > kernels.MAX_GEO_RMAX
              for _s, qr, rm in cfg.geo_specs),
-         f"geo covers beyond {kernels.MAX_GEO_QR} ranges or docs beyond "
-         f"{kernels.MAX_GEO_RMAX} ranges (ROADMAP queue 2, K16)"),
+         f"geo covers beyond {kernels.MAX_GEO_QR} ranges (query/plan.py "
+         f"QR_BUCKETS) or docs beyond {kernels.MAX_GEO_RMAX} ranges "
+         "(query/plan.py bind's RMAX cap): K16's limits"),
         (any(s[0] not in SORT_KINDS for s in cfg.sort),
          f"sort kinds other than {SORT_KINDS} (ROADMAP queue 2, K8)"),
     )
@@ -537,7 +539,7 @@ def execute_batch(seg: dict, batch: dict, cfg: ExecConfig, stats: dict,
             phbits, _ = phrase.phrase_leaves(
                 ids, widths, offsets, lens, orbits, mask, seg["post_posoff"],
                 seg["post_poslen"], seg["positions"], cfg.phrases,
-                cfg.cand_cap, cfg.pmax)
+                cfg.cand_cap, cfg.pmax, deleted=deleted, bits=bits)
         geobits = None
         if cfg.geo_specs:
             # the HTM range tests: after the merge or the precompaction,

@@ -322,8 +322,9 @@ _SIGNATURES = {
     "xt_agg_hist": [_P, _P, _I, _LL, _I, _P, _P, _LL, _P, _I, _P, _P, _I,
                     _I, _P, _P, _P],
     "xt_agg_filter": [_P, _P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P],
-    "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _P, _P, _P],
+    "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL, _P,
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P],
     "xt_geo_leaves": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "xt_topk_rows_tie": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "xt_collapse_rows": [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P,
@@ -1159,7 +1160,9 @@ def geo_leaves(cols, specs, queries, docids, base):
     [rs, re] overlaps the query's cover, #(qs <= re) > #(qe < rs).
 
     cols: per leaf the segment's geo column {doc_off, doc_len i32[ND+1],
-    flat_start, flat_end i32[GR]}; specs: ExecConfig.geo_specs (slot, QR,
+    flat_start, flat_end i32[GR], and the kernel's int2 pairs span
+    i32[ND+1,2], flat i32[GR,2] (models/segment.py geo_arrays; read on
+    the card only)}; specs: ExecConfig.geo_specs (slot, QR,
     RMAX); queries: per leaf the batch's cover i32[B,QR,2], each query's
     ranges sorted, disjoint, padded with INT32_MAX rows; docids i32[B,C]
     (a docid past the pad doc clamps to it, as SENTINEL rows do); base
@@ -1192,9 +1195,16 @@ def geo_leaves(cols, specs, queries, docids, base):
     dev = docids.device
     table = []
     for col, (_slot, QR, RMAX), q in zip(cols, specs, queries):
-        table += [_ptr(col[ch]) for ch in _GEO_CH]
-        table += [col["doc_off"].shape[0], col["flat_start"].shape[0], QR,
-                  RMAX, q.data_ptr()]
+        if "span" not in col or "flat" not in col:
+            raise ValueError("geo_leaves: a geo column without its int2 "
+                             "pairs (models/segment.py geo_arrays)")
+        span, flat = col["span"], col["flat"]
+        _check("geo_leaves.span", span, torch.int32,
+               (col["doc_off"].shape[0], 2))
+        _check("geo_leaves.flat", flat, torch.int32,
+               (col["flat_start"].shape[0], 2))
+        table += [span.data_ptr(), flat.data_ptr(), span.shape[0],
+                  flat.shape[0], QR, RMAX, q.data_ptr()]
     geobits = torch.empty((B, C), dtype=torch.int32, device=dev)
     _launch("geo_leaves", "xt_geo_leaves", docids.data_ptr(), _ptr(base),
             torch.tensor(table, dtype=torch.int64, device=dev).data_ptr(),

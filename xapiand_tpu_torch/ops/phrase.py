@@ -30,53 +30,70 @@ import torch
 
 from xapiand_tpu_torch.ops.kernels import (MAX_CAND_CAP, MAX_PHRASES,
                                            MAX_PMAX, SENTINEL, _check, _ints,
-                                           _launch, _on_cuda, _stream,
+                                           _launch, _on_cuda, _ptr, _stream,
                                            row_offsets)
+
+PHRASE_TILE = 1024   # walked rows a count / compact block (csrc PH_TILE)
 
 
 def check_phrases(phrases, cand_cap: int, pmax: int):
-    """NotImplementedError, naming K14, for a plan beyond the kernel's
-    limits."""
+    """NotImplementedError, naming the limit it meets, for a plan beyond
+    the kernel's limits."""
     checks = (
         (len(phrases) > MAX_PHRASES,
-         f"more than {MAX_PHRASES} phrase leaves in one plan"),
+         f"more than {MAX_PHRASES} phrase leaves in one plan (K14 writes "
+         "one int32 verdict word a row)"),
         (cand_cap > MAX_CAND_CAP,
-         f"cand_cap {cand_cap} above {MAX_CAND_CAP}"),
-        (pmax > MAX_PMAX, f"pmax {pmax} above {MAX_PMAX}"),
+         f"cand_cap {cand_cap} above {MAX_CAND_CAP}, K14's limit "
+         "(query/plan.py DEFAULT_CAND_CAP)"),
+        (pmax > MAX_PMAX, f"pmax {pmax} above {MAX_PMAX}, K14's limit "
+         "(query/plan.py DEFAULT_PMAX, the positions guard)"),
     )
     for bad, what in checks:
         if bad:
-            raise NotImplementedError(f"not ported yet: {what} (ROADMAP "
-                                      "queue 2, K14)")
+            raise NotImplementedError(f"not ported yet: {what}")
 
 
 def phrase_table(phrases) -> tuple:
     """ExecConfig.phrases -> (the kernel's int32 table: per leaf n_terms,
-    exact, window, 0, then the term indices, zero-padded to cols; cols,
-    4 + the longest leaf's terms)."""
+    exact, window, allbits (the OR of its group bits), then the term
+    indices, zero-padded to cols; cols, 4 + the longest leaf's terms)."""
     cols = 4 + max(len(p[0]) for p in phrases)
     out: list = []
-    for term_idxs, _groups, window, exact in phrases:
-        row = [len(term_idxs), int(bool(exact)), int(window), 0]
+    for term_idxs, groups, window, exact in phrases:
+        allbits = 0
+        for g in groups:
+            allbits |= 1 << int(g)
+        row = [len(term_idxs), int(bool(exact)), int(window), allbits]
         row += [int(t) for t in term_idxs]
         out += row + [0] * (cols - len(row))
     return tuple(out), cols
 
 
 def phrase_leaves(ids, widths, offsets, lens, orbits, first, posoff, poslen,
-                  positions, phrases, cand_cap: int, pmax: int):
+                  positions, phrases, cand_cap: int, pmax: int, *,
+                  deleted, bits):
     """The verdict word of every row for the plan's phrase leaves.
 
     ids i32[B,R] (score_slices: term blocks docid-ascending, SENTINEL past
     each term's postings), widths the term blocks' widths; offsets / lens
     i32[B,T] (the plan's posting spans); orbits i32[B,R] and first
-    bool[B,R] (merge_docs: the doc's OR of group bits, owner & not
-    deleted); posoff / poslen i32[P] and positions i32[PP] (the segment's
-    positional arrays); phrases: ExecConfig.phrases; cand_cap, pmax: the
-    plan's caps.
+    bool[B,R] (merge_docs: the doc's OR of group bits on every row of the
+    doc, owner & not deleted); posoff / poslen i32[P] and positions i32[PP]
+    (the segment's positional arrays); phrases: ExecConfig.phrases (each
+    phrase term in a group of its own, as the planner makes them);
+    cand_cap, pmax: the plan's caps; deleted bool[ND+1] or None: the
+    deleted flags merge_docs applied to ``first``, None where it applied
+    none (no default: every caller says which); bits i32[B,T]: the group
+    bits merge_docs ORed into ``orbits``.
     -> phbits i32[B,R] (bit p set at the owner row of each doc phrase
        leaf p holds for), ncand i32[B,NP] (candidates verified: the first
-       cand_cap at most)."""
+       cand_cap at most).
+
+    The kernel (csrc/phrase_leaves.cu) takes a candidate's not-deleted
+    test from ``deleted`` and its owner from ``bits``, the plain version
+    from ``first``: the two agree where ``first`` is merge_docs' with
+    those flags and bits."""
     widths = tuple(int(w) for w in widths)
     B, R = ids.shape
     T = len(widths)
@@ -91,23 +108,37 @@ def phrase_leaves(ids, widths, offsets, lens, orbits, first, posoff, poslen,
     for name, t in (("posoff", posoff), ("poslen", poslen),
                     ("positions", positions)):
         _check(f"phrase_leaves.{name}", t, torch.int32)
+    _check("phrase_leaves.bits", bits, torch.int32, (B, T))
+    opt = []
+    if deleted is not None:
+        _check("phrase_leaves.deleted", deleted, torch.bool)
+        opt.append(deleted)
     if not _on_cuda("phrase_leaves", ids, offsets, lens, orbits, first,
-                    posoff, poslen, positions):
+                    posoff, poslen, positions, bits, *opt):
         return _phrase_leaves_plain(ids, widths, offsets, lens, orbits,
                                     first, posoff, poslen, positions,
                                     phrases, cand_cap, pmax)
     dev = ids.device
     NP = len(phrases)
     table, cols = phrase_table(phrases)
-    phbits = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    # count / compact tiles: the widest leaf's shortest phrase term; the
+    # count and compact passes zero-fill phbits
+    walk = max(min(widths[t] for t in p[0]) for p in phrases)
+    tiles = max(1, -(-walk // PHRASE_TILE))
+    phbits = torch.empty((B, R), dtype=torch.int32, device=dev)
     ncand = torch.empty((B, NP), dtype=torch.int32, device=dev)
+    scratch = torch.empty(B * NP * (tiles + max(int(cand_cap), 1)),
+                          dtype=torch.int32, device=dev)
     _launch("phrase_leaves", "xt_phrase_leaves", ids.data_ptr(),
             _ints(widths, dev).data_ptr(),
             _ints(row_offsets(widths), dev).data_ptr(), B, T, R,
-            offsets.data_ptr(), lens.data_ptr(), first.data_ptr(),
-            posoff.data_ptr(), poslen.data_ptr(), positions.data_ptr(),
-            _ints(table, dev).data_ptr(), cols, NP, int(cand_cap), int(pmax),
-            phbits.data_ptr(), ncand.data_ptr(), _stream())
+            offsets.data_ptr(), lens.data_ptr(), orbits.data_ptr(),
+            _ptr(deleted), 0 if deleted is None else deleted.shape[0],
+            bits.data_ptr(), posoff.data_ptr(), poslen.data_ptr(),
+            positions.data_ptr(), _ints(table, dev).data_ptr(), cols, NP,
+            int(cand_cap), int(pmax), tiles, scratch.data_ptr(),
+            scratch[B * NP * tiles:].data_ptr(), phbits.data_ptr(),
+            ncand.data_ptr(), _stream())
     return phbits, ncand
 
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from xapiand_tpu_torch.models.builder import SegmentBuilder
-from xapiand_tpu_torch.models.segment import Segment, size_class
+from xapiand_tpu_torch.models.segment import Segment, geo_arrays, size_class
 from xapiand_tpu_torch.models.weights import CollectionStats, get_scheme
 from xapiand_tpu_torch.ops import kernels
 from xapiand_tpu_torch.ops.executor import ExecConfig, execute_batch
@@ -247,10 +247,9 @@ def stack_segments(segments: list[Segment], mesh: Mesh) -> dict:
             for ch in ("mv_hi", "mv_lo", "mv_off", "mv_len"):
                 v[ch] = shard_arr([getattr(c, ch) for c in cols], np.int32)
     for slot in segments[0].geo:
-        gs = [s.geo[slot] for s in segments]
-        out["geo"][slot] = {
-            ch: shard_arr([getattr(g, ch) for g in gs], np.int32)
-            for ch in ("flat_start", "flat_end", "doc_off", "doc_len")}
+        gs = [geo_arrays(s.geo[slot]) for s in segments]
+        out["geo"][slot] = {ch: shard_arr([g[ch] for g in gs], np.int32)
+                            for ch in gs[0]}
     return out
 
 
