@@ -630,15 +630,56 @@ def n_rows(values):
     return max((c["present"].shape[0] for c in values.values()), default=1)
 
 
-def work_filter(ids, base, F, phbits, n_col=None):
-    """filter_leaves: docids, orbits, base and verdict words read per row,
-    5 key words of 17 bytes a leaf per first row (of n_col column rows at
-    most), eligible written."""
+PACKED_CH = ("keys", "codes", "code_hll")
+
+
+def packed_bytes(values):
+    """The device bytes of the value columns' packed keys and codes
+    (models/segment.py value_arrays), and of the columns whole."""
+    from xapiand_tpu_torch.parallel.sharded import stacked_nbytes
+
+    packed = stacked_nbytes({s: {ch: c[ch] for ch in PACKED_CH if ch in c}
+                             for s, c in values.items()})
+    return packed, stacked_nbytes(values)
+
+
+def log_packed(tag, searcher):
+    """[index] line: a segment's device bytes, whole and those of its value
+    columns' packed keys and codes."""
+    from xapiand_tpu_torch.parallel.sharded import stacked_nbytes
+
+    tree = searcher.device_segment.arrays_pytree()
+    packed, cols = packed_bytes(tree["values"])
+    total = stacked_nbytes(tree)
+    log(f"[index] {tag}: the segment {total} bytes on the card, its value "
+        f"columns {cols}, of which their packed keys and codes {packed} "
+        f"({packed / max(total - packed, 1):.2%} over the rest)")
+
+
+def work_filter(ids, base, F, phbits, n_col=None, geobits=None,
+                prog=None):
+    """filter_leaves, the function: on every row its flag byte (base) and
+    its eligible byte written; on a first row its docid where a leaf
+    reads it (F > 0), its orbits where the tree prog reads a group bit
+    (any prog but one without a G leaf) and its verdict words (phrase,
+    geo), and 17 bytes a leaf (the four key words and present; the column
+    read at most once, of n_col rows); where base is None (packed rows)
+    the docid is the flag and is read on every row; the count written a
+    query."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
     B, C = ids.shape
     first = base if base is not None else ids != 2**31 - 1
-    per_row = 8 + (1 if base is not None else 0) + \
-        (4 if phbits is not None else 0) + 1
-    return work_selected(B, C, per_row, n_true(first), 17 * F, 4 * B, n_col)
+    nf = n_true(first)
+    words = 4 * ((phbits is not None) + (geobits is not None))
+    if prog is None or any(i & 0xff == kn.OP_G for i in prog):
+        words += 4
+    if base is not None:
+        per_row, per_first = 2, (4 if F else 0) + words
+    else:
+        per_row, per_first = 5, words
+    col = 17 * F * (nf if n_col is None else min(nf, n_col))
+    return per_row * B * C + per_first * nf + col + 4 * B, B * C + nf
 
 
 # bytes of one eligible row's sort key columns, by key kind
@@ -829,8 +870,7 @@ def compare_aggs(values, specs, ids, elig, rec, what):
             note("agg_metrics", check_stats("agg_metrics", got[1:], want[1:]),
                  lambda: kn.agg_metrics(*args),
                  lambda: kn._agg_metrics_plain(*args),
-                 work_selected(B, R, 5, ne, 5 * M, 20 * M * B + 4 * B,
-                               n_rows(values)))
+                 work_metrics(ids, elig, M, n_rows(values)))
     for sp in specs:
         if sp[0] not in ("terms", "missing"):
             continue
@@ -931,7 +971,7 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
                  cuda_ms(lambda: kn.filter_leaves(*fargs)),
                  cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
                  work_filter(ids, mask, cfg.n_filters, None,
-                             n_rows(values)))
+                             n_rows(values), prog=prog))
         mask = got[0]
     if cfg.with_aggs:
         compare_aggs(values, cfg.with_aggs, ids, mask, rec, shape_name)
@@ -1235,12 +1275,24 @@ def work_special(ids, widths, bits, offsets, post_wdf, max_specs,
 
 
 def work_distinct(ids, elig, n_col):
-    """agg_distinct: docid and flag per row, the key column (n_col rows)
-    per eligible row, the count and 1024 registers written per query; a
-    hash and an insert per eligible row."""
+    """agg_distinct, the function: the flag byte of every row; an eligible
+    row's docid, and its key (hi, lo, present: 9 bytes, the column read
+    at most once, of n_col rows); the count and 1024 registers written a
+    query; a hash and an insert an eligible row."""
     B, R = ids.shape
     ne = n_true(elig)
-    return 5 * B * R + 9 * min(ne, n_col) + 4 * B * 1025, B * R + ne
+    return B * R + 4 * ne + 9 * min(ne, n_col) + 4 * B * 1025, B * R + ne
+
+
+def work_metrics(ids, elig, M, n_col):
+    """agg_metrics over M channels, the function: the flag byte of every
+    row; an eligible row's docid and its 5 bytes a channel (the column
+    read at most once, of n_col rows); 5 statistics a channel and the
+    count written a query."""
+    B, R = ids.shape
+    ne = n_true(elig)
+    b, ops = work_selected(B, R, 1, ne, 5 * M, 20 * M * B + 4 * B, n_col)
+    return b + 4 * ne, ops
 
 
 def held_collapse(a):
@@ -1423,8 +1475,12 @@ def held_distinct(a):
             (B, kn.HLL_REGS), dtype=torch.int32,
             device=ids.device).scatter_reduce_(1, idx, rho, "amax"), reps=2)
 
+    # the set's codes and the scratch bytes of its words
+    K = col["code_hll"].shape[0] if "code_hll" in col else None
+    scratch = f" K={K} scratch={4 * ids.shape[0] * kn.distinct_words(K)}" \
+        if K is not None else ""
     return (lambda: kn._agg_distinct_plain(ids, elig, col), check,
-            f"B={ids.shape[0]} R={ids.shape[1]}",
+            f"B={ids.shape[0]} R={ids.shape[1]}{scratch}",
             lambda: work_distinct(ids, elig, col["present"].shape[0]),
             library)
 
@@ -1557,9 +1613,8 @@ def held_filter(a):
         return 0.0
 
     def work():
-        nbytes, ops = work_filter(ids, base, len(slots), phbits,
-                                  n_rows(values))
-        return nbytes + (4 * ids.numel() if geobits is not None else 0), ops
+        return work_filter(ids, base, len(slots), phbits, n_rows(values),
+                           geobits, prog)
 
     return (lambda: kn._filter_leaves_plain(cols, vm, fparams, ids, base,
                                             orbits, prog, phbits, geobits),
@@ -2064,9 +2119,8 @@ def held_metrics(a):
     M = len(cols)
     return (lambda: kn._agg_metrics_plain(ids, elig, cols), check,
             f"B={B} R={R} metrics={M}",
-            lambda: work_selected(B, R, 5, n_true(elig), 5 * M,
-                                  20 * M * B + 4 * B,
-                                  cols[0][0].shape[0] if cols else None),
+            lambda: work_metrics(ids, elig, M,
+                                 cols[0][0].shape[0] if cols else None),
             None)
 
 
@@ -2332,7 +2386,20 @@ CAPTURE = {
                     re.compile(r"B=1 R=57472 histogram .* subs=1"),
                     ("k21 join", re.compile(r"B=64 R=\d+ terms .* subs=0")),
                     ("k21 semijoin",
-                     re.compile(r"B=64 R=\d+ terms .* subs=0")))}
+                     re.compile(r"B=64 R=\d+ terms .* subs=0"))),
+    # geo's two widths and its aggregation run, positional over the PH
+    # bits, browse M (dense, one F leaf), N and C (the widest of its
+    # one-query calls), faceted B at its cap (packed rows, base None) and C
+    "filter_leaves": ("B=8 R=184448", "B=8 R=312960", "B=64 R=25728",
+                      "B=64 R=262144", "B=256 R=1000001", "B=64 R=1000001",
+                      ("browse", re.compile(r"B=1 R=\d+ .*")),
+                      re.compile(r"B=\d+ R=131072 F=\d+ base=False .*"),
+                      "B=64 R=1048576"),
+    # browse M and the geo aggregations
+    "agg_distinct": ("B=256 R=1000001", "B=64 R=25728"),
+    # faceted A and D (fullwidth), the geo aggregations' geo_stats
+    "agg_metrics": (re.compile(r"B=64 R=1310720 .*"),
+                    re.compile(r"B=32 R=1835136 .*"), "B=64 R=25728")}
 # the tags of the Held blocks open, innermost last
 HELD_TAGS: list = []
 
@@ -2389,9 +2456,10 @@ def capture(dirname):
                     if isinstance(p, re.Pattern):
                         # the rows of the first tensor argument (ids
                         # i32[B,R] of collapse_rows, agg_buckets, the
-                        # leaves)
-                        rows = next(x for x in args if isinstance(
-                            x, torch.Tensor)).numel() \
+                        # leaves), filter_leaves' docids
+                        rows = (args[4] if name == "filter_leaves" else
+                                next(x for x in args if isinstance(
+                                    x, torch.Tensor))).numel() \
                             if p.fullmatch(key) else 0
                         if rows > widest.get((name, i), 0):
                             widest[(name, i)] = rows
@@ -3227,6 +3295,7 @@ def relevance_path(dev, rec, smi) -> tuple:
     searcher = SegmentSearcher(seg, device=dev)
     bs = BatchSearcher(searcher, k=K, max_batch=MAX_BATCH,
                        prefix_cap=PREFIX_CAP)
+    log_packed("relevance", searcher)
     stats = CollectionStats(doc_count=seg.doc_count,
                             avg_doclen=seg.avg_doclen, doclen_lower=1.0)
     planned = bs.plan(irs, stats=stats)
@@ -3321,6 +3390,7 @@ def faceted_path(dev, rec, smi) -> tuple:
     searcher = SegmentSearcher(seg, device=dev)
     stats = CollectionStats(doc_count=seg.doc_count,
                             avg_doclen=seg.avg_doclen, doclen_lower=1.0)
+    log_packed("faceted", searcher)
     stats_d = {"N": float(stats.doc_count),
                "avg_doclen": float(stats.avg_doclen)}
 
@@ -3623,7 +3693,7 @@ def compare_positional(searcher, cfg, batch, stats_d, rec, shape_name):
                  cuda_ms(lambda: kn.filter_leaves(*fargs)),
                  cuda_ms(lambda: kn._filter_leaves_plain([], (),
                                                          *fargs[3:])),
-                 work_filter(ids, mask, 0, phb))
+                 work_filter(ids, mask, 0, phb, prog=prog))
         mask = got[0]
     targs = (sums, ids, mask, cfg.k)
     got, want = kn.topk_rows(*targs), kn._topk_rows_plain(*targs)
@@ -3664,6 +3734,7 @@ def positional_path(dev, rec, smi) -> dict:
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
     searcher = SegmentSearcher(seg, device=dev)
+    log_packed("positional", searcher)
     bs = BatchSearcher(searcher, k=K)
     stats = CollectionStats(doc_count=seg.doc_count,
                             avg_doclen=seg.avg_doclen, doclen_lower=1.0)
@@ -3885,10 +3956,10 @@ def compare_geo(searcher, cfg, batch, stats_d, rec, shape_name, full):
     check_equal("filter_leaves eligible", got[0], want[0])
     check_equal("filter_leaves count", got[1], want[1])
     F = cfg.n_filters
-    nbytes, ops = work_filter(ids, mask, F, None, n_rows(values))
     rec.note("filter_leaves", 0.0, cuda_ms(lambda: kn.filter_leaves(*fargs)),
              cuda_ms(lambda: kn._filter_leaves_plain(*pargs)),
-             (nbytes + 4 * ids.numel(), ops))
+             work_filter(ids, mask, F, None, n_rows(values), geobits,
+                         prog))
     elig = got[0]
     spec = (("docid", None, False),)
     sargs = (spec, ids, sums, elig, cfg.k, values)
@@ -3933,6 +4004,7 @@ def geo_path(dev, rec, smi) -> dict:
         f"{GEO_P}, T {GEO_T}) in {time.time() - t0:.1f} s")
     t0 = time.time()
     searcher = SegmentSearcher(seg, device=dev)
+    log_packed("geo", searcher)
     bs = BatchSearcher(searcher, k=K)
     stats = CollectionStats(doc_count=seg.doc_count,
                             avg_doclen=seg.avg_doclen, doclen_lower=1.0)
@@ -4170,6 +4242,8 @@ def database_path(dev, rec, smi) -> dict:
         f"({DB_COMMITS} + 1); segments "
         f"{[s.segment.num_docs for s in db._searchers]}, live "
         f"{db.doc_count}")
+    for i, s in enumerate(db._searchers):
+        log_packed(f"database segment {i}", s)
     qs, terms = sd.queries(corpus, n_each=DB_EACH, n_terms=DB_TERMS,
                            seed=11)
 
@@ -4838,12 +4912,15 @@ def mesh_path(dev, rec, smi) -> dict:
     torch.cuda.synchronize()
     t2 = time.time()
     nbytes = sharded.stacked_nbytes(idx._stacked)
+    packed, _cols = packed_bytes(idx._stacked["values"])
     log(f"[index] mesh: config 5, {MESH_DOCS} docs over {MESH_SHARDS} "
         f"shards ({[s.num_docs for s in corpus.segments]} docs; "
         f"{sum(s.post_docids.shape[0] for s in corpus.segments)} postings "
         f"with guards), built in {t1 - t0:.1f} s; padded and stacked on "
         f"the card in {t2 - t1:.1f} s: {nbytes} bytes "
-        f"({nbytes / 2**30:.2f} GiB), dp = 1 (one card)")
+        f"({nbytes / 2**30:.2f} GiB), of which the value columns' packed "
+        f"keys and codes {packed} ({(nbytes - packed) / 2**30:.2f} GiB "
+        f"without them), dp = 1 (one card)")
     qs = sm.queries5(MESH_QUERIES)
     dsl = QueryDSL(idx.schema)
     irs = [dsl.parse(q) for _w, q in qs]
@@ -5255,7 +5332,14 @@ def collapse_designs_phase(dev):
 # the paths that need no other path's world, for --only
 ALONE = {"relevance": "relevance_path", "positional": "positional_path",
          "geo": "geo_path", "mesh": "mesh_path",
-         "rest_mesh": "rest_mesh_path"}
+         "rest_mesh": "rest_mesh_path", "faceted": "faceted_browse_path"}
+
+
+def faceted_browse_path(dev, rec, smi):
+    """The faceted path, then the browse path over its corpus (--only
+    faceted: their captures without the paths before and after them)."""
+    _fac, corpus, searcher, _gate = faceted_path(dev, rec, smi)
+    browse_path(dev, rec, smi, corpus, searcher)
 
 
 def main() -> int:

@@ -36,7 +36,8 @@ import pytest
 import torch
 
 from xapiand_tpu_torch.aggregations import compile_for_segment
-from xapiand_tpu_torch.models.segment import device_segment_from_numpy
+from xapiand_tpu_torch.models.segment import (device_segment_from_numpy,
+                                              value_arrays)
 from xapiand_tpu_torch.ops import aggs, kernels, phrase
 from xapiand_tpu_torch.ops.executor import upper_tree
 from xapiand_tpu_torch.query.ir import Q
@@ -514,6 +515,96 @@ def test_geo_leaves_refuses_a_column_without_pairs(cuda):
                            docids.to(cuda), base.to(cuda))
 
 
+# slice 18: filter_leaves' row tiles, agg_distinct's K-bit set
+
+FILTER_CASES = {"b1": {"B": 1, "C": 1000}, "packed": {"base": False,
+                                                     "C": 4099},
+                "wide_f": {"F": 34, "C": 300},
+                "verdicts": {"ph": True, "geo": True, "C": 777},
+                "tiles": {"B": 5, "C": 20011, "F": 4},
+                "deep": {"B": 2, "C": 700, "deep": True}}
+
+
+def _unaligned(t):
+    """The same values in a contiguous tensor 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = flat[1:t.numel() + 1].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", sorted(FILTER_CASES))
+def test_filter_leaves_tiles_match_plain_version(cuda, case, aligned):
+    """filter_leaves' row tiles (16-row groups on the flat index, flags
+    first, a lane's rows interleaved across the warp, the tree once over
+    16 rows as masks, a leaf's packed keys in one gather) bit for bit
+    against the plain version: one query,
+    packed rows, 34 leaves, phrase and geo words, five queries of rows
+    that do not start on 16, a program past the masks' stack (row by row);
+    aligned rows and rows 4 bytes off a 16-byte boundary (each group's
+    flags and eligible bytes then one by one)."""
+    import test_torch_filter_distinct_design as fd
+
+    args, _tree = fd.filter_case(40 + len(case), **FILTER_CASES[case])
+    want = fd._plain(args)
+    values = {s: {c: v.to(cuda) for c, v in col.items()}
+              for s, col in args[0].items()}
+    rest = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+            for a in args[3:]]
+    if not aligned:
+        rest = [_unaligned(a) if isinstance(a, torch.Tensor) and
+                a.dim() == 2 else a for a in rest]
+    got = _twice(lambda: kernels.filter_leaves(values, *args[1:3], *rest))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert want[0].any()
+
+
+def test_filter_leaves_refuses_a_column_without_packed_keys(cuda):
+    import test_torch_filter_distinct_design as fd
+
+    args, _tree = fd.filter_case(50, F=2)
+    values = {s: {c: v.to(cuda) for c, v in col.items() if c != "keys"}
+              for s, col in args[0].items()}
+    rest = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+            for a in args[3:]]
+    with pytest.raises(ValueError, match="no packed keys"):
+        kernels.filter_leaves(values, (5, 6), args[2], *rest)
+
+
+@pytest.mark.parametrize("case", ["k1", "skip_key", "past_n", "absent",
+                                  "wide_k", "none", "wide_rows"])
+def test_agg_distinct_set_matches_plain_version(cuda, case):
+    """agg_distinct's K-bit set bit for bit against the plain version (n
+    and the 1024 registers): K = 1, the left-out key alone, ids past
+    n - 1, absent docs, K past the shared-memory set, no eligible row, and
+    a launch of several blocks a query whose rows do not start on 16."""
+    import test_torch_filter_distinct_design as fd
+
+    if case == "wide_rows":
+        ids, elig, col = fd.distinct_case(60, B=7, R=50001, nd=20000,
+                                          p_elig=0.3)
+    else:
+        ids, elig, col = fd.distinct_edge(case)
+    want = kernels._agg_distinct_plain(ids, elig, col)
+    dcol = {c: v.to(cuda) for c, v in col.items()}
+    got = _twice(lambda: kernels.agg_distinct(ids.to(cuda), elig.to(cuda),
+                                              dcol))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_agg_distinct_refuses_a_column_without_codes(cuda):
+    import test_torch_filter_distinct_design as fd
+
+    ids, elig, col = fd.distinct_edge("k1")
+    dcol = {c: v.to(cuda) for c, v in col.items() if c != "codes"}
+    with pytest.raises(ValueError, match="without its codes"):
+        kernels.agg_distinct(ids.to(cuda), elig.to(cuda), dcol)
+
+
 def test_phrase_search_cuda_equals_cpu(positional):
     corpus, searcher, irs = positional
     cpu = SegmentSearcher(corpus.seg, device=torch.device("cpu"))
@@ -851,8 +942,9 @@ def test_agg_distinct_matches_plain_version(browse):
     seg = searcher.device_segment.arrays_pytree()
     values = dict(seg["values"])
     col, _tg, _tab = sf.sort_test_inputs(corpus.seg.num_docs, 1)
-    values[sf.SORT_TEST_SLOT] = device_segment_from_numpy(col,
-                                                          searcher.device)
+    # a hand-made column takes its codes from value_arrays, as an upload
+    values[sf.SORT_TEST_SLOT] = device_segment_from_numpy(
+        {**col, **value_arrays(col)}, searcher.device)
     cfg, _fn, batch, _chunk = _plans(searcher, qs, "M", sort=sf.PRICE_DESC,
                                      aggs=aggs_)[0]
     ids, _s, orbits, live = kernels.dense_rows(

@@ -16,7 +16,8 @@ from xapiand_tpu.models.weights import get_scheme as jscheme
 from xapiand_tpu.utils.synth import build_synthetic_segment
 from xapiand_tpu_torch import search as psearch
 from xapiand_tpu_torch.models.segment import (DeviceSegment,
-                                              device_segment_from_numpy)
+                                              device_segment_from_numpy,
+                                              value_arrays)
 from xapiand_tpu_torch.models.weights import CollectionStats as PStats
 from xapiand_tpu_torch.models.weights import get_scheme as pscheme
 from xapiand_tpu_torch.utils import synth as psynth
@@ -88,6 +89,16 @@ def test_arrays_equal_jax_arrays_pytree(which, synth_seg, db_seg):
                            torch.stack((col["doc_off"], col["doc_len"]), 1))
         assert torch.equal(col.pop("flat"), torch.stack(
             (col["flat_start"], col["flat_end"]), 1))
+    # and its value columns the packed keys and codes filter_leaves.cu and
+    # agg_distinct.cu read (models/segment.py value_arrays; held to the
+    # JAX channels in tests/test_torch_filter_distinct_design.py)
+    ptree["values"] = {slot: dict(col)
+                       for slot, col in ptree["values"].items()}
+    for col in ptree["values"].values():
+        want = value_arrays({ch: col[ch].numpy() for ch in
+                             ("hi", "lo", "max_hi", "max_lo", "present")})
+        for ch in ("keys", "codes", "code_hll"):
+            np.testing.assert_array_equal(col.pop(ch).numpy(), want[ch])
     _assert_same_tree(ptree, jds.arrays_pytree())
     assert {"imp.docids", "imp.wdf", "imp.doclen"} <= \
         set(pds.arrays_pytree())

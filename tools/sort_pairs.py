@@ -21,9 +21,12 @@ and the assignment, 21 wrapper calls, and every version holds by the
 margin rule; phrase_leaves at the positional launch groups, whose wrapper
 lives in ``ops/phrase.py``: DIR's copy of that module is loaded over
 DIR's ``ops/kernels.py``; geo_leaves at geo's two widths and the geo
-aggregations'). DIR is a checkout of the
-version to compare with (for example a ``git archive`` of the parent
-commit unpacked under ``_archive/``). The versions, each built with the
+aggregations'; filter_leaves at geo, positional, browse M, N and C and
+faceted B and C; agg_distinct at browse M and the geo aggregations;
+agg_metrics at faceted A and D and the geo aggregations; the
+``--only faceted`` run takes the faceted path, then browse). DIR is a
+checkout of the version to compare with (for example a ``git archive``
+of the parent commit unpacked under ``_archive/``). The versions, each built with the
 flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
 source, all at once): ``parent`` (DIR's sources, launched through DIR's own
 ``ops/kernels.py`` wrappers, whose C signatures may differ), ``change``
@@ -34,7 +37,8 @@ version, its answer held to the plain version's (``chip_smoke.HELD``),
 then timed in the order parent, change, the variants, the variants
 reversed, change, parent, ``--rounds`` times. One JSON line a launch: its
 key, the Held block's tag it came in, the eligible rows' share
-(sort_topk, agg_filter, agg_buckets, collapse_rows), every time and each
+(sort_topk, agg_filter, agg_buckets, collapse_rows, agg_distinct,
+agg_metrics; filter_leaves' first rows), every time and each
 version's median, device-only (``utils/cudatime.device_ms``: CUDA
 activity alone, the mean a call over 20 calls, a call all the launches it
 makes) and by CUDA events around the same 20 wrapper calls (``event_ms``), the
@@ -77,7 +81,9 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "merge_special": "merge_special.cu", "kmeans": "kmeans.cu",
            "collapse_rows": "collapse_rows.cu",
            "agg_buckets": "agg_buckets.cu",
-           "phrase_leaves": "phrase_leaves.cu", "geo_leaves": "geo_leaves.cu"}
+           "phrase_leaves": "phrase_leaves.cu", "geo_leaves": "geo_leaves.cu",
+           "filter_leaves": "filter_leaves.cu",
+           "agg_distinct": "agg_distinct.cu", "agg_metrics": "agg_metrics.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -318,7 +324,10 @@ def replay(path, libs, pmod, rounds):
     b, ops = work()
     elig = args[3] if name == "sort_topk" else \
         args[2] if name == "collapse_rows" else \
-        args[1] if name in ("agg_filter", "agg_buckets") else None
+        args[1] if name in ("agg_filter", "agg_buckets", "agg_distinct",
+                            "agg_metrics") else \
+        (args[5] if args[5] is not None else args[4] != kn.SENTINEL) \
+        if name == "filter_leaves" else None
     return {
         "kernel": name, "key": key, "tag": cap.get("tag"),
         "eligible_share": float(elig.float().mean()) if elig is not None

@@ -7,116 +7,133 @@
 // 40-49. The TPU sorted because its scatters serialise.
 //
 // Here a row is on the mask when it is eligible and its doc has the value.
-//   exact count: each query owns an open-addressed hash set of 64-bit keys
-//     in a global scratch (a power of two >= 2 R slots, so it never fills);
-//     a row inserts its key with atomicCAS and the insert that found the
-//     slot empty counts. Which row wins is not fixed, how many win is: the
-//     count is exact and the same on every launch. The key (INT32_MAX,
-//     INT32_MAX) marks an empty slot and is not counted - the TPU version
-//     masks with that key and leaves it out too.
-//   registers: _hash32 in uint32 arithmetic, idx = h >> 22, rest = h << 10,
-//     rho = 23 where rest is 0, else clz(rest) + 1; atomicMax on int32 in
-//     1024 shared-memory registers a block, then atomicMax into the
-//     query's registers. An integer maximum has no order.
+// The column's distinct keys are fixed at upload (models/segment.py
+// value_arrays): each doc carries a dense code, the rank of its key among
+// the column's K distinct keys (-1 where it has no value), and each code
+// its register index and rho (code_hll). So a query's distinct keys are
+// the population of a K-bit set, and its registers the maximum of rho over
+// the set's codes a register: the scratch is B x ceil(K / 32) words,
+// whatever the rows.
 //
-// Grid (G, B): G blocks split a query's rows (ops/kernels.py _split).
-// Bound on the H100: 5 bytes read per row, 9 of the value column per
-// eligible row, and one atomicCAS per masked row into the 16 R-byte set
-// (L2 while it fits).
+//   set:  grid (G, B): G blocks split a query's rows. A thread reads the
+//         flags of 16 rows at a time (common.cuh flat_mask16), then the
+//         docid and code of each set bit (an id past n - 1 reads row
+//         n - 1), and sets the code's bit: in a shared-memory copy of the
+//         set where its K bits fit (AD_SMEM_WORDS), which the block ORs
+//         into the query's words at its end; past that in the query's
+//         words with atomicOr. A bit already set is not set again (a
+//         stale read only costs the atomic it would skip).
+//   fold: a second kernel, grid (G2, B), a thread a word of the query's
+//         set: the count is the population of the words, leaving out the
+//         code of the key (INT32_MAX, INT32_MAX), which the TPU version
+//         masks with and leaves out too; the registers are the maximum of
+//         each set code's rho at its index (the word's codes read
+//         together, then shared int atomics, then atomicMax into the
+//         query's registers: an integer maximum has no order).
+//
+// Bound on the H100 (chip_smoke.py work_distinct): the flag byte of every
+// row; an eligible row's docid and its key (9 bytes, the column read at
+// most once); the count and 1024 registers a query.
 #include "common.cuh"
 
 #define AD_THREADS 256
 #define AD_REGS 1024
-#define AD_EMPTY 0x7fffffff7fffffffull
+#define AD_SMEM_WORDS 2048    // the shared-memory set: 65,536 codes
+#define AD_SKIP (1 << 15)     // code_hll: the key left out of the count
 
-__device__ __forceinline__ unsigned hash32(unsigned hi, unsigned lo) {
-    unsigned h = hi ^ (lo * 0x9E3779B9u);
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return h;
-}
-
-__global__ void fill_empty_kernel(unsigned long long* __restrict__ t,
-                                  long long n) {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (long long)gridDim.x * blockDim.x)
-        t[i] = AD_EMPTY;
-}
-
-__global__ void __launch_bounds__(AD_THREADS) agg_distinct_kernel(
+__global__ void __launch_bounds__(AD_THREADS) agg_distinct_set(
     const int* __restrict__ ids, const unsigned char* __restrict__ elig,
-    long long R, const int* __restrict__ col_hi,
-    const int* __restrict__ col_lo,
-    const unsigned char* __restrict__ col_present, long long n_col,
-    unsigned long long* __restrict__ table, long long cap,
-    int* __restrict__ count, int* __restrict__ regs) {
-    __shared__ int sregs[AD_REGS];
-    const int b = blockIdx.y;
-    const long long base = (long long)b * R;
-    unsigned long long* tab = table + (long long)b * cap;
-    for (int i = threadIdx.x; i < AD_REGS; i += AD_THREADS) sregs[i] = 0;
+    long long R, const int* __restrict__ codes, long long n_col, int W,
+    unsigned* __restrict__ words, int aligned) {
+    extern __shared__ unsigned ad_set[];
+    const int g = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+    const int G = gridDim.x;
+    const bool local = W <= AD_SMEM_WORDS;
+    unsigned* qw = words + (long long)b * W;
+    unsigned* set = local ? ad_set : qw;
+    if (local)
+        for (int i = t; i < W; i += AD_THREADS) ad_set[i] = 0u;
     __syncthreads();
-    int won = 0;
-    const long long per = (R + gridDim.x - 1) / gridDim.x;
-    const long long r0 = per * blockIdx.x;
-    const long long r1 = r0 + per < R ? r0 + per : R;
-    for (long long r = r0 + threadIdx.x; r < r1; r += AD_THREADS) {
-        if (!elig[base + r]) continue;
-        const long long d = ids[base + r];
-        const long long dd = d < n_col - 1 ? d : n_col - 1;
-        if (!col_present[dd]) continue;
-        const unsigned hi = (unsigned)col_hi[dd], lo = (unsigned)col_lo[dd];
-        const unsigned h = hash32(hi, lo);
-        const unsigned rest = h << 10;
-        const int rho = rest == 0 ? 23 : __clz((int)rest) + 1;
-        // few distinct keys meet in few registers and slots: look before
-        // the atomic (a stale read only costs the atomic it would skip)
-        if (*(volatile int*)&sregs[h >> 22] < rho)
-            atomicMax(&sregs[h >> 22], rho);
-        const unsigned long long key = ((unsigned long long)hi << 32) | lo;
-        if (key == AD_EMPTY) continue;
-        // the probe loop stays in this body: as a device function shared
-        // with collapse_rows.cu the kernel ran 2.2x slower at B = 256,
-        // R = 1,000,001 on the H100 (8.67 against 3.91 ms a launch)
-        long long s = (long long)(mix64(key) & (unsigned long long)(cap - 1));
-        for (;;) {
-            unsigned long long prev = *(volatile unsigned long long*)&tab[s];
-            if (prev == AD_EMPTY) prev = atomicCAS(&tab[s], AD_EMPTY, key);
-            if (prev == AD_EMPTY) {
-                ++won;
-                break;
-            }
-            if (prev == key) break;
-            s = (s + 1) & (cap - 1);
+    const long long lo = (long long)b * R, hi = lo + R;
+    const long long ga = lo >> 4, ng = ((hi + 15) >> 4) - ga;
+    const long long g0 = ga + ng * g / G, g1 = ga + ng * (g + 1) / G;
+    for (long long gi = g0 + t; gi < g1; gi += AD_THREADS) {
+        unsigned m = flat_mask16(elig, lo, hi, gi,
+                                 flat_full(gi, lo, hi, aligned != 0));
+        while (m) {
+            const int j = __ffs(m) - 1;
+            m &= m - 1;
+            const long long d = __ldg(ids + gi * 16 + j);
+            const int c = __ldg(codes + (d < n_col - 1 ? d : n_col - 1));
+            if (c < 0) continue;    // the doc has no value
+            const unsigned bit = 1u << (c & 31);
+            unsigned* w = set + (c >> 5);
+            if (!(*(volatile unsigned*)w & bit)) atomicOr(w, bit);
         }
     }
+    if (!local) return;
     __syncthreads();
-    for (int o = 16; o > 0; o >>= 1) won += __shfl_xor_sync(0xffffffffu, won, o);
-    if ((threadIdx.x & 31) == 0 && won) atomicAdd(count + b, won);
-    for (int i = threadIdx.x; i < AD_REGS; i += AD_THREADS)
+    for (int i = t; i < W; i += AD_THREADS)
+        if (ad_set[i]) atomicOr(qw + i, ad_set[i]);
+}
+
+__global__ void __launch_bounds__(AD_THREADS) agg_distinct_fold(
+    const unsigned* __restrict__ words, int W, const int* __restrict__ hll,
+    int* __restrict__ count, int* __restrict__ regs) {
+    __shared__ int sregs[AD_REGS];
+    __shared__ int wsum[AD_THREADS / 32];
+    const int b = blockIdx.y, t = threadIdx.x;
+    for (int i = t; i < AD_REGS; i += AD_THREADS) sregs[i] = 0;
+    __syncthreads();
+    const unsigned* qw = words + (long long)b * W;
+    int n = 0;
+    for (int i = blockIdx.x * AD_THREADS + t; i < W;
+         i += gridDim.x * AD_THREADS) {
+        const unsigned x = qw[i];
+        if (!x) continue;
+        int h[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+            h[j] = (x >> j) & 1u ? __ldg(hll + i * 32 + j) : 0;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            if (!((x >> j) & 1u)) continue;
+            if (!(h[j] & AD_SKIP)) ++n;
+            const int idx = (h[j] >> 5) & (AD_REGS - 1), rho = h[j] & 31;
+            if (sregs[idx] < rho) atomicMax(sregs + idx, rho);
+        }
+    }
+    n = __reduce_add_sync(0xffffffffu, n);
+    if ((t & 31) == 0) wsum[t >> 5] = n;
+    __syncthreads();
+    if (t == 0) {
+        n = 0;
+        for (int w = 0; w < AD_THREADS / 32; ++w) n += wsum[w];
+        if (n) atomicAdd(count + b, n);
+    }
+    for (int i = t; i < AD_REGS; i += AD_THREADS)
         if (sregs[i]) atomicMax(regs + (long long)b * AD_REGS + i, sregs[i]);
 }
 
-// table: B * cap uint64 of scratch; count i32[B] and regs i32[B, 1024] are
-// written whole.
+// words: B * W u32 of scratch (W = ceil(K / 32), at least 1); count i32[B]
+// and regs i32[B, 1024] are written whole (all three zeroed here first).
+// G blocks a query set the bits, G2 blocks a query fold the words.
+// aligned: ids and elig are 16-byte aligned.
 extern "C" int xt_agg_distinct(const void* ids, const void* elig, int B,
-                               long long R, int G, const void* col_hi,
-                               const void* col_lo, const void* col_present,
-                               long long n_col, void* table, long long cap,
-                               void* count, void* regs, void* stream) {
+                               long long R, int G, const void* codes,
+                               long long n_col, const void* hll, int W,
+                               int G2, void* words, void* count, void* regs,
+                               int aligned, void* stream) {
     if (B == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    cudaMemsetAsync(count, 0, sizeof(int) * B, st);
+    cudaMemsetAsync(words, 0, sizeof(unsigned) * (size_t)B * W, st);
+    cudaMemsetAsync(count, 0, sizeof(int) * (size_t)B, st);
     cudaMemsetAsync(regs, 0, sizeof(int) * (size_t)B * AD_REGS, st);
-    fill_empty_kernel<<<1024, 256, 0, st>>>((unsigned long long*)table,
-                                            (long long)B * cap);
-    dim3 grid(G, B);
-    agg_distinct_kernel<<<grid, AD_THREADS, 0, st>>>(
-        (const int*)ids, (const unsigned char*)elig, R, (const int*)col_hi,
-        (const int*)col_lo, (const unsigned char*)col_present, n_col,
-        (unsigned long long*)table, cap, (int*)count, (int*)regs);
+    const size_t smem = W <= AD_SMEM_WORDS ? sizeof(unsigned) * W : 0;
+    agg_distinct_set<<<dim3(G, B), AD_THREADS, smem, st>>>(
+        (const int*)ids, (const unsigned char*)elig, R, (const int*)codes,
+        n_col, W, (unsigned*)words, aligned);
+    agg_distinct_fold<<<dim3(G2, B), AD_THREADS, 0, st>>>(
+        (const unsigned*)words, W, (const int*)hll, (int*)count, (int*)regs);
     return (int)cudaGetLastError();
 }

@@ -386,13 +386,18 @@ __device__ __forceinline__ void tile_brackets(
 #define XT_OP_GEO 9
 #define XT_OP_NOTAND 10
 
-template <class FLeaf>
-__device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
-                                         unsigned orbits, const FLeaf& fleaf,
-                                         unsigned phbits, unsigned geobits) {
+// The program's instruction i is ins(i): an __ldg of a program in global
+// memory (eval_tree), or a read of one staged in shared memory
+// (eval_tree_staged, filter_leaves.cu).
+template <class Ins, class FLeaf>
+__device__ __forceinline__ int eval_program(const Ins& ins_at, int n,
+                                            unsigned orbits,
+                                            const FLeaf& fleaf,
+                                            unsigned phbits,
+                                            unsigned geobits) {
     unsigned long long st = 0;
     for (int i = 0; i < n; ++i) {
-        const int ins = __ldg(prog + i);
+        const int ins = ins_at(i);
         const int op = ins & 0xff, arg = ins >> 8;
         if (op == XT_OP_G) {
             st = (st << 1) | ((orbits >> arg) & 1u);
@@ -418,6 +423,24 @@ __device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
         }
     }
     return (int)(st & 1ull);
+}
+
+template <class FLeaf>
+__device__ __forceinline__ int eval_tree(const int* __restrict__ prog, int n,
+                                         unsigned orbits, const FLeaf& fleaf,
+                                         unsigned phbits, unsigned geobits) {
+    return eval_program([prog](int i) { return __ldg(prog + i); }, n,
+                        orbits, fleaf, phbits, geobits);
+}
+
+template <class FLeaf>
+__device__ __forceinline__ int eval_tree_staged(const int* prog, int n,
+                                                unsigned orbits,
+                                                const FLeaf& fleaf,
+                                                unsigned phbits,
+                                                unsigned geobits) {
+    return eval_program([prog](int i) { return prog[i]; }, n, orbits, fleaf,
+                        phbits, geobits);
 }
 
 // a program without F leaves (merge_docs, dense_rows): the filter word 0
@@ -453,6 +476,16 @@ __device__ __forceinline__ bool lex_le(int ah, int al, int bh, int bl) {
     return ah < bh || (ah == bh && al <= bl);
 }
 
+// the 16 flags of a 16-byte load, bit j byte j's
+__device__ __forceinline__ unsigned mask16_of(uint4 w) {
+    const unsigned x[4] = {w.x, w.y, w.z, w.w};
+    unsigned m = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        m |= (((x[i] & 0x01010101u) * 0x01020408u) >> 24) << (4 * i);
+    return m;
+}
+
 // Rows of one query that are eligible, 16 at a time: bit j of the result
 // is row 16 * g + j's flag (torch bool bytes are 0 or 1). Aligned rows
 // are one 16-byte load; a misaligned row start or the ragged end reads
@@ -462,18 +495,37 @@ __device__ __forceinline__ unsigned elig_mask16(const unsigned char* e,
                                                 long long R, long long g,
                                                 bool aligned) {
     const long long r0 = g * 16;
-    if (aligned && r0 + 16 <= R) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(e + r0));
-        const unsigned x[4] = {w.x, w.y, w.z, w.w};
-        unsigned m = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            m |= (((x[i] & 0x01010101u) * 0x01020408u) >> 24) << (4 * i);
-        return m;
-    }
+    if (aligned && r0 + 16 <= R)
+        return mask16_of(__ldg(reinterpret_cast<const uint4*>(e + r0)));
     unsigned m = 0;
     for (int j = 0; j < 16 && r0 + j < R; ++j)
         if (e[r0 + j]) m |= 1u << j;
+    return m;
+}
+
+// Flags of a [B, R] bool array on the flat row index, 16 at a time: group
+// g holds flat rows 16 g .. 16 g + 15, and query b owns the flat rows
+// [lo, hi) = [b R, b R + R). Bit j of the result is flat row 16 g + j's
+// flag where that row lies in [lo, hi). Whatever R is, every group that
+// lies inside its query is one aligned 16-byte load (``full``: the array
+// is 16-byte aligned and the group inside [lo, hi)); the group a query
+// shares with its neighbour reads its own bytes one by one.
+__device__ __forceinline__ bool flat_full(long long g, long long lo,
+                                          long long hi, bool aligned) {
+    return aligned && g * 16 >= lo && g * 16 + 16 <= hi;
+}
+
+__device__ __forceinline__ unsigned flat_mask16(const unsigned char* e,
+                                                long long lo, long long hi,
+                                                long long g, bool full) {
+    const long long r0 = g * 16;
+    if (full)
+        return mask16_of(__ldg(reinterpret_cast<const uint4*>(e + r0)));
+    unsigned m = 0;
+    for (int j = 0; j < 16; ++j) {
+        const long long r = r0 + j;
+        if (r >= lo && r < hi && e[r]) m |= 1u << j;
+    }
     return m;
 }
 

@@ -390,7 +390,9 @@ class Segment:
 # (xapiand_tpu/models/segment.py:386-532), as torch tensors on one device, so
 # a tree exported from either side feeds the other (device_segment_from_numpy),
 # plus each geo column's int2 pairs (geo_arrays), which only geo_leaves reads
-# on the card: a JAX tree feeds the port's plain versions as it is.
+# on the card, and each value column's packed keys and codes (value_arrays),
+# which only filter_leaves and agg_distinct read on the card: a JAX tree
+# feeds the port's plain versions as it is.
 
 import dataclasses  # noqa: E402
 import threading  # noqa: E402
@@ -416,6 +418,68 @@ def geo_arrays(g: GeoColumn) -> dict:
     return out
 
 
+_I32MAX = 2**31 - 1
+
+
+def _hash32_np(hi, lo):
+    """ops/aggs.py _hash32 (40-49) in uint32 numpy arithmetic."""
+    M = 0xFFFFFFFF
+    h = (hi.astype(np.int64) & M) ^ (((lo.astype(np.int64) & M) *
+                                       0x9E3779B9) & M)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M
+    return h ^ (h >> 16)
+
+
+def _lex64(hi, lo):
+    """int32 key pairs as int64 in the kernels' order (csrc/common.cuh
+    lex_le: signed, lexicographic)."""
+    return (hi.astype(np.int64) << 32) + lo.astype(np.int64) + 2**31
+
+
+def value_arrays(col: dict) -> dict:
+    """A value column's device arrays past the JAX package's channels
+    (numpy channels in, numpy out), read on the card only:
+
+    keys i32[n, 4]: each present doc's hi, lo, max_hi, max_lo, an absent
+      doc's the empty interval (INT32_MAX, INT32_MAX, INT32_MIN,
+      INT32_MIN), so that a filter leaf's test is one 16-byte gather
+      (csrc/filter_leaves.cu: present iff min <= max; a present doc whose
+      min passes its max is refused);
+    codes i32[n]: the rank of each present doc's (hi, lo) key (in that
+      order) among the column's distinct keys of present docs, -1 where
+      the doc has no
+      value; code_hll i32[K], K the distinct keys: each code's _hash32
+      HyperLogLog register index << 5 | its rho, | 1 << 15 for the key
+      (INT32_MAX, INT32_MAX), which feeds the registers but not the exact
+      count (csrc/agg_distinct.cu)."""
+    hi, lo = np.asarray(col["hi"], np.int32), np.asarray(col["lo"], np.int32)
+    present = np.asarray(col["present"], bool)
+    keys = np.stack((hi, lo, np.asarray(col["max_hi"], np.int32),
+                     np.asarray(col["max_lo"], np.int32)), 1)
+    k64 = _lex64(hi, lo)
+    if (present & (k64 > _lex64(keys[:, 2], keys[:, 3]))).any():
+        raise ValueError("value_arrays: a present doc whose smallest key "
+                         "passes its largest")
+    keys[~present] = (_I32MAX, _I32MAX, -2**31, -2**31)
+    uniq, inv = np.unique(k64[present], return_inverse=True)
+    codes = np.full(hi.shape, -1, np.int32)
+    codes[present] = inv.reshape(-1)
+    uh = (uniq >> 32).astype(np.int32)
+    ul = ((uniq & 0xFFFFFFFF) - 2**31).astype(np.int32)
+    h = _hash32_np(uh, ul)
+    rest = (h << 10) & 0xFFFFFFFF
+    # clz of a uint32: 31 - floor(log2); exact in float64 below 2**32
+    clz = 31 - np.floor(np.log2(np.maximum(rest, 1).astype(np.float64)))
+    rho = np.where(rest == 0, 23, clz.astype(np.int64) + 1)
+    skip = (uh == _I32MAX) & (ul == _I32MAX)
+    hll = ((h >> 22) << 5) | rho | (skip.astype(np.int64) << 15)
+    return {"keys": np.ascontiguousarray(keys), "codes": codes,
+            "code_hll": hll.astype(np.int32)}
+
+
 def _host_tree(seg: Segment) -> dict:
     """The numpy arrays a DeviceSegment uploads, keyed as arrays_pytree()."""
     uniq = seg.uniqterms if seg.uniqterms is not None \
@@ -425,6 +489,7 @@ def _host_tree(seg: Segment) -> dict:
         values[slot] = {ch: np.asarray(getattr(col, ch), dt)
                         for ch, dt in _VALUE_DTYPES.items()
                         if getattr(col, ch) is not None}
+        values[slot].update(value_arrays(values[slot]))
     geo = {slot: geo_arrays(g) for slot, g in seg.geo.items()}
     return {
         "post_docids": np.asarray(seg.post_docids, np.int32),
@@ -498,5 +563,6 @@ class DeviceSegment:
 
     def arrays_pytree(self) -> dict:
         """All device arrays, keyed as the JAX package's arrays_pytree()
-        (and each geo column's int2 pairs, geo_arrays)."""
+        (and each geo column's int2 pairs, geo_arrays, and each value
+        column's packed keys and codes, value_arrays)."""
         return {**self.arrays, **self.impact}

@@ -14,7 +14,9 @@ what bounds it on the H100 and what its design does about that):
   topk_rows       K4     exact top-k by (score desc, docid asc): row
                          tiles' top-k, then their merge
   prefix_certify  K5     exact rescore of prefix candidates + certificate
-  filter_leaves   K7+K6  value-range filter leaves, then the boolean tree
+  filter_leaves   K7+K6  value-range filter leaves, then the boolean tree:
+                         row tiles of 16 flags first, a leaf's four key
+                         words in one gather of the column's packed keys
   sort_topk       K8     top-k in multi-key sort order (value, score, dist,
                          geodist, strmetric, docid), docid tiebreak: row
                          tiles' top-k behind a threshold, each key built
@@ -49,8 +51,10 @@ what bounds it on the H100 and what its design does about that):
                          tiles with a shared slot a (doc, channel), or a
                          binary-search join (special_plan)
   agg_distinct    K17b   cardinality: the exact distinct count of value
-                         keys and 1024 HyperLogLog registers (geo_stats,
-                         K17b's other half, is two columns of agg_metrics)
+                         keys and 1024 HyperLogLog registers: a bit set
+                         of the column's dense codes a query, then its
+                         fold (geo_stats, K17b's other half, is two
+                         columns of agg_metrics)
 
   agg_buckets     K17c   (the same kernel) the single-code bucket kinds
                          that read plan arrays: histogram, each level of a
@@ -179,6 +183,9 @@ COLLAPSE_BLOCKS = 132     # collapse_rows' tiles: tile blocks of a call (one
                           # an SM)
 MAX_SPECIAL = 32          # merge_special: max specs / branches / synonyms
 HLL_REGS = 1024           # ops/aggs.py _HLL_M (p = 10)
+DISTINCT_BLOCKS = 2112    # agg_distinct: B x G ~ 16 blocks of 256 an SM
+DISTINCT_ROWS = 4096      # agg_distinct: rows a setting block at least
+DISTINCT_FOLD = 64        # agg_distinct: folding blocks a query at most
 SPECIAL_CHANNELS = 32     # merge_special's doc tiles: channels at most
 SPECIAL_MIN_TILE = 1024   # special_plan halves the tile down to this
 KMEANS_THREADS = 256      # kmeans: threads a block (csrc KM_THREADS)
@@ -307,8 +314,8 @@ _SIGNATURES = {
     "xt_prefix_certify": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P, _P, _I, _I, *_SPEC, _I, _P, _P, _P, _P],
     "xt_compact_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "xt_filter_leaves": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
-                         _P, _P, _P],
+    "xt_filter_leaves": [_P, _P, _P, _P, _P, _I, _I, _LL, _P, _I, _I, _P,
+                         _P, _P, _P, _I, _P],
     "xt_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P],
     "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
@@ -335,8 +342,8 @@ _SIGNATURES = {
                       _I, *_SPEC, _I, _P, _P, _P, _P, _P],
     "xt_merge_special": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL,
                          _P, _P, _I, *_SPEC, _I, _I, _I, _I, _P, _P],
-    "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _P, _P, _LL, _P, _LL, _P,
-                        _P, _P],
+    "xt_agg_distinct": [_P, _P, _I, _LL, _I, _P, _LL, _P, _I, _I, _P, _P,
+                        _P, _I, _P],
     "xt_kmeans_loop": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P, _P, _P, _P, _P],
     "xt_wide_topk_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -463,7 +470,10 @@ def absent_column(device) -> dict:
             "hi": _ints((0,), device), "lo": _ints((0,), device),
             "max_hi": _ints((I32MAX,), device),
             "max_lo": _ints((I32MAX,), device),
-            "present": _ints((False,), device, torch.bool)}
+            "present": _ints((False,), device, torch.bool),
+            # models/segment.py value_arrays of that row: no code
+            "keys": _ints(((I32MAX, I32MAX, -2**31, -2**31),), device),
+            "codes": _ints((-1,), device), "code_hll": _ints((), device)}
 
 
 # --------------------------------------------------------------------------
@@ -518,6 +528,18 @@ def tree_program(tree: tuple) -> tuple:
         raise ValueError(f"tree_program: a stack of {need} bits, past the "
                          f"kernels' {MAX_TREE_DEPTH}")
     return tuple(code)
+
+
+def tree_need(prog) -> int:
+    """The most entries a tree program's stack holds (filter_leaves.cu runs
+    a program of at most FL_STACK = 8 as 16-row masks, a deeper one row by
+    row)."""
+    depth = need = 0
+    for ins in prog:
+        depth += 1 if ins & 0xff in (OP_G, OP_F, OP_PH, OP_GEO, OP_ALL,
+                                     OP_NONE) else -1
+        need = max(need, depth)
+    return need
 
 
 def _eval_program_plain(prog, orbits, fres, shape, device, phbits=None,
@@ -1042,8 +1064,10 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
                   prog, phbits=None, geobits=None):
     """Value-range filter leaves per row, then the boolean tree.
 
-    values: the segment's value columns (arrays_pytree()["values"]); slots
-    and vmax: per filter leaf (ExecConfig filter_slots / filter_vmax);
+    values: the segment's value columns (arrays_pytree()["values"]; on
+    the card each with its packed keys, keys i32[n,4], models/segment.py
+    value_arrays: a column without them is refused); slots and vmax: per
+    filter leaf (ExecConfig filter_slots / filter_vmax);
     fparams i32[B,F,4] (lo hi, lo lo, hi hi, hi lo per leaf; F may be 0);
     docids i32[B,C]; base bool[B,C] (owner & not deleted) or None (docid
     != SENTINEL: packed rows); orbits i32[B,C]; prog a tree_program;
@@ -1084,20 +1108,36 @@ def filter_leaves(values: dict, slots, vmax, fparams, docids, base, orbits,
                                     orbits, prog, phbits, geobits)
     dev = docids.device
     table = []
-    for col, vm in zip(cols, vmax):
+    for slot, col, vm in zip(slots, cols, vmax):
         if col is None:
-            table += [0] * 12
+            table += [0] * 8
             continue
-        table += [_ptr(col.get(ch)) for ch in _FILTER_CH]
-        table += [col["hi"].shape[0],
-                  col["mv_hi"].shape[0] if "mv_hi" in col else 0, vm]
+        n = col["hi"].shape[0]
+        if "keys" not in col:
+            raise ValueError(f"filter_leaves: the value column of slot "
+                             f"{slot} has no packed keys "
+                             "(models/segment.py value_arrays)")
+        _check(f"filter_leaves.keys of slot {slot}", col["keys"],
+               torch.int32, (n, 4))
+        if col["keys"].data_ptr() % 16:
+            raise ValueError(f"filter_leaves: the packed keys of slot {slot}"
+                             " are not 16-byte aligned")
+        table += [col["keys"].data_ptr()]
+        table += [_ptr(col.get(ch)) for ch in _FILTER_CH[5:]]
+        table += [n, col["mv_hi"].shape[0] if "mv_hi" in col else 0, vm]
+    # the group bits are read only where the tree has a G leaf
+    ob = orbits if any(i & 0xff == OP_G for i in prog) else None
     eligible = torch.empty((B, C), dtype=torch.bool, device=dev)
     count = torch.zeros(B, dtype=torch.int32, device=dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in
+                  (docids, base, ob, phbits, geobits, eligible)
+                  if t is not None)
     _launch("filter_leaves", "xt_filter_leaves", docids.data_ptr(),
-            _ptr(base), orbits.data_ptr(), fparams.data_ptr(),
+            _ptr(base), _ptr(ob), fparams.data_ptr(),
             _ptr(_ints(tuple(table), dev, torch.int64) if table else None),
-            B, F, C, _ints(prog, dev).data_ptr(), len(prog), _ptr(phbits),
-            _ptr(geobits), eligible.data_ptr(), count.data_ptr(), _stream())
+            B, F, C, _ints(prog, dev).data_ptr(), len(prog),
+            tree_need(prog), _ptr(phbits), _ptr(geobits),
+            eligible.data_ptr(), count.data_ptr(), int(aligned), _stream())
     return eligible, count
 
 
@@ -2648,8 +2688,9 @@ def agg_distinct(ids, eligible, col):
 
     ids i32[B,R], eligible bool[B,R]; col: {hi, lo i32[n], present
     bool[n]}, read at min(id, n - 1) (the column's one key a doc: the
-    smallest value of a multi-value doc); a row counts where it is
-    eligible and its doc has the value.
+    smallest value of a multi-value doc), and, read on the card only, its
+    codes i32[n] and code_hll i32[K] (models/segment.py value_arrays); a
+    row counts where it is eligible and its doc has the value.
     -> n i32[B]: the distinct (hi, lo) keys among those rows, the key
        (INT32_MAX, INT32_MAX) left out as JAX leaves it out; regs
        i32[B,1024]: the HyperLogLog registers (p = 10) of _hash32 of the
@@ -2664,17 +2705,38 @@ def agg_distinct(ids, eligible, col):
     if not _on_cuda("agg_distinct", ids, eligible,
                     *(col[ch] for ch in _COLLAPSE_CH)):
         return _agg_distinct_plain(ids, eligible, col)
+    if "codes" not in col or "code_hll" not in col:
+        raise ValueError("agg_distinct: a value column without its codes "
+                         "(codes, code_hll: models/segment.py value_arrays)")
+    _check("agg_distinct.codes", col["codes"], torch.int32, (n,))
+    _check("agg_distinct.code_hll", col["code_hll"], torch.int32)
     dev = ids.device
-    cap = _pow2_cover(2 * max(R, 1))
-    table = torch.empty((B, cap), dtype=torch.int64, device=dev)
+    W = distinct_words(col["code_hll"].shape[0])
+    words = torch.empty(B * W, dtype=torch.int32, device=dev)
     count = torch.empty(B, dtype=torch.int32, device=dev)
     regs = torch.empty((B, HLL_REGS), dtype=torch.int32, device=dev)
+    G, G2 = distinct_plan(B, R, W)
+    aligned = ids.data_ptr() % 16 == 0 and eligible.data_ptr() % 16 == 0
     _launch("agg_distinct", "xt_agg_distinct", ids.data_ptr(),
-            eligible.data_ptr(), B, R, _split(B, R), col["hi"].data_ptr(),
-            col["lo"].data_ptr(), col["present"].data_ptr(), n,
-            table.data_ptr(), cap, count.data_ptr(), regs.data_ptr(),
-            _stream())
+            eligible.data_ptr(), B, R, G, col["codes"].data_ptr(), n,
+            _ptr(col["code_hll"]), W, G2, words.data_ptr(),
+            count.data_ptr(), regs.data_ptr(), int(aligned), _stream())
     return count, regs
+
+
+def distinct_words(K: int) -> int:
+    """agg_distinct's 32-bit words a query of its set of K codes (at least
+    one): its scratch is B of them, whatever the rows."""
+    return max(1, -(-int(K) // 32))
+
+
+def distinct_plan(B: int, R: int, W: int) -> tuple:
+    """agg_distinct's blocks a query: G set the bits (at least DISTINCT_ROWS
+    rows a block, B x G about DISTINCT_BLOCKS), G2 fold the W words (a
+    thread a word, at most DISTINCT_FOLD blocks)."""
+    G = max(1, min(-(-DISTINCT_BLOCKS // max(B, 1)),
+                   -(-max(R, 1) // DISTINCT_ROWS)))
+    return G, max(1, min(-(-W // 256), DISTINCT_FOLD))
 
 
 def hash32(hi, lo):

@@ -48,7 +48,8 @@ import numpy as np
 import torch
 
 from xapiand_tpu_torch.models.builder import SegmentBuilder
-from xapiand_tpu_torch.models.segment import Segment, geo_arrays, size_class
+from xapiand_tpu_torch.models.segment import (Segment, geo_arrays, size_class,
+                                              value_arrays)
 from xapiand_tpu_torch.models.weights import CollectionStats, get_scheme
 from xapiand_tpu_torch.ops import kernels
 from xapiand_tpu_torch.ops.executor import ExecConfig, execute_batch
@@ -246,6 +247,18 @@ def stack_segments(segments: list[Segment], mesh: Mesh) -> dict:
         if all(c.mv_hi is not None for c in cols):
             for ch in ("mv_hi", "mv_lo", "mv_off", "mv_len"):
                 v[ch] = shard_arr([getattr(c, ch) for c in cols], np.int32)
+        # each shard's packed keys and codes (its own distinct keys); the
+        # code tables padded to the widest shard's K, whose pad no code
+        # reaches
+        va = [value_arrays({ch: getattr(c, ch) for ch in
+                            ("hi", "lo", "max_hi", "max_lo", "present")})
+              for c in cols]
+        K = max(a["code_hll"].shape[0] for a in va)
+        for a in va:
+            a["code_hll"] = np.pad(a["code_hll"],
+                                   (0, K - a["code_hll"].shape[0]))
+        for ch in ("keys", "codes", "code_hll"):
+            v[ch] = shard_arr([a[ch] for a in va], np.int32)
     for slot in segments[0].geo:
         gs = [geo_arrays(s.geo[slot]) for s in segments]
         out["geo"][slot] = {ch: shard_arr([g[ch] for g in gs], np.int32)
