@@ -120,11 +120,12 @@ medians) and 256 plain term queries, which the native host scorer answers
 (XT_HOST_PATH at its default; the earlier paths run with it 0, the device
 path). The counted run's launches, routes, host ms a call and bind ms;
 every answer against synth_docs' float64 oracle (in forked numpy workers);
-one profiled window's device-busy share; then every K17c launch
-(agg_buckets' code modes, agg_ranges, agg_hist, agg_filter) of the 512
-searches held against its plain version, each kernel timed at its widest
-launch beside its bound and its library yardstick (torch.bincount for
-agg_buckets' counts and agg_hist, torch.searchsorted for agg_filter).
+one profiled window's device-busy share and device ms by kernel; then
+every K17c launch (agg_buckets' code modes, agg_ranges, agg_hist,
+agg_filter) and every agg_metrics launch of the 512 searches held against
+its plain version, each kernel timed at its widest launch beside its bound
+and its library yardstick (torch.bincount for agg_buckets' counts and
+agg_hist, torch.searchsorted for agg_filter).
 
 REST path - the port's REST server (xapiand_tpu_torch/server/, create_app
 with an IndexManager on the card, the server's default options) in a
@@ -1185,6 +1186,12 @@ def device_trace(runs, stats, tag):
         f"device busy {busy} ms of {span} ms ({100 * busy / span} %)"
         if busy is not None else
         f"{span} ms; device busy not measured (no device events traced)"))
+    trace_by_kernel(prof, tag)
+
+
+def trace_by_kernel(prof, tag, top=12):
+    """The device ms and launches of the top kernels of one profiled
+    run."""
     by_kernel: dict = {}
     for e in prof.events():
         if e.device_type.name == "CUDA" and e.name != "smoke.run":
@@ -1193,7 +1200,7 @@ def device_trace(runs, stats, tag):
                 ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     log(f"[trace] {tag}: device (ms, launches) by kernel, largest first: "
         + str({n[:40]: (round(v, 4), c) for n, (v, c) in sorted(
-            by_kernel.items(), key=lambda kv: -kv[1][0])[:12]}))
+            by_kernel.items(), key=lambda kv: -kv[1][0])[:top]}))
 
 
 # --------------------------------------------------------------------------
@@ -1804,9 +1811,8 @@ def held_ranges(a, **kw):
         # per eligible row its value(s): fval (+ fval2) or four key words
         # and, for a doc of several values, its per-value keys, and each
         # value sub's fval and flag; a test per range (geo_ip: per
-        # interval); the counts and statistics out. The byte a (row,
-        # range) of membership that the kernel writes for its subs pass
-        # and reads back is the design's intermediate, not the function's
+        # interval); the counts and statistics out, and with want_member
+        # the byte a (row, range) of membership
         keyed = mode in ("key", "geo_ip")
         per_sel = 4 + 1 + (16 if keyed else (8 if mode == "geodist" else 4))
         sel = n_true(elig)
@@ -1814,7 +1820,8 @@ def held_ranges(a, **kw):
         if keyed and vmax > 1 and "mv_len" in col:
             d = ids[elig].clamp(max=col["mv_len"].shape[0] - 1).long()
             mv = 8 * int(col["mv_len"][d].sum())
-        out = 4 * B * nb * (1 + 5 * len(subs)) + 5 * n_val * sel
+        out = 4 * B * nb * (1 + 5 * len(subs)) + 5 * n_val * sel + \
+            (B * R * nb if want_member else 0)
         b, o = work_selected(B, R, 1, sel, per_sel,
                              out + mv + bounds.numel() * 4,
                              col["present"].shape[0])
@@ -2397,9 +2404,29 @@ CAPTURE = {
                       "B=64 R=1048576"),
     # browse M and the geo aggregations
     "agg_distinct": ("B=256 R=1000001", "B=64 R=25728"),
-    # faceted A and D (fullwidth), the geo aggregations' geo_stats
+    # faceted A and D (fullwidth), the geo aggregations' geo_stats; the
+    # Database path's one-query launches by their channels (the count
+    # alone, a metric spec, geo_stats' two, three or more)
     "agg_metrics": (re.compile(r"B=64 R=1310720 .*"),
-                    re.compile(r"B=32 R=1835136 .*"), "B=64 R=25728")}
+                    re.compile(r"B=32 R=1835136 .*"), "B=64 R=25728",
+                    ("database", re.compile(r"B=1 R=\d+ metrics=0")),
+                    ("database", re.compile(r"B=1 R=\d+ metrics=1")),
+                    ("database", re.compile(r"B=1 R=\d+ metrics=2")),
+                    ("database", re.compile(r"B=1 R=\d+ metrics=[3-8]"))),
+    # the Database path's one-query launches, by mode: R's balance ranges
+    # with a _stats sub, I's _ip_range (key) with a _sum sub and _geo_ip,
+    # G's _geo_distance ranges; each without subs and with them
+    "agg_ranges": tuple(("database", re.compile(
+        rf"B=1 R=\d+ {m} .* subs={s}")) for m in
+        ("range", "geodist", "key", "geo_ip") for s in ("0", "[1-9]")),
+    # the Database path's top-level histograms (_median, _mode,
+    # _percentiles), N's hist2 by agg_buckets' codes, a geo_ip median's by
+    # agg_ranges' member matrix
+    "agg_hist": tuple(("database", re.compile(rf"B=1 R=\d+ {m} .*"))
+                      for m in ("one", "codes", "member"))}
+# the launches that matched each CAPTURE pattern, by (kernel, index): how
+# often a path makes each captured shape (logged by an --only run)
+CAPTURED: dict = {}
 # the tags of the Held blocks open, innermost last
 HELD_TAGS: list = []
 
@@ -2454,6 +2481,9 @@ def capture(dirname):
                         if HELD_TAGS[-1:] != [tag]:
                             continue
                     if isinstance(p, re.Pattern):
+                        if p.fullmatch(key):
+                            CAPTURED[(name, i)] = \
+                                CAPTURED.get((name, i), 0) + 1
                         # the rows of the first tensor argument (ids
                         # i32[B,R] of collapse_rows, agg_buckets, the
                         # leaves), filter_leaves' docids
@@ -4362,16 +4392,19 @@ def database_path(dev, rec, smi) -> dict:
                 f"device busy {busy} ms of {span} ms ({100 * busy / span} %)"
                 if busy is not None else
                 f"{span} ms; device busy not measured (no device events)"))
+        trace_by_kernel(prof, "database", top=24)
 
-        # every K17c launch of the aggregated searches held against its
-        # plain version; each kernel timed at its widest launch
-        with Held(rec, "database", K17C_KERNELS) as held:
+        # every K17c and agg_metrics launch of the aggregated searches
+        # held against its plain version; each kernel timed at its widest
+        # launch
+        with Held(rec, "database", K17C_KERNELS + ("agg_metrics",)) \
+                as held:
             for _fam, q, aggs, count_only in qs:
                 db.search(q, k=K, aggs=aggs, count_only=count_only)
             torch.cuda.synchronize()
-        log(f"[held] database: K17c launches held against their plain "
-            f"versions (twice bit for bit, counts and codes exact, sums "
-            f"within rtol {AGG_RTOL}): {held.calls}")
+        log(f"[held] database: K17c and agg_metrics launches held against "
+            f"their plain versions (twice bit for bit, counts and codes "
+            f"exact, sums within rtol {AGG_RTOL}): {held.calls}")
         if not all(held.calls.values()):
             raise AssertionError(f"database held {held.calls}")
     finally:
@@ -5332,7 +5365,8 @@ def collapse_designs_phase(dev):
 # the paths that need no other path's world, for --only
 ALONE = {"relevance": "relevance_path", "positional": "positional_path",
          "geo": "geo_path", "mesh": "mesh_path",
-         "rest_mesh": "rest_mesh_path", "faceted": "faceted_browse_path"}
+         "rest_mesh": "rest_mesh_path", "faceted": "faceted_browse_path",
+         "database": "database_path"}
 
 
 def faceted_browse_path(dev, rec, smi):
@@ -5400,6 +5434,11 @@ def main() -> int:
         t0 = time.time()
         globals()[ALONE[args.only]](dev, rec, smi)
         log(f"[time] {args.only} path alone {time.time() - t0:.1f} s")
+        log("[capture] launches a pattern matched: " + json.dumps(
+            {f"{n} {getattr(p, 'pattern', p)}": c
+             for (n, i), c in sorted(CAPTURED.items())
+             for p in [CAPTURE[n][i][-1] if isinstance(CAPTURE[n][i], tuple)
+                       else CAPTURE[n][i]]}))
         return 0
     t0 = time.time()
     rel, rel_world = relevance_path(dev, rec, smi)

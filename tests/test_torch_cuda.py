@@ -2398,3 +2398,102 @@ def test_kmeans_step_is_a_loop_of_one_step(cuda):
     assert none is None and torch.equal(l0, kernels.kmeans_loop(X, C, 0)[0])
     assert torch.equal(l0, l1)
     torch.cuda.synchronize()
+
+
+# agg_metrics (K17a) and agg_ranges (K17c-2) as one launch of warp row
+# queues: the CPU emulations of tests/test_torch_metrics_ranges_design.py
+
+METRIC_CASES = {"count": {"M": 0}, "one": {"M": 1}, "three": {"M": 3,
+                                                             "signs": True},
+                "eight": {"M": 8}, "crowd": {"M": 2, "crowd": True},
+                "none": {"M": 2, "p_elig": 0.0}}
+
+
+@pytest.mark.parametrize("case", sorted(METRIC_CASES))
+@pytest.mark.parametrize("B,R", [(1, 82048), (5, 20011), (64, 40000)])
+def test_agg_metrics_one_launch_matches_plain_version(cuda, case, B, R):
+    """agg_metrics' one launch (flags first, the eligible rows queued and
+    drained a row a lane, the last block's fold) against the plain
+    version: the count alone, 1, 3 and 8 channels, eligible rows in one
+    crowded run, none; one query, five of rows that do not start on 16,
+    64 of several blocks each. Counts, n, min and max equal, s2 within
+    rtol 1e-5, s within 1e-5 of the sums of |value|, the same bits twice
+    and, where the CPU emulation is quick, its bits."""
+    import test_torch_metrics_ranges_design as md
+
+    ids, elig, cols = md.metrics_case(70 + B, B, R, nd=60000,
+                                      **METRIC_CASES[case])
+    want = kernels._agg_metrics_plain(ids, elig, cols)
+    dcols = [(f.to(cuda), p.to(cuda)) for f, p in cols]
+    got = _twice(lambda: kernels.agg_metrics(ids.to(cuda), elig.to(cuda),
+                                             dcols))
+    got = tuple(x.cpu() for x in got)
+    md.check_metrics(got, want, cols, ids, elig)
+    if B * R <= 110000:
+        emu = md.emulate_agg_metrics(ids, elig, cols)
+        for g, e in zip(got, emu):
+            assert torch.equal(g, e)
+
+
+RANGE_CUDA = {"range_sub": ("range", 5, 1, 1, 57472, False),
+              "range_member": ("range", 7, 2, 6, 20011, True),
+              "geodist": ("geodist", 4, 0, 1, 65664, False),
+              "key_sub": ("key", 8, 1, 1, 57472, False),
+              "geo_ip": ("geo_ip", 16, 2, 6, 20011, True),
+              "wide_subs": ("range", 300, 3, 2, 9000, False),
+              "key_wide": ("key", 4096, 0, 1, 300, False),
+              "geo_ip_wide": ("geo_ip", 2048, 1, 1, 40, True),
+              "none": ("key", 8, 2, 3, 5000, False)}
+
+
+@pytest.mark.parametrize("case", sorted(RANGE_CUDA))
+def test_agg_ranges_one_launch_matches_plain_version(cuda, case):
+    """agg_ranges' one launch in every mode (the ranges staged, geo_ip's
+    intervals grouped by bucket, the key words one gather, subs on the
+    warps' partials in shared or device memory, the last block's fold)
+    against the plain version: counts and member bytes equal, sub n, min,
+    max equal, s and s2 within rtol 1e-5, the same bits twice and, where
+    the CPU emulation is quick, its bits; no eligible row ("none")."""
+    import test_torch_metrics_ranges_design as md
+
+    mode, nb, S, B, R, member = RANGE_CUDA[case]
+    args, kw = md.range_case(80 + nb, mode, B, R, nb, S, nd=3000,
+                             p_elig=0.0 if case == "none" else 0.4)
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(cuda)
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(to(v) for v in x)
+        return x
+
+    want = kernels._agg_ranges_plain(*args, **kw, want_member=member)
+    got = _twice(lambda: kernels.agg_ranges(*to(args), **to(kw),
+                                            want_member=member))
+    got = tuple(None if x is None else to_cpu(x) for x in got)
+    md.check_ranges(got, want, S)
+    if member:
+        assert torch.equal(got[2], want[2])
+    if B * R * nb <= 2_000_000 and B * R <= 60000:
+        emu = md.emulate_agg_ranges(*args, **kw)
+        assert torch.equal(got[0], emu[0])
+        if S:
+            for s in range(5):
+                assert torch.equal(got[1][s], emu[1][s]), s
+
+
+def to_cpu(x):
+    return tuple(y.cpu() for y in x) if isinstance(x, tuple) else x.cpu()
+
+
+def test_agg_ranges_refuses_a_key_column_without_packed_keys(cuda):
+    import test_torch_metrics_ranges_design as md
+
+    (ids, elig, mode, col, bounds, nb, subs), kw = md.range_case(
+        5, "key", 1, 100, 4, 0)
+    bare = {c: v.to(cuda) for c, v in col.items() if c != "keys"}
+    with pytest.raises(ValueError, match="without its packed keys"):
+        kernels.agg_ranges(ids.to(cuda), elig.to(cuda), mode, bare,
+                           bounds.to(cuda), nb, **kw)

@@ -83,7 +83,8 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "agg_buckets": "agg_buckets.cu",
            "phrase_leaves": "phrase_leaves.cu", "geo_leaves": "geo_leaves.cu",
            "filter_leaves": "filter_leaves.cu",
-           "agg_distinct": "agg_distinct.cu", "agg_metrics": "agg_metrics.cu"}
+           "agg_distinct": "agg_distinct.cu", "agg_metrics": "agg_metrics.cu",
+           "agg_ranges": "agg_ranges.cu", "agg_hist": "agg_hist.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -116,6 +117,17 @@ VARIANTS = {
     # agg_buckets: 8 queued rows a lane at once; blocks of 16,384 rows
     "ab_u8": ("agg_buckets", ("-DAB_U=8",), {}),
     "ab_rows16384": ("agg_buckets", (), {"AGG_ROWS": 16384}),
+    # agg_metrics: 8 queued rows a lane at once; blocks of 16,384 rows;
+    # row_plan filling 132 blocks (one an SM) or 33
+    "am_u8": ("agg_metrics", ("-DAM_U=8",), {}),
+    "am_rows16384": ("agg_metrics", (), {"AGG_ROWS": 16384}),
+    "am_fill132": ("agg_metrics", (), {"AGG_FILL": 132}),
+    "am_fill33": ("agg_metrics", (), {"AGG_FILL": 33}),
+    # agg_ranges: 4 queued rows a lane at once; row_plan filling 264
+    # blocks or 66
+    "ar_u4": ("agg_ranges", ("-DAR_U=4",), {}),
+    "ar_fill264": ("agg_ranges", (), {"RANGES_FILL": 264}),
+    "ar_fill66": ("agg_ranges", (), {"RANGES_FILL": 66}),
 }
 REPS = 20
 
@@ -325,7 +337,7 @@ def replay(path, libs, pmod, rounds):
     elig = args[3] if name == "sort_topk" else \
         args[2] if name == "collapse_rows" else \
         args[1] if name in ("agg_filter", "agg_buckets", "agg_distinct",
-                            "agg_metrics") else \
+                            "agg_metrics", "agg_ranges", "agg_hist") else \
         (args[5] if args[5] is not None else args[4] != kn.SENTINEL) \
         if name == "filter_leaves" else None
     return {

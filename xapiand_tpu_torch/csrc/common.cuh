@@ -529,6 +529,154 @@ __device__ __forceinline__ unsigned flat_mask16(const unsigned char* e,
     return m;
 }
 
+// flat_mask16's bytes before their mask (mask16_of), so that the load of
+// a group can be issued a step before its flags are read: the 16-byte
+// load where the group lies inside [lo, hi), else the group's bytes one
+// by one (those outside [lo, hi) as 0)
+__device__ __forceinline__ uint4 flat_load16(const unsigned char* e,
+                                             long long lo, long long hi,
+                                             long long g, bool aligned) {
+    const long long r0 = g * 16;
+    if (flat_full(g, lo, hi, aligned))
+        return __ldg(reinterpret_cast<const uint4*>(e + r0));
+    unsigned x[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const long long r = r0 + j;
+        if (r >= lo && r < hi && e[r]) x[j >> 2] |= 1u << (8 * (j & 3));
+    }
+    return make_uint4(x[0], x[1], x[2], x[3]);
+}
+
+// Warp row queues (agg_metrics.cu, agg_ranges.cu). Query b's rows are the
+// flat rows [lo, hi) = [b R, b R + R) of the [B, R] eligible flags; a
+// block walks the flat 16-row groups [q0, q1) of its share, and each of
+// its NW warps takes gpw groups a step (1 <= gpw <= 32: a block of few
+// rows still gives every warp some), a lane l < gpw a group: its flags one
+// 16-byte load (flat_load16; the next step's issued before this step's
+// are read), their count (__popc) added to the lane's, and, with QUEUE,
+// the step's eligible rows (row numbers within the query) pushed in row
+// order onto the warp's queue in shared memory (a warp prefix sum of the
+// lanes' counts). Whenever 32 rows or more wait, drain(n) takes the first
+// n, a multiple of 32, and the others move to the front; after the last
+// step drain(n) takes what is left (n < 32, maybe 0). each(gi, msk) sees
+// every lane's group (gi >= q1, with msk 0, for a lane without one). The
+// first step's flags are wrq_first's, which a kernel issues before its
+// block's set-up. -> the lane's count of eligible rows.
+#define RQ_CAP 544   // a warp's queue: 31 rows left over and a step's 512
+
+__device__ __forceinline__ uint4 wrq_first(const unsigned char* e,
+                                           long long lo, long long hi,
+                                           long long q0, long long q1,
+                                           int gpw, int warp, int lane) {
+    const long long gi = lane < gpw ? q0 + warp * gpw + lane : q1;
+    return gi < q1 ? flat_load16(e, lo, hi, gi,
+                                 (reinterpret_cast<uintptr_t>(e) & 15) == 0)
+                   : make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int NW, bool QUEUE, class Each, class Drain>
+__device__ __forceinline__ int warp_row_queue(
+    const unsigned char* __restrict__ e, long long lo, long long hi,
+    long long q0, long long q1, int gpw, int warp, int lane, uint4 next,
+    int* queue, Each&& each, Drain&& drain) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(e) & 15) == 0;
+    int cnt = 0, qn = 0;
+    const long long stride = (long long)NW * gpw;
+    long long gi = lane < gpw ? q0 + warp * gpw + lane : q1;
+    for (long long gs = q0 + warp * gpw; gs < q1; gs += stride) {
+        const unsigned msk = mask16_of(next);
+        const long long gn = lane < gpw ? gi + stride : q1;
+        next = gn < q1 ? flat_load16(e, lo, hi, gn, aligned)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        const int k = __popc(msk);
+        cnt += k;
+        each(gi, msk);
+        if constexpr (QUEUE) {
+            int incl = k;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_up_sync(0xffffffffu, incl, o);
+                if (lane >= o) incl += x;
+            }
+            const int total = __shfl_sync(0xffffffffu, incl, 31);
+            int pos = qn + incl - k;
+            for (unsigned m = msk; m; m &= m - 1)
+                queue[pos++] = (int)(gi * 16 + __ffs(m) - 1 - lo);
+            qn += total;
+            __syncwarp();
+            if (qn >= 32) {
+                const int full = qn & ~31;
+                drain(full);
+                const int rest = qn - full;
+                const int moved = lane < rest ? queue[full + lane] : 0;
+                __syncwarp();
+                if (lane < rest) queue[lane] = moved;
+                qn = rest;
+                __syncwarp();
+            }
+        }
+        gi = gn;
+    }
+    if constexpr (QUEUE) drain(qn);
+    return cnt;
+}
+
+// The G blocks' partials p[k * stride] (k < G) of one output of a query,
+// folded by the last block in a fixed order. Few outputs (lanes 32): a
+// warp an output, lane l taking blocks l, l + 32, ... in order from the
+// identity, then an xor shuffle tree; many (lanes 1): a thread an output,
+// the blocks in order. op: 0 sum, 1 min, 2 max. -> the fold (every lane).
+__device__ __forceinline__ float fold_blocks(const float* p, long long stride,
+                                             int G, int op, int lanes,
+                                             int lane) {
+    const float inf = __int_as_float(0x7f800000);
+    float a = op == 0 ? 0.0f : (op == 1 ? inf : -inf);
+#pragma unroll 4
+    for (int k = lanes == 32 ? lane : 0; k < G; k += lanes) {
+        const float x = __ldcg(p + k * stride);
+        a = op == 0 ? a + x : (op == 1 ? fminf(a, x) : fmaxf(a, x));
+    }
+    if (lanes == 32) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const float x = __shfl_xor_sync(0xffffffffu, a, o);
+            a = op == 0 ? a + x : (op == 1 ? fminf(a, x) : fmaxf(a, x));
+        }
+    }
+    return a;
+}
+
+__device__ __forceinline__ int fold_counts(const int* p, long long stride,
+                                           int G, int lanes, int lane) {
+    int a = 0;
+#pragma unroll 4
+    for (int k = lanes == 32 ? lane : 0; k < G; k += lanes)
+        a += __ldcg(p + k * stride);
+    if (lanes == 32) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            a += __shfl_xor_sync(0xffffffffu, a, o);
+    }
+    return a;
+}
+
+// the lanes an output of the last block's fold: a warp an output where a
+// query has at most FOLD_WARP_OUTS of them, else a thread
+#define FOLD_WARP_OUTS 64
+__host__ __device__ inline int fold_lanes(long long outputs) {
+    return outputs <= FOLD_WARP_OUTS ? 32 : 1;
+}
+
+// the share [q0, q1) of block g of G of query b's flat 16-row groups
+__device__ __forceinline__ void row_share(long long R, int b, int g, int G,
+                                          long long& q0, long long& q1) {
+    const long long f0 = (long long)b * R / 16;
+    const long long f1 = ((long long)b * R + R + 15) / 16;
+    q0 = f0 + (f1 - f0) * g / G;
+    q1 = f0 + (f1 - f0) * (g + 1) / G;
+}
+
 // ---------------------------------------------------------------------
 // Sort keys (K8 sort_topk, K9 fullwidth_topk): xapiand_tpu/ops/
 // executor.py _rank_and_topk 487-559 builds one key per sort spec; here

@@ -25,7 +25,10 @@ what bounds it on the H100 and what its design does about that):
   fullwidth_topk  K9     sort-free top-k of one sort key at full width,
                          with the exactness certificate
   agg_metrics     K17a   count, masked n / sum / sum of squares / min /
-                         max of value columns
+                         max of value columns, in one launch: the flags
+                         first, each warp's eligible rows queued and
+                         drained a row a lane, the last block of a query
+                         folds the others' partials
   agg_buckets     K17a   terms / missing bucket counts with per-bucket
                          metric sub-aggregations, in one launch: every
                          warp walks the subs' rows, the last block of a
@@ -62,7 +65,8 @@ what bounds it on the H100 and what its design does about that):
                          and each row's bucket code for agg_hist
   agg_ranges      K17c   range, geodist_range, key_range and geo_ip: the
                          ranges a row lies in (several at once), their
-                         counts and metric subs
+                         counts and metric subs, in one launch of
+                         agg_metrics' row queues and last-block fold
   agg_hist        K17c   the fixed-grid order-statistic histograms of
                          median, mode, percentiles and median / mode subs
   agg_filter      K17c   the filter bucket's rows: each docid looked up in
@@ -155,12 +159,18 @@ MAX_TREE_DEPTH = 64       # the tree program's bit stack, one register;
                           # most, and it checks the need against this
 FULLWIDTH_WINDOW = 64     # K9's tie window (executor.py:428)
 MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
-MAX_AGG_METRICS = 8       # agg_metrics per-thread partials per launch
+MAX_AGG_METRICS = 8       # agg_metrics channels a launch (csrc AM_MAXM)
 MAX_AGG_BUCKETS = 4096    # agg_buckets / agg_ranges shared-memory histogram
-AGG_WARPS = 8             # agg_buckets: warps a block (csrc AB_WARPS)
-AGG_WP_SMEM = 12 * 1024   # agg_buckets: the warps' sub partials in shared
-                          # memory up to this many floats (csrc AB_WP_SMEM)
-AGG_ROWS = 4096           # bucket_plan: rows a block at least
+AGG_WARPS = 8             # agg_buckets, agg_ranges: warps a block (csrc
+                          # AB_WARPS, AR_WARPS)
+AGG_WP_SMEM = 12 * 1024   # agg_buckets, agg_ranges: the warps' sub partials
+                          # in shared memory up to this many floats (csrc
+                          # AB_WP_SMEM, AR_WP_SMEM)
+AGG_ROWS = 4096           # bucket_plan, row_plan: rows a block at least
+                          # (row_plan: at gpw 32)
+AGG_FILL = 66             # row_plan: blocks a launch it fills, agg_metrics
+                          # (half an SM: more, smaller blocks lost at B 1)
+RANGES_FILL = 132         # agg_ranges' (its rows' tests take longer)
 AGG_BLOCKS = 4096         # bucket_plan: blocks a launch at most
 AGG_FOLD = 65536          # bucket_plan: a query's G x size partials, which
                           # its last block folds, at most
@@ -320,12 +330,13 @@ _SIGNATURES = {
                      _P, _P],
     "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
                           _P, _P, _P, _P, _P],
-    "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
+    "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P],
     "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _LL, _LL, _P,
                        _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P],
-    "xt_agg_ranges": [_P, _P, _I, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _I,
-                      _I, _I, _P, _P, _P, _P, _P, _P],
+    "xt_agg_ranges": [_P, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                      _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "xt_agg_hist": [_P, _P, _I, _LL, _I, _P, _P, _LL, _P, _I, _P, _P, _I,
                     _I, _P, _P, _P],
     "xt_agg_filter": [_P, _P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P],
@@ -1655,18 +1666,41 @@ def agg_metrics(ids, eligible, cols):
     if not _on_cuda("agg_metrics", ids, eligible, *opt):
         return _agg_metrics_plain(ids, eligible, cols)
     dev = ids.device
-    G = _split(B, R)
-    table = _ints(tuple(x for f, p in cols
-                        for x in (f.data_ptr(), p.data_ptr(), f.shape[0])),
-                  dev, torch.int64) if cols else None
-    part = torch.empty(max(B * G * M * 5, 1), dtype=torch.float32, device=dev)
-    cpart = torch.empty(B * G, dtype=torch.int32, device=dev)
+    G, gpw = row_plan(B, R)
+    # read by the C entry on the host, which passes the columns by value
+    table = torch.tensor([x for f, p in cols
+                          for x in (f.data_ptr(), p.data_ptr(), f.shape[0])]
+                         or [0], dtype=torch.int64)
+    part = torch.empty(B * G * M * 5, dtype=torch.float32, device=dev) \
+        if G > 1 and M else None
+    cpart = torch.empty(B * G, dtype=torch.int32, device=dev) \
+        if G > 1 else None
     count = torch.empty(B, dtype=torch.int32, device=dev)
     out = torch.empty((5, M, B), dtype=torch.float32, device=dev)
     _launch("agg_metrics", "xt_agg_metrics", ids.data_ptr(),
-            eligible.data_ptr(), B, R, G, M, _ptr(table), part.data_ptr(),
-            cpart.data_ptr(), count.data_ptr(), out.data_ptr(), _stream())
+            eligible.data_ptr(), B, R, G, gpw, M, table.data_ptr(),
+            _ptr(part),
+            _ptr(cpart), _tickets(B, dev).data_ptr(), count.data_ptr(),
+            out.data_ptr(), _stream())
     return (count,) + tuple(out)
+
+
+def row_plan(B: int, R: int, cap: int = AGG_BLOCKS,
+             fill: int = AGG_FILL) -> tuple:
+    """(G, gpw) of the kernels that walk a query's rows by warp row queues
+    (csrc/common.cuh warp_row_queue): G blocks a query of 8 warps taking
+    gpw 16-row groups a step each, a block AGG_ROWS rows at gpw 32; where
+    B x G falls short of ``fill`` blocks (few queries: the Database path's
+    B 1), gpw halves, down to 1, and the blocks shrink with it, so that
+    the card is filled (not past cap); G at most AGG_BLOCKS over the
+    queries and cap."""
+    B = max(B, 1)
+    cap = min(cap, AGG_BLOCKS // B)
+    gpw = 32
+    while gpw > 1 and B * -(-R // (AGG_ROWS * gpw // 32)) < fill and \
+            -(-R // (AGG_ROWS * gpw // 32)) < cap:
+        gpw //= 2
+    return max(1, min(-(-R // (AGG_ROWS * gpw // 32)), cap)), gpw
 
 
 def _agg_metrics_plain(ids, eligible, cols):
@@ -1781,7 +1815,8 @@ _TICKETS: dict = {}
 def _tickets(n: int, device) -> torch.Tensor:
     """i32 zeros, n or more, kept on the device from call to call: the
     counters a query of a kernel whose last block folds the others'
-    partials (agg_buckets), which that block sets back to 0."""
+    partials (agg_buckets, agg_metrics, agg_ranges), which that block sets
+    back to 0."""
     key = (device.type, device.index)
     t = _TICKETS.get(key)
     if t is None or t.shape[0] < n:
@@ -1793,14 +1828,23 @@ def _tickets(n: int, device) -> torch.Tensor:
 def bucket_plan(B: int, R: int, size: int, S: int = 0) -> int:
     """agg_buckets' blocks a query (G): one a AGG_ROWS rows, so that a
     query whose eligible rows crowd one stretch spreads them over many
-    blocks; at most AGG_BLOCKS over the queries, AGG_FOLD // size (its last
-    block folds the G blocks' counts and statistics) and, where the warps'
-    sub partials pass shared memory, AGG_WIDE floats of them."""
-    G = min(-(-R // AGG_ROWS), AGG_BLOCKS // max(B, 1), AGG_FOLD // size)
+    blocks; at most AGG_BLOCKS over the queries and fold_cap's (its last
+    block folds the G blocks' counts and statistics)."""
+    G = min(-(-R // AGG_ROWS), AGG_BLOCKS // max(B, 1),
+            fold_cap(B, size, S))
+    return max(1, G)
+
+
+def fold_cap(B: int, size: int, S: int) -> int:
+    """The blocks a query at most of a kernel whose last block folds the
+    blocks' size counts and S subs' statistics (agg_buckets, agg_ranges):
+    AGG_FOLD // size and, where the warps' sub partials pass shared
+    memory, AGG_WIDE floats of them."""
+    cap = AGG_FOLD // size
     wp = AGG_WARPS * S * size * 5
     if wp > AGG_WP_SMEM:
-        G = min(G, AGG_WIDE // (max(B, 1) * wp))
-    return max(1, G)
+        cap = min(cap, AGG_WIDE // (max(B, 1) * wp))
+    return cap
 
 
 def _bucket_src(name, mode, codes, B, R, nb, remap=None) -> tuple:
@@ -2011,12 +2055,20 @@ def agg_ranges(ids, eligible, mode: str, col: dict, bounds, nb: int,
         return _agg_ranges_plain(ids, eligible, mode, col, bounds, nb, subs,
                                  vmax, assign, origin, want_member)
     dev = ids.device
-    # blocks of 256 rows: the subs kernel walks a block's rows with one
-    # thread a (sub, range), so its parallelism is G x S x nb
-    G = max(1, min(SPLIT_BLOCKS // max(B, 1), -(-R // 256)))
-    ptrs = tuple(_ptr(col[ch]) if ch in chans else 0
-                 for ch in ("fval", "fval2", "present", "hi", "lo",
-                            "max_hi", "max_lo") + _MV_CH)
+    if keyed:
+        # the key words of a doc, one 16-byte gather (models/segment.py
+        # value_arrays; present iff min <= max)
+        if "keys" not in col:
+            raise ValueError("agg_ranges: a key column without its packed "
+                             "keys (models/segment.py value_arrays)")
+        _check("agg_ranges.keys", col["keys"], torch.int32, (n, 4))
+        if col["keys"].data_ptr() % 16:
+            raise ValueError("agg_ranges: the packed keys are not 16-byte "
+                             "aligned")
+    G, gpw = ranges_plan(B, R, nb, S)
+    ptrs = tuple(_ptr(col[ch]) if ch in chans or (ch == "keys" and keyed)
+                 else 0
+                 for ch in ("fval", "fval2", "present", "keys") + _MV_CH)
     nmv = col["mv_hi"].shape[0] if "mv_hi" in chans else 0
     # read by the C entry on the host, which builds the kernel's RangeSrc
     cols = torch.tensor(ptrs + (n, nmv), dtype=torch.int64)
@@ -2025,21 +2077,34 @@ def agg_ranges(ids, eligible, mode: str, col: dict, bounds, nb: int,
                                    c[0].shape[0]) if c is not None
                                   else (0, 0, 0))),
                   dev, torch.int64) if subs else None
-    counts = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    counts = torch.empty((B, nb), dtype=torch.int32, device=dev)
     member = torch.empty((B, R, nb), dtype=torch.bool, device=dev) \
-        if (S or want_member) else None
-    part = torch.empty(max(B * G * S * nb * 5, 1), dtype=torch.float32,
-                       device=dev)
+        if want_member else None
+    part = torch.empty(B * G * S * nb * 5, dtype=torch.float32,
+                       device=dev) if G > 1 and S else None
+    pcount = torch.empty(B * G * nb, dtype=torch.int32, device=dev) \
+        if G > 1 else None
     out = torch.empty((S, 5, B, nb), dtype=torch.float32, device=dev)
+    # the warps' sub partials past shared memory (csrc AR_WP_SMEM floats)
+    wide = AGG_WARPS * S * nb * 5 > AGG_WP_SMEM
+    wpg = torch.empty(B * G * AGG_WARPS * S * nb * 5, dtype=torch.float32,
+                      device=dev) if wide else None
     _launch("agg_ranges", "xt_agg_ranges", ids.data_ptr(),
-            eligible.data_ptr(), B, R, G, RANGE_MODES[mode],
+            eligible.data_ptr(), B, R, G, gpw, RANGE_MODES[mode],
             cols.data_ptr(), vmax if "mv_hi" in chans else 1,
             _ptr(bounds) if not keyed else 0, _ptr(bounds) if keyed else 0,
             _ptr(assign), _ptr(origin), nr, nb, S, _ptr(table),
-            counts.data_ptr(), _ptr(member), part.data_ptr(),
-            out.data_ptr(), _stream())
+            counts.data_ptr(), _ptr(member), _ptr(part), _ptr(pcount),
+            _tickets(B, dev).data_ptr(), out.data_ptr(), _ptr(wpg),
+            _stream())
     res = (counts, tuple(out.transpose(0, 1)) if S else None)
     return res + (member,) if want_member else res
+
+
+def ranges_plan(B: int, R: int, nb: int, S: int) -> tuple:
+    """agg_ranges' (G, gpw): row_plan's to RANGES_FILL blocks, G at most
+    fold_cap's."""
+    return row_plan(B, R, max(1, fold_cap(B, nb, S)), RANGES_FILL)
 
 
 def _agg_ranges_plain(ids, eligible, mode, col, bounds, nb, subs, vmax=1,
