@@ -112,7 +112,7 @@ at full width over utils/synth_docs.py's bank / netlog corpus: 100k JSON
 documents (docs/EXAMPLES.md's /bank and /netlog shapes: text, numbers,
 dates, IPv4 / IPv6 addresses, 10% of docs with several, geo points)
 indexed through Database.index_document in 4 commits, then 1% deleted and
-0.5% replaced; 512 Database.search calls in 8 families of 64 (H
+0.5% replaced; 256 Database.search calls in 8 families of 32 (H
 histograms, R ranges + median, F filter + percentiles, N terms >
 histogram > median, I ip_range + geo_ip, G geo_trixels + geo_distance, M
 match-all count-only carrying 3-4 bundles: the dense path, P modes and
@@ -122,7 +122,7 @@ path). The counted run's launches, routes, host ms a call and bind ms;
 every answer against synth_docs' float64 oracle (in forked numpy workers);
 one profiled window's device-busy share and device ms by kernel; then
 every K17c launch (agg_buckets' code modes, agg_ranges, agg_hist,
-agg_filter) and every agg_metrics launch of the 512 searches held against
+agg_filter) and every agg_metrics launch of the 256 searches held against
 its plain version, each kernel timed at its widest launch beside its bound
 and its library yardstick (torch.bincount for agg_buckets' counts and
 agg_hist, torch.searchsorted for agg_filter).
@@ -142,7 +142,7 @@ each took and one profiled window; POST :snapshot, a new server on the
 same data dir, the same 256 answers; 100 passages written with no commit
 to a server without autocommit, stopped, and recovered by the WAL replay
 of the next (each found by a query of its rarest word, held to the
-oracle); 64 searches with "_cluster": {"_k": 3} at _limit 10, 64 with
+oracle); 64 searches with "_cluster": {"_k": 3} at _limit 10, 16 with
 _k 8 at _limit 256, 32 with "_diversify", and Database.cluster_hits over
 4096 passages at k 16, V 2048, counted (kmeans, K20: one launch a
 kmeans_cosine call), then held: every step of every call, read from the
@@ -166,7 +166,7 @@ with every launch held bit for bit, warm runs for QPS, one profiled run,
 and every answer against synth_mesh's float64 oracle (in forked numpy
 workers): totals exact, scores within rtol 1e-5, ranks as tie groups.
 
-REST mesh path - 50k bank / netlog docs through :restore into an
+REST mesh path - 20k bank / netlog docs through :restore into an
 8-shard and a 1-shard index (two commits, 1% deleted), then the traffic
 on both: aggregated searches of synth_docs' H, R and P families (the
 kinds in MESH_AGG_KINDS), value sorts, a strmetric sort, collapses (a
@@ -215,7 +215,7 @@ For each path, in order:
      tests each doc's first RMAX ranges against the cover and the window
      on the keys (counts and the first 10 docids exact), and holds
      config_bench's haversine bounds on every answer;
-  5. QPS of 20 warm runs (median and spread), host planning's share of
+  5. QPS of 7 warm runs (median and spread), host planning's share of
      them, and the device-busy share of one run from a torch.profiler
      trace; on the faceted path the same traffic with the fullwidth path
      on and off, in the order on, off, off, on (not a gate).
@@ -248,8 +248,9 @@ Before them: a "[kernels] <name> every shape" line for topk_rows,
 dense_rows, sort_topk and merge_special (SHAPE_KERNELS): each distinct launch shape of
 every path, timed once where it first came (kernel, plain version, bound
 and library call, the path's tag first), outside the counted runs; and
-wide_topk's key-word table (a sort of 40 value keys, 82 words, past
-MAX_WIDE_WORDS; no path drives it), held against its plain version and
+wide_topk's key-word table (a sort of 40 value keys, 82 words a key, the
+widest sort the wide mode takes; no path drives it), held against its
+plain version and
 timed in its own phase after the paths; then each design of collapse_rows
 (the tiles, in one block and in several, and the global design) forced
 at the edge shapes of tests/test_torch_cuda.py's collapse tests, each call
@@ -274,9 +275,12 @@ without subs, browse M, the geo aggregations, the Database path's
 trixels and nested level of 144 buckets, the REST mesh's histogram with
 a sub; phrase_leaves at the positional launch groups B64 R65536, R196736,
 R262144 and R393344; geo_leaves at geo's B8 R184448 and R312960 and the
-geo aggregations' B64 R25728) as the paths make them. With --only PATH
-(relevance, positional, geo, mesh, rest_mesh) it runs that path alone
-for its captures and prints no result.
+geo aggregations' B64 R25728; wide_topk, the wide mode of topk_rows and
+sort_topk, at the REST mesh's widest page of 300 and sorted collapse of
+k 80 and at the key-word table's sort) as the paths make them. With
+--only PATH (relevance, positional, geo, mesh, rest_mesh, faceted,
+database, wide_table) it runs that path alone for its captures and
+prints no result.
 """
 
 from __future__ import annotations
@@ -298,14 +302,22 @@ FACETED_DOCS, FACETED_PER_FAMILY = 1_000_000, 256
 POSITIONAL_DOCS, POSITIONAL_EACH, POSITIONAL_THREE = 100_000, 512, 128
 GEO_DOCS, GEO_P, GEO_T = 1_000_000, 1024, 256
 BROWSE_M, BROWSE_N, BROWSE_S, BROWSE_X, BROWSE_C = 256, 128, 256, 256, 128
+# wide_topk's key-word table: one sort of WIDE_TABLE_KEYS value keys (two
+# words each) over B x R synthetic rows
+WIDE_TABLE_KEYS, WIDE_TABLE_B, WIDE_TABLE_R = 40, 4, 262_144
 # the Database path's depth: 100k docs since the mesh path came in (200k
-# before it; PERF.md section 4)
-DB_DOCS, DB_COMMITS, DB_EACH, DB_TERMS = 100_000, 4, 64, 256
+# before it; PERF.md section 4), 32 searches a family since the script
+# outgrew half of its time limit (64 before)
+DB_DOCS, DB_COMMITS, DB_EACH, DB_TERMS = 100_000, 4, 32, 256
 # BASELINE config 5 at its published 10M docs over 8 shards stacked on the
-# card; the REST mesh phase's bank / netlog docs (a depth cut: 50k)
+# card; the REST mesh phase's bank / netlog docs (a depth cut: 50k in PR
+# 10, 20k since the script outgrew half of its time limit)
 MESH_DOCS, MESH_SHARDS, MESH_QUERIES, MESH_RUNS = 10_000_000, 8, 256, 5
-REST_MESH_DOCS, REST_MESH_EACH = 50_000, 8
+REST_MESH_DOCS, REST_MESH_EACH = 20_000, 8
 MAX_BATCH, PREFIX_CAP = 256, 8192
+# warm runs behind each path's QPS (20 until the script outgrew half of
+# its time limit; PERF.md section 4)
+TIMED_RUNS = 5
 # queries a scheme; the catalogue's float64 oracles are the schemes path's
 # largest cost (PERF.md section 5), so its depth is 16 a family since the
 # Database path came in (32 before it)
@@ -719,11 +731,23 @@ def work_sort_topk(specs, elig, k, n_col=None, emit=False):
 def topk_library_ms(sums, owner, k):
     """The library yardstick of topk_rows: one torch.topk of the masked
     scores (the same rows and k; it breaks ties in no fixed order)."""
+    return cuda_ms(topk_library_call(sums, owner, k), reps=5)
+
+
+def topk_library_call(sums, owner, k):
+    """topk_library_ms' call: the masking made at the first call, which
+    the timers take as their warm-up."""
     import torch
 
-    masked = torch.where(owner, sums, float("-inf"))
-    kk = min(k, masked.shape[1])
-    return cuda_ms(lambda: torch.topk(masked, kk, dim=1), reps=5)
+    kk = min(k, sums.shape[1])
+    masked = []
+
+    def call():
+        if not masked:
+            masked.append(torch.where(owner, sums, float("-inf")))
+        return torch.topk(masked[0], kk, dim=1)
+
+    return call
 
 
 def docid_topk_call(ids, elig, k):
@@ -1108,6 +1132,33 @@ def device_busy(prof, span_name):
     return busy / 1e3, (hi - lo) / 1e3
 
 
+_FORKED: dict = {}
+
+
+def _forked_job(i):
+    fn, corpus, qs, n, a, kw = _FORKED["job"]
+    return fn(corpus, qs[i::n], *a, **kw)
+
+
+def forked_answers(fn, corpus, qs, *a, **kw):
+    """fn(corpus, qs, *a, **kw) - a float64 oracle that answers each query
+    of qs on its own, in order - over strided slices of qs in forked numpy
+    workers (they touch no CUDA state), reassembled in qs' order."""
+    import multiprocessing
+
+    n = max(1, min(8, os.cpu_count() or 1) - 1)
+    _FORKED["job"] = (fn, corpus, qs, n, a, kw)
+    try:
+        with multiprocessing.get_context("fork").Pool(n) as pool:
+            parts = pool.map(_forked_job, range(n), chunksize=1)
+    finally:
+        _FORKED.clear()
+    out: list = [None] * len(qs)
+    for i, part in enumerate(parts):
+        out[i::n] = part
+    return out
+
+
 @contextmanager
 def fullwidth(flag):
     """XT_FULLWIDTH=flag inside the block (BatchSearcher and query/plan.py
@@ -1120,7 +1171,7 @@ def fullwidth(flag):
 
 
 def timed_runs(runs, stats, n_queries, smi, tag, profiled=True,
-               n_runs=20):
+               n_runs=TIMED_RUNS):
     """n_runs warm runs of every (BatchSearcher, irs) in ``runs``, host-clock
     fenced by torch.cuda.synchronize(); each searcher's plan is wrapped on
     the instance so host planning (re-runs' plans included) is timed inside
@@ -1505,10 +1556,13 @@ def held_topk(a):
         return 0.0
 
     B, R = ids.shape
+    # the wide mode's library call, device-only too (tools/sort_pairs.py)
+    yard = [topk_library_call(scores, owner, k)] \
+        if goes_wide("topk_rows", a) else []
     return (lambda: kn._topk_rows_plain(scores, ids, owner, k, tie), check,
             f"{'tie ' if tie is not None else ''}B={B} R={R} k={k}",
             lambda: work_rows(R, B, 13 if tie is not None else 9, 8 * k),
-            lambda: topk_library_ms(scores, owner, k))
+            lambda: topk_library_ms(scores, owner, k), *yard)
 
 
 def held_slices(a):
@@ -1861,26 +1915,28 @@ def held_hist(a, **kw):
                              fval.shape[0])
         return b, o + 3 * sel
 
-    def library():
-        # torch.bincount of each counted row's (query, bucket, bin) index
-        d = ids.clamp(max=fval.shape[0] - 1).long()
-        m = elig & present[d]
-        vb = kn.value_bins(fval[d], params, nbins)
-        if member is not None:
-            bi, ri, ji = (member & m[:, :, None]).nonzero(as_tuple=True)
-        else:
-            c = torch.zeros_like(vb) if codes is None else codes.long()
-            bi, ri = (m & (c >= 0)).nonzero(as_tuple=True)
-            ji = c[bi, ri]
-        flat = (bi * nb + ji) * nbins + vb[bi, ri]
-        return cuda_ms(lambda: torch.bincount(flat,
-                                              minlength=B * nb * nbins),
-                       reps=5)
+    flat = []
+
+    def yard():
+        # torch.bincount of each counted row's (query, bucket, bin) index,
+        # made at the first call (the timers' warm-up)
+        if not flat:
+            d = ids.clamp(max=fval.shape[0] - 1).long()
+            m = elig & present[d]
+            vb = kn.value_bins(fval[d], params, nbins)
+            if member is not None:
+                bi, ri, ji = (member & m[:, :, None]).nonzero(as_tuple=True)
+            else:
+                c = torch.zeros_like(vb) if codes is None else codes.long()
+                bi, ri = (m & (c >= 0) & (c < nb)).nonzero(as_tuple=True)
+                ji = c[bi, ri]
+            flat.append((bi * nb + ji) * nbins + vb[bi, ri])
+        return torch.bincount(flat[0], minlength=B * nb * nbins)
 
     mode = "codes" if codes is not None else \
         ("member" if member is not None else "one")
     return (plain, check, f"B={B} R={R} {mode} nb={nb} bins={nbins}", work,
-            library)
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 def held_afilter(a):
@@ -1919,6 +1975,21 @@ def held_afilter(a):
             lambda: cuda_ms(yard, reps=5), yard)
 
 
+def goes_wide(name, a) -> bool:
+    """Whether a call of the topk_rows or sort_topk wrapper with arguments
+    a launches their wide mode (wide_topk.cu): topk_rows past MAX_TOPK,
+    sort_topk past MAX_SORT_TOPK or MAX_SORT_WORDS key words."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    if name == "topk_rows":
+        return a[3] > kn.MAX_TOPK
+    if name == "sort_topk":
+        return a[4] > kn.MAX_SORT_TOPK or \
+            sum(2 if sp[0] == "value" else 1 for sp in a[0]) + 2 > \
+            kn.MAX_SORT_WORDS
+    return False
+
+
 def held_sort(a):
     """sort_topk over the dense path's rows (every doc a row)."""
     from xapiand_tpu_torch.ops import kernels as kn
@@ -1931,9 +2002,7 @@ def held_sort(a):
     cols = [values.get(sp[1]) if sp[0] not in ("score", "docid") else None
             for sp in specs]
     # the calls the wrapper sends to wide_topk.cu keep its count
-    wide = k > kn.MAX_SORT_TOPK or \
-        sum(2 if sp[0] == "value" else 1 for sp in specs) + 2 > \
-        kn.MAX_SORT_WORDS
+    wide = goes_wide("sort_topk", a)
 
     def check(got, want):
         check_equal("sort_topk docids", got[0], want[0])
@@ -2423,7 +2492,21 @@ CAPTURE = {
     # _percentiles), N's hist2 by agg_buckets' codes, a geo_ip median's by
     # agg_ranges' member matrix
     "agg_hist": tuple(("database", re.compile(rf"B=1 R=\d+ {m} .*"))
-                      for m in ("one", "codes", "member"))}
+                      for m in ("one", "codes", "member")),
+    # the wide mode of topk_rows and sort_topk (their calls past MAX_TOPK,
+    # MAX_SORT_TOPK or MAX_SORT_WORDS, saved under wide_topk): the REST
+    # mesh's pages of 300 (the widest, and the widest of under 10,000
+    # rows), its sorted collapses of k 80 (likewise) and the key-word
+    # table's sort
+    "wide_topk": (("rest mesh", re.compile(r"B=\d+ R=\d+ k=\d+")),
+                  ("rest mesh", re.compile(r"B=\d+ R=\d{1,4} k=\d+")),
+                  ("rest mesh", re.compile(r"B=\d+ R=\d+ k=\d+ keys=.*")),
+                  ("rest mesh",
+                   re.compile(r"B=\d+ R=\d{1,4} k=\d+ keys=.*")),
+                  re.compile(rf"B={WIDE_TABLE_B} R={WIDE_TABLE_R} k=\d+ "
+                             r"keys=.*"))}
+# the wrappers whose wide mode CAPTURE's wide_topk entries take
+WIDE_WRAPPERS = ("topk_rows", "sort_topk")
 # the launches that matched each CAPTURE pattern, by (kernel, index): how
 # often a path makes each captured shape (logged by an --only run)
 CAPTURED: dict = {}
@@ -2466,8 +2549,13 @@ def capture(dirname):
     def hook(name, fn):
         def call(*args, **kw):
             got = fn(*args, **kw)
+            # a wrapper's wide mode is saved under wide_topk (the record's
+            # name stays the wrapper's, which tools/sort_pairs.py calls)
+            kname = "wide_topk" if goes_wide(name, args) else name
+            if kname not in CAPTURE:
+                return got
             key = HELD[name](args, **kw)[2]
-            if CAPTURE[name] is None:
+            if CAPTURE[kname] is None:
                 # agg_filter's rows, semijoin_rows' B x S
                 rows = args[0].numel() if name == "agg_filter" else \
                     args[1].shape[0] * int(args[6][args[7]])
@@ -2475,15 +2563,15 @@ def capture(dirname):
                     widest[name] = rows
                     save(name, key, args, kw, f"{name} widest.pt")
             else:
-                for i, p in enumerate(CAPTURE[name]):
+                for i, p in enumerate(CAPTURE[kname]):
                     if isinstance(p, tuple):
                         tag, p = p
                         if HELD_TAGS[-1:] != [tag]:
                             continue
                     if isinstance(p, re.Pattern):
                         if p.fullmatch(key):
-                            CAPTURED[(name, i)] = \
-                                CAPTURED.get((name, i), 0) + 1
+                            CAPTURED[(kname, i)] = \
+                                CAPTURED.get((kname, i), 0) + 1
                         # the rows of the first tensor argument (ids
                         # i32[B,R] of collapse_rows, agg_buckets, the
                         # leaves), filter_leaves' docids
@@ -2491,21 +2579,22 @@ def capture(dirname):
                                 next(x for x in args if isinstance(
                                     x, torch.Tensor))).numel() \
                             if p.fullmatch(key) else 0
-                        if rows > widest.get((name, i), 0):
-                            widest[(name, i)] = rows
+                        if rows > widest.get((kname, i), 0):
+                            widest[(kname, i)] = rows
                             save(name, key, args, kw,
-                                 f"{name} pattern{i} widest.pt")
+                                 f"{kname} pattern{i} widest.pt")
                     elif key == p or key.startswith(p + " "):
-                        if (name, p) not in done:
-                            done.add((name, p))
-                            save(name, key, args, kw, f"{name} {key}.pt")
+                        if (kname, p) not in done:
+                            done.add((kname, p))
+                            save(name, key, args, kw, f"{kname} {key}.pt")
                         break
             return got
 
         call.__wrapped__ = fn
         return call
 
-    for name in CAPTURE:
+    for name in {n for n in CAPTURE if n != "wide_topk"} | \
+            set(WIDE_WRAPPERS if "wide_topk" in CAPTURE else ()):
         mod, attr = wrapper_home(name)
         setattr(mod, attr, hook(name, getattr(mod, attr)))
 
@@ -2797,7 +2886,7 @@ def browse_path(dev, rec, smi, corpus, searcher) -> dict:
 
     # parity with the float64 oracle
     t0 = time.time()
-    want = sb.oracle_answers(corpus, qs, K, ORACLE_RTOL)
+    want = forked_answers(sb.oracle_answers, corpus, qs, K, ORACLE_RTOL)
     bad = [qi for qi, ((fam, _q, p), r, w) in enumerate(zip(qs, results,
                                                             want))
            if not browse_match(fam, p, r, w, corpus.cat_codes, agg_at)]
@@ -2855,6 +2944,36 @@ def browse_path(dev, rec, smi, corpus, searcher) -> dict:
 
 SCHEME_KERNELS = ("score_slices", "prefix_certify", "dense_rows",
                   "merge_special")
+
+
+def catalogue_errors(corpus, items, scheme, fst, fuq) -> list:
+    """Each (query, result) of the schemes catalogue against
+    synth_schemes' float64 oracle: None, or what differs."""
+    from xapiand_tpu_torch.ops import kernels as kn
+    from xapiand_tpu_torch.utils import synth_schemes as ss
+
+    want = ss.catalogue_answers(corpus, [q for q, _r in items], scheme,
+                                fst, fuq)
+    out = []
+    for ((fam, _q, p), r), w in zip(items, want):
+        if fam == "N":
+            real = r["docids"] != kn.SENTINEL
+            err = None if (r["count"] == w["count"] and
+                           r["docids"][real].tolist() ==
+                           w["docids"][:K].tolist() and
+                           not r["scores"][real].any()) else "N differs"
+        elif fam == "D":
+            err = ss.match_docid_order(r["docids"], r["scores"],
+                                       r["count"], w, K)
+        elif fam == "C":
+            err = ss.match_collapsed(
+                r["docids"], r["scores"], int(r["count"]), w,
+                corpus.cat_codes, min(p["collapse_max"], 8), K)
+        else:
+            err = ss.match_ranked(r["docids"], r["scores"], r["count"],
+                                  w, K)
+        out.append(err)
+    return out
 
 
 def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
@@ -3018,29 +3137,13 @@ def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
                                  f"{kn.launches}")
         t2 = time.time()
         idx = exec_i if only_c else batch_i + exec_i
-        want = ss.catalogue_answers(corpus, [qs[i] for i in idx], scheme,
-                                    fst, fuq)
-        bad = []
-        for i, r, w in zip(idx, results, want):
-            fam, _q, p = qs[i]
-            if fam == "N":
-                real = r["docids"] != kn.SENTINEL
-                err = None if (r["count"] == w["count"] and
-                               r["docids"][real].tolist() ==
-                               w["docids"][:K].tolist() and
-                               not r["scores"][real].any()) else "N differs"
-            elif fam == "D":
-                err = ss.match_docid_order(r["docids"], r["scores"],
-                                           r["count"], w, K)
-            elif fam == "C":
-                err = ss.match_collapsed(
-                    r["docids"], r["scores"], int(r["count"]), w,
-                    corpus.cat_codes, min(p["collapse_max"], 8), K)
-            else:
-                err = ss.match_ranked(r["docids"], r["scores"], r["count"],
-                                      w, K)
-            if err:
-                bad.append((i, err))
+        # the oracle's answers hold float64 scores over every matched doc,
+        # too large to send back from a worker: each worker checks its
+        # share and sends back the verdicts
+        errs = forked_answers(catalogue_errors, corpus,
+                              [(qs[i], r) for i, r in zip(idx, results)],
+                              scheme, fst, fuq)
+        bad = [(i, err) for i, err in zip(idx, errs) if err]
         nz = sum(int((r["scores"][r["docids"] != kn.SENTINEL] != 0).sum())
                  for r in results)
         nonzero[label] = nonzero.get(label, 0) + nz
@@ -3075,7 +3178,7 @@ def schemes_path(dev, rec, smi, rel_world, corpus, fac_searcher) -> dict:
 # section 5)
 CHUNK_ROWS = 1024
 # warm runs of each K21 mode's QPS and its default's (information only)
-K21_RUNS = 7
+K21_RUNS = 5
 K21_CHUNKED = ("score_slices", "merge_docs", "topk_rows", "chunk_merge",
                "shard_reduce")
 K21_SEMIJOIN = ("semijoin_rows", "filter_leaves", "sort_topk", "agg_metrics",
@@ -3532,7 +3635,7 @@ def faceted_path(dev, rec, smi) -> tuple:
 
     # parity with the float64 oracle, aggregations included, on both paths
     t0 = time.time()
-    want = sf.oracle_answers(corpus, qs, K, ORACLE_RTOL)
+    want = forked_answers(sf.oracle_answers, corpus, qs, K, ORACLE_RTOL)
     log(f"[parity] faceted oracle {time.time() - t0:.1f} s")
     ncat = len(corpus.cat_names)
 
@@ -4087,7 +4190,8 @@ def geo_path(dev, rec, smi) -> dict:
 
     # parity with the oracle, and config_bench's haversine bounds
     t0 = time.time()
-    want = sg.oracle_answers(corpus, qs, rmax, K, aggs=True)
+    want = forked_answers(sg.oracle_answers, corpus, qs, rmax, K,
+                          aggs=True)
     bad = []
     for qi, (r, w) in enumerate(zip(results, want)):
         real = r["docids"] != kn.SENTINEL
@@ -4397,6 +4501,7 @@ def database_path(dev, rec, smi) -> dict:
         # every K17c and agg_metrics launch of the aggregated searches
         # held against its plain version; each kernel timed at its widest
         # launch
+        t0 = time.time()
         with Held(rec, "database", K17C_KERNELS + ("agg_metrics",)) \
                 as held:
             for _fam, q, aggs, count_only in qs:
@@ -4404,7 +4509,8 @@ def database_path(dev, rec, smi) -> dict:
             torch.cuda.synchronize()
         log(f"[held] database: K17c and agg_metrics launches held against "
             f"their plain versions (twice bit for bit, counts and codes "
-            f"exact, sums within rtol {AGG_RTOL}): {held.calls}")
+            f"exact, sums within rtol {AGG_RTOL}): {held.calls} "
+            f"({time.time() - t0:.1f} s)")
         if not all(held.calls.values()):
             raise AssertionError(f"database held {held.calls}")
     finally:
@@ -4416,7 +4522,9 @@ def database_path(dev, rec, smi) -> dict:
 # -- the REST path (slice 9) ------------------------------------------------
 
 REST_DOCS, REST_QUERIES, REST_CLIENTS, REST_TAIL = 10_000, 256, 8, 100
-CLUSTER_SMALL, CLUSTER_WIDE, DIVERSIFY = 64, 64, 32
+# the wide clusterings re-index 256 hits each on the host (_doc_vectors):
+# 16 of them since the script outgrew half of its time limit (64 before)
+CLUSTER_SMALL, CLUSTER_WIDE, DIVERSIFY = 64, 16, 32
 WIDE_N, WIDE_K = 4096, 16
 SNAP_EACH = 8             # of each Database family: 64 aggregated searches
 SNAP_TERMS = 64
@@ -5117,14 +5225,16 @@ def rest_mesh_path(dev, rec, smi) -> dict:
         corpus = sd.build_corpus(REST_MESH_DOCS, seed=7)
         half = REST_MESH_DOCS // 2
         t0 = time.perf_counter()
+        ndjson = {(a, b): "\n".join(json.dumps(dict(corpus.doc(i),
+                                                    _id=str(i)))
+                                    for i in range(a, b)).encode()
+                  for a, b in ((0, half), (half, REST_MESH_DOCS))}
         for name, ns in (("mesh8", MESH_SHARDS), ("mesh1", 1)):
             status, _ = srv.req("PUT", f"/{name}/:settings",
                                 {"num_shards": ns})
             if status != 200:
                 raise AssertionError(f"{name} settings: {status}")
-            for a, b in ((0, half), (half, REST_MESH_DOCS)):
-                nd = "\n".join(json.dumps(dict(corpus.doc(i), _id=str(i)))
-                               for i in range(a, b)).encode()
+            for (a, b), nd in ndjson.items():
                 status, out = srv.req("POST", f"/{name}/:restore", nd,
                                       ctype="application/x-ndjson")
                 if status != 200 or out["#indexed"] != b - a:
@@ -5243,14 +5353,9 @@ def rest_mesh_path(dev, rec, smi) -> dict:
 
 
 
-# wide_topk's key-word table: one sort of WIDE_TABLE_KEYS value keys (two
-# words each, past MAX_WIDE_WORDS) over B x R synthetic rows
-WIDE_TABLE_KEYS, WIDE_TABLE_B, WIDE_TABLE_R = 40, 4, 262_144
-
-
 def wide_table_phase(dev, rec):
-    """wide_topk's table of key words (sort_topk past MAX_WIDE_WORDS key
-    words; no path drives it): a sort of 40 value keys over 8 value columns
+    """wide_topk's table of key words (sort_topk at 82 key words; no path
+    drives it): a sort of 40 value keys over 8 value columns
     of 2-7 distinct values (ties run deep), 70% of the rows eligible, k 10,
     against its plain version and timed. Outside every counted run."""
     import torch
@@ -5366,7 +5471,13 @@ def collapse_designs_phase(dev):
 ALONE = {"relevance": "relevance_path", "positional": "positional_path",
          "geo": "geo_path", "mesh": "mesh_path",
          "rest_mesh": "rest_mesh_path", "faceted": "faceted_browse_path",
-         "database": "database_path"}
+         "database": "database_path", "wide_table": "wide_table_alone"}
+
+
+def wide_table_alone(dev, rec, _smi):
+    """wide_topk's key-word table phase (--only wide_table: its
+    capture)."""
+    wide_table_phase(dev, rec)
 
 
 def faceted_browse_path(dev, rec, smi):
@@ -5374,6 +5485,15 @@ def faceted_browse_path(dev, rec, smi):
     faceted: their captures without the paths before and after them)."""
     _fac, corpus, searcher, _gate = faceted_path(dev, rec, smi)
     browse_path(dev, rec, smi, corpus, searcher)
+
+
+def phase_done(tag, t0, t_script):
+    """The [time] line of a phase, also on stderr with the script's time so
+    far, so that a run stopped at its time limit shows how far it got."""
+    log(f"[time] {tag} {time.time() - t0:.1f} s")
+    print(f"[time] {tag} {time.time() - t0:.1f} s, the script "
+          f"{time.time() - t_script:.1f} s so far", file=sys.stderr,
+          flush=True)
 
 
 def main() -> int:
@@ -5433,7 +5553,7 @@ def main() -> int:
     if args.only:
         t0 = time.time()
         globals()[ALONE[args.only]](dev, rec, smi)
-        log(f"[time] {args.only} path alone {time.time() - t0:.1f} s")
+        phase_done(f"{args.only} path alone", t0, t_script)
         log("[capture] launches a pattern matched: " + json.dumps(
             {f"{n} {getattr(p, 'pattern', p)}": c
              for (n, i), c in sorted(CAPTURED.items())
@@ -5443,53 +5563,53 @@ def main() -> int:
     t0 = time.time()
     rel, rel_world = relevance_path(dev, rec, smi)
     torch.cuda.empty_cache()
-    log(f"[time] relevance path {time.time() - t0:.1f} s")
+    phase_done("relevance path", t0, t_script)
     t0 = time.time()
     fac, corpus, searcher, fac_gate = faceted_path(dev, rec, smi)
     torch.cuda.empty_cache()
-    log(f"[time] faceted path {time.time() - t0:.1f} s")
+    phase_done("faceted path", t0, t_script)
     t0 = time.time()
     bro = browse_path(dev, rec, smi, corpus, searcher)
     torch.cuda.empty_cache()
-    log(f"[time] browse path {time.time() - t0:.1f} s")
+    phase_done("browse path", t0, t_script)
     t0 = time.time()
     sch = schemes_path(dev, rec, smi, rel_world, corpus, searcher)
     torch.cuda.empty_cache()
-    log(f"[time] schemes path {time.time() - t0:.1f} s")
+    phase_done("schemes path", t0, t_script)
     t0 = time.time()
     k21 = k21_path(dev, rec, smi, rel_world, corpus, searcher, fac_gate)
     del corpus, searcher, rel_world, fac_gate
     torch.cuda.empty_cache()
-    log(f"[time] k21 path {time.time() - t0:.1f} s")
+    phase_done("k21 path", t0, t_script)
     t0 = time.time()
     pos = positional_path(dev, rec, smi)
     torch.cuda.empty_cache()
-    log(f"[time] positional path {time.time() - t0:.1f} s")
+    phase_done("positional path", t0, t_script)
     t0 = time.time()
     geo = geo_path(dev, rec, smi)
-    log(f"[time] geo path and its aggregation run {time.time() - t0:.1f} s")
+    phase_done("geo path and its aggregation run", t0, t_script)
     torch.cuda.empty_cache()
     t0 = time.time()
     dbp, db_world = database_path(dev, rec, smi)
-    log(f"[time] database path {time.time() - t0:.1f} s")
+    phase_done("database path", t0, t_script)
     t0 = time.time()
     rst = rest_path(dev, rec, smi, db_world)
     del db_world
-    log(f"[time] rest path {time.time() - t0:.1f} s")
+    phase_done("rest path", t0, t_script)
     torch.cuda.empty_cache()
     t0 = time.time()
     msh = mesh_path(dev, rec, smi)
     torch.cuda.empty_cache()
-    log(f"[time] mesh path {time.time() - t0:.1f} s")
+    phase_done("mesh path", t0, t_script)
     t0 = time.time()
     rmh = rest_mesh_path(dev, rec, smi)
-    log(f"[time] rest mesh path {time.time() - t0:.1f} s")
+    phase_done("rest mesh path", t0, t_script)
     t0 = time.time()
     wide_table_phase(dev, rec)
-    log(f"[time] wide_topk table {time.time() - t0:.1f} s")
+    phase_done("wide_topk table", t0, t_script)
     t0 = time.time()
     collapse_designs_phase(dev)
-    log(f"[time] collapse_rows designs {time.time() - t0:.1f} s")
+    phase_done("collapse_rows designs", t0, t_script)
     rec.shape_lines()
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "xapiand_tpu")]:

@@ -505,7 +505,7 @@ def test_geo_stats_raises():
     arity than (kind, slot), which no compile produces."""
     paggs.check_aggs((("geo_stats", 1), ("cardinality", 1)))
     for bad in (("geo_stats", 1, 2), ("cardinality",)):
-        with pytest.raises(NotImplementedError, match="K17c"):
+        with pytest.raises(NotImplementedError, match="arity"):
             paggs.check_aggs((bad,))
 
 

@@ -1746,7 +1746,7 @@ def test_deep_tree_and_many_sort_keys_cuda_equal_cpu(cuda):
     """The two limits repaired in slice 11 through the port's Database on
     the card and on the CPU: a tree of AND / AND_NOT 100 deep (the
     reordered program on the 64-bit stack), its negation (NOTAND), and
-    sorts of 16 and 24 value keys (wide_topk's device-memory key table):
+    sorts of 16 and 24 value keys (wide_topk at 34 and 50 key words):
     the same answers."""
     from xapiand_tpu_torch.database import Database
     from xapiand_tpu_torch.query.dsl import parse_sort
@@ -2497,3 +2497,136 @@ def test_agg_ranges_refuses_a_key_column_without_packed_keys(cuda):
     with pytest.raises(ValueError, match="without its packed keys"):
         kernels.agg_ranges(ids.to(cuda), elig.to(cuda), mode, bare,
                            bounds.to(cuda), nb, **kw)
+
+
+# agg_hist (K17c-3) as one launch of warp row queues and wide_topk (K4+K8
+# wide) as row tiles and a merge: the CPU emulations of
+# tests/test_torch_hist_wide_design.py
+
+def _hist_scratch_zero(cuda):
+    """agg_hist's kept scratch on the card (if made) is all zeros."""
+    t = kernels._KEPT.get(("agg_hist", cuda.type, cuda.index or 0))
+    return t is None or not bool(t.any())
+
+
+@pytest.mark.parametrize("case", ["one_b1", "one_many_blocks",
+                                  "one_small_bins", "one_none", "codes",
+                                  "codes_b3", "member", "member_b2",
+                                  "codes_none"])
+@pytest.mark.parametrize("flout", [True, False])
+def test_agg_hist_one_launch_matches_plain_version(cuda, case, flout,
+                                                   monkeypatch):
+    """agg_hist's one launch (the top level's last-block conversion, hist2
+    by float atomics or by the zero-kept scratch and a grid barrier)
+    against the plain version and the CPU emulation, bit for bit, twice;
+    one launch counted a call; the kept scratch zero after it."""
+    import test_torch_hist_wide_design as hw
+
+    monkeypatch.setattr(kernels, "HIST2_FLOAT", flout)
+    mode, B, R, nb, nbins, p = hw.HIST_CASES[case]
+    args, kw = hw.hist_case(sorted(hw.HIST_CASES).index(case), B, R, nbins,
+                            mode, nb, p_elig=p)
+    want = kernels._agg_hist_plain(*args, **kw)
+    dargs = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in args]
+    dkw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    n0 = kernels.launches["agg_hist"]
+    got = _twice(lambda: kernels.agg_hist(*dargs, **dkw)).cpu()
+    torch.cuda.synchronize()
+    assert kernels.launches["agg_hist"] == n0 + 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, hw.emulate_agg_hist(*args, **kw)[0])
+    assert _hist_scratch_zero(cuda)
+
+
+@pytest.mark.parametrize("fill", [1, 33, 528])
+def test_agg_hist_fills_match_plain_version(cuda, fill, monkeypatch):
+    """The top level and hist2 at other row_plan fills (one block a query,
+    blocks of 16 rows a warp): the same counts."""
+    import test_torch_hist_wide_design as hw
+
+    monkeypatch.setattr(kernels, "HIST_FILL", fill)
+    monkeypatch.setattr(kernels, "HIST2_FILL", fill)
+    for mode, nb in (("one", 1), ("codes", 7)):
+        args, kw = hw.hist_case(fill, 2, 40000, 2048, mode, nb)
+        want = kernels._agg_hist_plain(*args, **kw)
+        dargs = [x.to(cuda) if isinstance(x, torch.Tensor) else x
+                 for x in args]
+        dkw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        assert torch.equal(kernels.agg_hist(*dargs, **dkw).cpu(), want)
+    assert _hist_scratch_zero(cuda)
+
+
+@pytest.mark.parametrize("case", ["uniform", "deep", "special", "few"])
+@pytest.mark.parametrize("tie", [False, True])
+@pytest.mark.parametrize("k,tiles", [(300, None), (300, 512), (700, 512),
+                                     (5000, None)])
+def test_wide_topk_rows_tiles_match_plain_version(cuda, case, tie, k, tiles,
+                                                  monkeypatch):
+    """topk_rows' wide mode (its tiles' radix passes, the merge by ranks)
+    against the plain version and the CPU emulation of the same plan, bit
+    for bit, twice; one launch counted a call."""
+    import test_torch_hist_wide_design as hw
+
+    if tiles:
+        hw.small_tiles(monkeypatch, tile=tiles)
+    s, d, o, t = hw.wide_rows_case(case, 3, 4000, k + len(case), tie)
+    args = [x.to(cuda) for x in (s, d, o)]
+    tt = t.to(cuda) if tie else None
+    n0 = kernels.launches["wide_topk"]
+    got = _twice(lambda: kernels.topk_rows(*args, k, tt))
+    torch.cuda.synchronize()
+    assert kernels.launches["wide_topk"] == n0 + 2
+    got = tuple(x.cpu() for x in got)
+    for a, b in zip(got, kernels._topk_rows_plain(s, d, o, k, t)):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    for a, b in zip(got, hw.wide_rows_answer(s, d, o, k, t)):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.parametrize("n_keys,k", [(1, 80), (20, 10), (40, 10), (3, 700)])
+@pytest.mark.parametrize("tiles", [None, 300])
+def test_wide_sort_topk_tiles_match_plain_version(cuda, n_keys, k, tiles,
+                                                  monkeypatch):
+    """sort_topk's wide mode at 4 to 82 key words (ties deep through the
+    repeated columns), k past the eligible rows at 700, against the plain
+    version and the CPU emulation, emitted key words included, twice."""
+    import test_torch_hist_wide_design as hw
+
+    if tiles:
+        hw.small_tiles(monkeypatch, tile=tiles)
+    specs, (ids, sums, elig), values = hw.table_world(2, 1200, n_keys,
+                                                      n_keys)
+    dv = {c: {ch: x.to(cuda) for ch, x in col.items()}
+          for c, col in values.items()}
+    got = _twice(lambda: kernels.sort_topk(specs, ids.to(cuda),
+                                           sums.to(cuda), elig.to(cuda), k,
+                                           dv, emit=True))
+    got = tuple(x.cpu() for x in got)
+    cols = [values[sp[1]] for sp in specs]
+    want = kernels._sort_topk_plain(specs, cols, ids, sums, elig, k, None,
+                                    {}, None, True)
+    emu, _ = hw.wide_sort_answer(specs, ids, sums, elig, k, values)
+    for a, b, c in zip(got, want, emu):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+        assert a.numpy().tobytes() == c.numpy().tobytes()
+
+
+def test_wide_sort_topk_table_shape_matches_plain_version(cuda):
+    """The key-word table's sort at chip_smoke.py's shape (B4 R262144, 40
+    value keys, 82 words, k 10): several tiles a query, every buffer in
+    shared memory, equal to the plain version."""
+    import test_torch_hist_wide_design as hw
+
+    specs, (ids, sums, elig), values = hw.table_world(4, 262144, 40, 12)
+    plan = kernels.wide_plan(4, 262144, 10, 82)
+    assert plan[0] > 1 and plan[3] == 0
+    dv = {c: {ch: x.to(cuda) for ch, x in col.items()}
+          for c, col in values.items()}
+    da = [x.to(cuda) for x in (ids, sums, elig)]
+    got = _twice(lambda: kernels.sort_topk(specs, *da, 10, dv))
+    cols = [dv[sp[1]] for sp in specs]
+    want = kernels._sort_topk_plain(specs, cols, *da, 10, None, {})
+    for a, b in zip(got, want):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()

@@ -327,12 +327,13 @@ OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
     ("drive", {"drive": 0}, "parity"), ("n_chunks", {"n_chunks": 2}, "parity"),
     # the fullwidth path (K9) and the K17a / K17b / K17c aggregations are
     # ported: their cases now carry aggregations wider than the kernels'
-    # bucket tables (kernels.MAX_AGG_BUCKETS), or of an arity no compile
-    # produces
+    # bucket tables, or of an arity no compile produces, refused by the
+    # limit they meet
     ("fullwidth", {"fullwidth": True, "carry": ((1, ("fval",)),),
-                   "with_aggs": (("histogram", 1, 8192, ()),)}, "K17c"),
+                   "with_aggs": (("histogram", 1, 8192, ()),)},
+     "kernels.MAX_AGG_BUCKETS"),
     ("carry", {"carry": ((1, ("hi",)),),
-               "with_aggs": (("geo_stats", 1, 2),)}, "K17c"),
+               "with_aggs": (("geo_stats", 1, 2),)}, "arity 2"),
     # synonym groups and max specs are ported (K13): the cases carry more
     # of them than the kernel's table holds
     ("syn_groups", {"syn_groups": (1,) * 33}, "K13"),
@@ -345,7 +346,8 @@ OUTSIDE = [   # (test id, ExecConfig change, ROADMAP item)
     # kernel's, refused by the planner's limit it meets
     ("geo_specs", {"geo_specs": ((1, 2048, 16),)},
      "query/plan.py QR_BUCKETS"),
-    ("with_aggs", {"with_aggs": (("terms", 1, 8192, ()),)}, "K17c"),
+    ("with_aggs", {"with_aggs": (("terms", 1, 8192, ()),)},
+     "kernels.MAX_AGG_BUCKETS"),
     ("sort_kind", {"sort": (("bogus", 1, False),)}, "K8"),
     # the mesh's emitted sort keys (K19) and sorted pages beyond sort_topk's
     # per-thread lists (its wide mode) are ported: both cases are admitted
@@ -450,9 +452,9 @@ def test_configs_outside_the_slice_raise(change, item):
         check_supported(replace(cfg, **change), BM25())
         _sort_vs_jax(replace(cfg, **change))
         return
-    # the refusal names the ROADMAP item that ports it, or the limit it
-    # meets
-    match = item if item.startswith("query/") else f"ROADMAP.*{item}"
+    # the refusal names the ROADMAP item that ports it (a kernel's), or the
+    # limit it meets
+    match = f"ROADMAP.*{item}" if item.startswith("K") else item
     with pytest.raises(NotImplementedError, match=match):
         check_supported(replace(cfg, **change), BM25())
 

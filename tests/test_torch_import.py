@@ -356,7 +356,10 @@ APP_HUNKS = [
      "device\n  (every shard stacked on it).\n"
      "- ``cluster_config`` (``parallel/cluster.py``, "
      "``parallel/replication.py``)\n  is refused by name: cluster mode is "
-     "ROADMAP later work.\n"),
+     "ROADMAP later work.\n"
+     "- ``:restore`` splits an NDJSON body a chunk at a time "
+     "(``ndjson_lines``),\n  not a line at a time, which was quadratic in "
+     "the body's size.\n"),
     ("                                  VersionConflict)\n", None,
      "                                  VersionConflict, _device)\n"),
     ('_MISSING = object()   # "_data absent" sentinel (None means erase)\n',
@@ -385,6 +388,28 @@ APP_HUNKS = [
     ("        from xapiand_tpu_torch.parallel.cluster import ClusterNode\n",
      "        cluster.on_command = apply_command\n",
      "        raise NotImplementedError(_MESH_REFUSAL)\n"),
+    ('            buf = b""\n', "                handle(_json.loads(buf))\n",
+     "            async for line in ndjson_lines(request.content.iter_any()):"
+     "\n                handle(_json.loads(line))\n"),
+    ("def _deep_merge(base: dict, update: dict) -> dict:\n", None,
+     "async def ndjson_lines(chunks):\n"
+     '    """The non-blank lines of an NDJSON stream of byte chunks, in '
+     "order.\n"
+     "    Each chunk is split once and its partial last line carried into "
+     "the\n"
+     "    next (splitting off one line at a time copies the rest of the "
+     "buffer\n"
+     "    for every line: quadratic in a body that arrives whole).\"\"\"\n"
+     '    buf = b""\n'
+     "    async for chunk in chunks:\n"
+     '        *lines, buf = (buf + chunk).split(b"\\n")\n'
+     "        for line in lines:\n"
+     "            if line.strip():\n"
+     "                yield line\n"
+     "    if buf.strip():\n"
+     "        yield buf\n"
+     "\n\n"
+     "def _deep_merge(base: dict, update: dict) -> dict:\n"),
 ]
 
 

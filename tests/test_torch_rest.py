@@ -139,6 +139,60 @@ def test_server_info_names_the_torch_device(srv):
     assert status == 200 and out["devices"] == ["cpu"]
 
 
+@pytest.mark.parametrize("cuts", [(), (1,), (7, 8, 50, 51), (3, 4, 5, 6),
+                                  "every byte"])
+def test_ndjson_lines_any_chunking(cuts):
+    """ndjson_lines gives the same non-blank lines, in order, however the
+    body is cut into chunks: inside a line, at a newline, between two
+    newlines, one byte a chunk; a last line without a newline."""
+    from xapiand_tpu_torch.server.app import ndjson_lines
+
+    body = b'{"a": 1}\n\n  \n{"b": [2, 3]}\n{"c": "x\\ny"}\n{"d": 4}'
+    want = [ln for ln in body.split(b"\n") if ln.strip()]
+    if cuts == "every byte":
+        cuts = tuple(range(1, len(body)))
+    edges = [0, *cuts, len(body)]
+
+    async def chunks():
+        for a, b in zip(edges, edges[1:]):
+            yield body[a:b]
+
+    async def lines():
+        return [ln async for ln in ndjson_lines(chunks())]
+
+    assert asyncio.run(lines()) == want
+    assert [json.loads(ln) for ln in want] == [
+        {"a": 1}, {"b": [2, 3]}, {"c": "x\ny"}, {"d": 4}]
+
+
+def test_restore_ndjson_lines_cut_across_chunks(srv):
+    """POST :restore reads an NDJSON body that arrives in pieces cutting
+    lines in two, with a blank line and no newline after the last line:
+    every document indexed once and whole."""
+    lines = [json.dumps({"_id": f"c{i}", "body": f"piece {i} word{i % 3}"})
+             for i in range(30)]
+    body = ("\n".join(lines[:10]) + "\n\n" + "\n".join(lines[10:])).encode()
+    cuts = [0, 7, 8, 50, 51, 200, 333, len(body) - 3, len(body)]
+
+    def pieces():
+        for a, b in zip(cuts, cuts[1:]):
+            time.sleep(0.02)
+            yield body[a:b]
+
+    status, out, _ = srv.req("POST", "/chunked/:restore", pieces(),
+                             headers={"Content-Type":
+                                      "application/x-ndjson"})
+    assert status == 200 and out["#indexed"] == 30, out
+    status, out, _ = srv.req("POST", "/chunked/:count",
+                             {"_query": {"body": "piece"}})
+    assert out["count"] == 30
+    status, out, _ = srv.req("POST", "/chunked/:count",
+                             {"_query": {"body": "word2"}})
+    assert out["count"] == 10
+    status, out, _ = srv.req("GET", "/chunked/c29")
+    assert status == 200 and out["body"] == "piece 29 word2", out
+
+
 def test_mesh_and_cluster_refused_by_name(srv, tmp_path):
     """num_shards > 1 opens the port's ShardedDatabase (the mesh plane is
     ported): a write and a search answer, and :info reports the shards; a

@@ -23,8 +23,12 @@ lives in ``ops/phrase.py``: DIR's copy of that module is loaded over
 DIR's ``ops/kernels.py``; geo_leaves at geo's two widths and the geo
 aggregations'; filter_leaves at geo, positional, browse M, N and C and
 faceted B and C; agg_distinct at browse M and the geo aggregations;
-agg_metrics at faceted A and D and the geo aggregations; the
-``--only faceted`` run takes the faceted path, then browse). DIR is a
+agg_metrics at faceted A and D and the geo aggregations; agg_ranges and
+agg_hist at the Database path's one-query launches; wide_topk, the wide
+mode of the topk_rows and sort_topk wrappers, at the REST mesh's pages
+of 300 and sorted collapses of k 80 and at the key-word table's sort of
+``--only wide_table``; the ``--only faceted`` run takes the faceted
+path, then browse). DIR is a
 checkout of the version to compare with (for example a ``git archive``
 of the parent commit unpacked under ``_archive/``). The versions, each built with the
 flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
@@ -46,7 +50,9 @@ change's time by kernel, the library call's (HELD's yardstick: ``torch.topk(larg
 docids for the docid key, ``torch.searchsorted`` for agg_filter and
 semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
 shard_reduce, ``torch.bincount`` of the rows' precomputed codes for
-agg_buckets, ``torch.searchsorted`` of the K15 lookups for phrase_leaves
+agg_buckets and of their (bucket, bin) indices for agg_hist,
+``torch.topk`` of the masked scores for topk_rows' wide mode,
+``torch.searchsorted`` of the K15 lookups for phrase_leaves
 and of the two counts for geo_leaves) and the bound (HELD's work over
 ``chip_smoke.py``'s rates).
 Then the card's name and power limit.
@@ -84,7 +90,8 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "phrase_leaves": "phrase_leaves.cu", "geo_leaves": "geo_leaves.cu",
            "filter_leaves": "filter_leaves.cu",
            "agg_distinct": "agg_distinct.cu", "agg_metrics": "agg_metrics.cu",
-           "agg_ranges": "agg_ranges.cu", "agg_hist": "agg_hist.cu"}
+           "agg_ranges": "agg_ranges.cu", "agg_hist": "agg_hist.cu",
+           "wide_topk": "wide_topk.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -128,6 +135,20 @@ VARIANTS = {
     "ar_u4": ("agg_ranges", ("-DAR_U=4",), {}),
     "ar_fill264": ("agg_ranges", (), {"RANGES_FILL": 264}),
     "ar_fill66": ("agg_ranges", (), {"RANGES_FILL": 66}),
+    # agg_hist: hist2 by the zero-kept int scratch and a grid barrier (the
+    # cooperative launch) in place of float atomics; row_plan filling 33
+    # or 132 blocks at the top level, 66 or 264 for hist2
+    "ah_coop": ("agg_hist", (), {"HIST2_FLOAT": False}),
+    "ah_fill33": ("agg_hist", (), {"HIST_FILL": 33}),
+    "ah_fill132": ("agg_hist", (), {"HIST_FILL": 132}),
+    "ah2_fill66": ("agg_hist", (), {"HIST2_FILL": 66}),
+    "ah2_fill264": ("agg_hist", (), {"HIST2_FILL": 264}),
+    # wide_topk: tiles of at least 1,024 or 4,096 rows; the merge ranking
+    # up to 1,280 or 5,120 candidates a query
+    "wt_tile1024": ("wide_topk", (), {"WIDE_TILE_MIN": 1024}),
+    "wt_tile4096": ("wide_topk", (), {"WIDE_TILE_MIN": 4096}),
+    "wt_merge1280": ("wide_topk", (), {"WIDE_MERGE": 1280}),
+    "wt_merge5120": ("wide_topk", (), {"WIDE_MERGE": 5120}),
 }
 REPS = 20
 
@@ -290,6 +311,9 @@ def replay(path, libs, pmod, rounds):
 
     cap = torch.load(path, weights_only=False)
     name, args, kw = cap["name"], cap["args"], cap["kw"]
+    # the kernel replayed: the file's first word (wide_topk for the wide
+    # calls of the topk_rows and sort_topk wrappers, the record's name)
+    kernel = os.path.basename(path).split(" ")[0]
     plain, check, key, work, _library, *yard = cs.HELD[name](args, **kw)
     if name == "kmeans":
         check = check_kmeans_call(*args[:3])
@@ -305,7 +329,7 @@ def replay(path, libs, pmod, rounds):
                                                         **kw).arguments
     run = {}
     for v in ("parent", "change", *(v for v, (k, _f, _a) in
-                                    VARIANTS.items() if k == name)):
+                                    VARIANTS.items() if k == kernel)):
         mod = pmod if v == "parent" else kn
         where = phome if v == "parent" else home
         wrapper = getattr(where, attr) if hasattr(where, attr) else \
@@ -335,13 +359,14 @@ def replay(path, libs, pmod, rounds):
     device_ms(run["change"], REPS, by=by)
     b, ops = work()
     elig = args[3] if name == "sort_topk" else \
-        args[2] if name == "collapse_rows" else \
+        args[2] if name in ("collapse_rows", "topk_rows") else \
         args[1] if name in ("agg_filter", "agg_buckets", "agg_distinct",
                             "agg_metrics", "agg_ranges", "agg_hist") else \
         (args[5] if args[5] is not None else args[4] != kn.SENTINEL) \
         if name == "filter_leaves" else None
     return {
-        "kernel": name, "key": key, "tag": cap.get("tag"),
+        "kernel": kernel, "wrapper": name, "key": key,
+        "tag": cap.get("tag"),
         "eligible_share": float(elig.float().mean()) if elig is not None
         else None,
         "device_ms": dev, "event_ms": ev,

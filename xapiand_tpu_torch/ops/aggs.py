@@ -118,7 +118,9 @@ def check_aggs(specs, batched: bool = False) -> None:
         if kind not in KINDS:
             raise ValueError(f"unknown aggregation {kind!r}")
         if len(spec) != _ARITY.get(kind, len(spec)):
-            _refuse(f"a {kind} spec of arity {len(spec)}", "queue 2, K17c")
+            raise NotImplementedError(
+                f"a {kind} spec of arity {len(spec)}: compile_for_segment "
+                f"makes arity {_ARITY[kind]}, the one the kernels read")
         levels = spec[2] if kind == "nested" else (spec_subs(spec),)
         for subs in levels:
             for sub in subs or ():
@@ -140,8 +142,10 @@ def check_aggs(specs, batched: bool = False) -> None:
                 widths.append(size)
         for w in widths:
             if w > kernels.MAX_AGG_BUCKETS:
-                _refuse(f"{kind} over {w} buckets (kernels."
-                        "MAX_AGG_BUCKETS)", "queue 2, K17c")
+                raise NotImplementedError(
+                    f"{kind} over {w} buckets: past kernels.MAX_AGG_BUCKETS "
+                    f"({kernels.MAX_AGG_BUCKETS}), the kernels' shared "
+                    "bucket histogram")
 
 
 def column(values: dict, slot, device) -> dict:

@@ -68,7 +68,10 @@ what bounds it on the H100 and what its design does about that):
                          counts and metric subs, in one launch of
                          agg_metrics' row queues and last-block fold
   agg_hist        K17c   the fixed-grid order-statistic histograms of
-                         median, mode, percentiles and median / mode subs
+                         median, mode, percentiles and median / mode subs,
+                         in one launch of agg_metrics' row queues: the
+                         top level's last block converts a zero-kept
+                         scratch, the subs' hist2 by float atomics
   agg_filter      K17c   the filter bucket's rows: each docid looked up in
                          each filter term's posting window
 
@@ -78,9 +81,11 @@ what bounds it on the H100 and what its design does about that):
                          the columns (kmeans_loop; kmeans, one step)
 
   wide_topk       K4+K8  topk_rows and sort_topk at any k and any number
-                         of sort key words: select by radix passes, then
-                         sort (their wide mode, past MAX_TOPK and
-                         sort_topk's per-thread lists)
+                         of sort key words (their wide mode, past MAX_TOPK
+                         and sort_topk's per-thread lists): row tiles that
+                         select their k best by radix passes over the rows
+                         still tied, then a merge of the tiles' sorted
+                         lists by ranks
   shard_merge     K19    the mesh merge: each query's global top-k of S
                          shards' top-k lists, striped docids, by score or
                          by the shards' emitted sort keys, insertion-order
@@ -151,9 +156,11 @@ MAX_SORT_WORDS = 8        # sort_topk key words (row index included; 64 KB
                           # of shared buffer); beyond: wide_topk
 SORT_BLOCKS = 528         # sort_topk: B x tiles at most (4 blocks an SM)
 SORT_TILE_MIN = 8192      # sort_topk: at most ceil(C / this) tiles
-MAX_WIDE_WORDS = 32       # wide_topk key words in registers (15 value sort
-                          # keys); beyond: a device-memory table of them
-WIDE_SMEM = 160 * 1024    # wide_topk sorts in shared memory up to this
+WIDE_TILE_MIN = 2048      # wide_topk: at most ceil(R / this) tiles a query
+WIDE_BLOCKS = 264         # wide_topk: B x tiles at most (2 blocks an SM)
+WIDE_MERGE = 2560         # wide_topk: T x k candidates a query at most
+WIDE_IN_MAX = 4096        # wide_topk: a tile's in-list in shared memory
+WIDE_SMEM = 196 * 1024    # wide_topk: dynamic shared memory a block at most
 MAX_TREE_DEPTH = 64       # the tree program's bit stack, one register;
                           # tree_program's order needs log2(leaves) + 1 at
                           # most, and it checks the need against this
@@ -177,6 +184,9 @@ AGG_FOLD = 65536          # bucket_plan: a query's G x size partials, which
 AGG_WIDE = 1 << 22        # bucket_plan: the warps' sub partials in device
                           # memory (past AGG_WP_SMEM), floats at most
 MAX_HIST_BINS = 2048      # agg_hist's shared histogram (ORDER_STAT_BINS)
+HIST_FILL = 66            # row_plan's fill for agg_hist's top level, and
+HIST2_FILL = 132          # for its hist2 (codes, member)
+HIST2_FLOAT = True        # hist2 by float atomics into a zeroed output
 SPLIT_BLOCKS = 528        # split-row kernels: B x G ~ 4 blocks an SM
 MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
 MAX_CAND_CAP = 4096       # query/plan.py DEFAULT_CAND_CAP
@@ -337,8 +347,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "xt_agg_ranges": [_P, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P, _P, _P,
                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "xt_agg_hist": [_P, _P, _I, _LL, _I, _P, _P, _LL, _P, _I, _P, _P, _I,
-                    _I, _P, _P, _P],
+    "xt_agg_hist": [_P, _P, _I, _LL, _I, _I, _P, _P, _LL, _P, _I, _P, _P,
+                    _I, _I, _P, _P, _P, _I, _P],
     "xt_agg_filter": [_P, _P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P],
     "xt_phrase_leaves": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _LL, _P,
                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -357,9 +367,10 @@ _SIGNATURES = {
                         _P, _I, _P],
     "xt_kmeans_loop": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P, _P, _P, _P, _P],
-    "xt_wide_topk_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "xt_wide_topk_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                          _P, _P, _P, _P, _P],
     "xt_wide_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                          _P, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "xt_shard_merge": [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P],
     "xt_semijoin_rows": [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -845,11 +856,12 @@ def topk_rows(scores, ids, owner, k: int, tie=None):
     out_d = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     if k > MAX_TOPK:
-        P, scratch = _wide_buffer(B, k, 3 if tie is not None else 2, dev)
+        plan, bufs = _wide_buffers(B, R, k, 3 if tie is not None else 2,
+                                   dev)
         _launch("wide_topk", "xt_wide_topk_rows", scores.data_ptr(),
-                ids.data_ptr(), owner.data_ptr(), _ptr(tie), B, R, k, P,
-                _ptr(scratch), out_d.data_ptr(), out_s.data_ptr(),
-                _stream())
+                ids.data_ptr(), owner.data_ptr(), _ptr(tie), B, R, k,
+                *plan[:4], *(_ptr(x) for x in bufs), out_d.data_ptr(),
+                out_s.data_ptr(), _stream())
         return out_d, out_s
     if tie is not None:
         _launch("topk_rows", "xt_topk_rows_tie", scores.data_ptr(),
@@ -880,13 +892,46 @@ def _tile_plan(B: int, R: int, blocks: int, tile_min: int) -> tuple:
     return -(-ng // gper), gper
 
 
-def _wide_buffer(B: int, k: int, nw: int, dev):
-    """wide_topk's sort width P (k rounded up to a power of two) and its
-    device scratch (None: the keys fit in shared memory)."""
-    P = 1 << (k - 1).bit_length()
-    if P * nw * 4 <= WIDE_SMEM:
-        return P, None
-    return P, torch.empty(B * P * nw, dtype=torch.int32, device=dev)
+def wide_plan(B: int, R: int, k: int, nw: int) -> tuple:
+    """wide_topk's tiling of a launch (csrc/wide_topk.cu): T tiles of TR
+    rows a query, as many as B x T <= WIDE_BLOCKS allows, but at most
+    ceil(R / WIDE_TILE_MIN), at most WIDE_MERGE // k (the merge ranks T x
+    k candidates a query) and no more than the merge's shared memory holds
+    of the tiles' sorted lists (T x kk x nw words); kk = min(k, TR) rows a
+    tile's in-list at most. flags: the tied lists (16 TR bytes), the
+    in-list (4 kk) and the sort buffer (P x nw words, P the power of two
+    >= kk, in the lists' room) in device memory where shared memory lacks
+    the room. -> (T, TR, kk, flags, per_block): per_block the device
+    scratch a block, in 4-byte words."""
+    B = max(B, 1)
+    T = max(1, min(-(-R // WIDE_TILE_MIN), WIDE_BLOCKS // B,
+                   WIDE_MERGE // max(1, min(k, R))))
+    while T > 1 and T * min(k, -(-R // T)) * nw * 4 > WIDE_SMEM:
+        T -= 1
+    TR = max(1, -(-R // T))
+    kk = min(k, TR)
+    gin = kk > WIDE_IN_MAX
+    glists = 16 * TR + (0 if gin else 4 * kk) > WIDE_SMEM
+    P = 1 << (kk - 1).bit_length()
+    gsort = glists or P * nw * 4 > 16 * TR
+    per_block = (4 * TR if glists else 0) + (kk if gin else 0) + \
+        (P * nw if gsort else 0)
+    per_block += per_block & 1
+    return T, TR, kk, glists | gin << 1 | gsort << 2, per_block
+
+
+def _wide_buffers(B: int, R: int, k: int, nw: int, dev):
+    """wide_plan's (T, TR, kk, flags) and the device buffers of a launch:
+    the scratch, the tiles' sorted lists and their counts (None where the
+    plan needs none)."""
+    T, TR, kk, flags, per_block = wide_plan(B, R, k, nw)
+    scratch = torch.empty(B * T * per_block, dtype=torch.int32,
+                          device=dev) if per_block else None
+    tkeys = torch.empty(B * T * kk * nw, dtype=torch.int32, device=dev) \
+        if T > 1 else None
+    tn = torch.empty(B * T, dtype=torch.int32, device=dev) if T > 1 \
+        else None
+    return (T, TR, kk, flags), (scratch, tkeys, tn)
 
 
 def _topk_rows_plain(scores, ids, owner, k, tie=None):
@@ -1306,9 +1351,8 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
     i32[n]}: the mesh's sort_cat_remap row of a strmetric spec, a doc's
     category code mapped through it before the table (executor.py
     549-553). A k beyond MAX_SORT_TOPK, or keys beyond MAX_SORT_WORDS
-    words, go to the wide mode (wide_topk.cu), as lax.sort takes any; keys
-    beyond MAX_WIDE_WORDS words are read there from a device-memory table
-    of each row's words.
+    words, go to the wide mode (wide_topk.cu, ``wide_plan``), as lax.sort
+    takes any k and any number of keys.
     -> docids i32[B,k] (SENTINEL for ineligible rows), scores f32[B,k]
     (-inf there); with emit, also each row's sort key words i32[B,k,NU]
     (the unsigned words of lax.sort's order, all but the docid; all ones
@@ -1358,15 +1402,12 @@ def sort_topk(specs, ids, sums, eligible, k: int, values: dict,
     out_k = torch.empty((B, k, n_words - 2), dtype=torch.int32,
                         device=dev) if emit else None
     if k > MAX_SORT_TOPK or n_words > MAX_SORT_WORDS:
-        P, scratch = _wide_buffer(B, k, n_words, dev)
-        # past the registers: every row's words, then each query's digits
-        table = torch.empty(B * (C + 1) * n_words, dtype=torch.int32,
-                            device=dev) if n_words > MAX_WIDE_WORDS else None
+        plan, bufs = _wide_buffers(B, C, k, n_words, dev)
         _launch("wide_topk", "xt_wide_sort_topk", ids.data_ptr(),
                 sums.data_ptr(), eligible.data_ptr(), B, C, k, S, n_words,
-                spec_tab.data_ptr(), tab.data_ptr(), _ptr(targets), P,
-                _ptr(scratch), out_d.data_ptr(), out_s.data_ptr(),
-                _ptr(out_k), _ptr(table), _stream())
+                spec_tab.data_ptr(), tab.data_ptr(), _ptr(targets),
+                *plan, *(_ptr(x) for x in bufs), out_d.data_ptr(),
+                out_s.data_ptr(), _ptr(out_k), _stream())
     else:
         _launch("sort_topk", "xt_sort_topk", ids.data_ptr(), sums.data_ptr(),
                 eligible.data_ptr(), B, C, k, S, n_words, spec_tab.data_ptr(),
@@ -1809,20 +1850,25 @@ def agg_buckets(ids, eligible, mode: str, codes, nb: int, subs=(), *,
     return res + (out_codes,) if want_codes else res
 
 
-_TICKETS: dict = {}
+_KEPT: dict = {}
+
+
+def _kept_zeros(what: str, n: int, device) -> torch.Tensor:
+    """i32 zeros, n or more, kept on the device from call to call for
+    ``what``: the kernels that use them leave them zero."""
+    key = (what, device.type, device.index)
+    t = _KEPT.get(key)
+    if t is None or t.shape[0] < n:
+        t = _KEPT[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                     device=device)
+    return t
 
 
 def _tickets(n: int, device) -> torch.Tensor:
-    """i32 zeros, n or more, kept on the device from call to call: the
-    counters a query of a kernel whose last block folds the others'
-    partials (agg_buckets, agg_metrics, agg_ranges), which that block sets
-    back to 0."""
-    key = (device.type, device.index)
-    t = _TICKETS.get(key)
-    if t is None or t.shape[0] < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                        device=device)
-    return t
+    """The counters a query of a kernel whose last block folds the others'
+    partials (agg_buckets, agg_metrics, agg_ranges, agg_hist), which that
+    block sets back to 0."""
+    return _kept_zeros("tickets", n, device)
 
 
 def bucket_plan(B: int, R: int, size: int, S: int = 0) -> int:
@@ -2197,20 +2243,30 @@ def agg_hist(ids, eligible, fval, present, params, nbins: int, *,
     dev = ids.device
     mode = 0 if codes is None and member is None else \
         (1 if codes is not None else 2)
-    counts = torch.zeros((B, nb, nbins), dtype=torch.int32, device=dev)
-    out = torch.empty((B, nb, nbins), dtype=torch.float32, device=dev)
+    G, gpw = row_plan(B, R, fill=HIST_FILL if mode == 0 else HIST2_FILL)
+    # modes 1-2: float atomics into a zeroed output where every count
+    # stays below 2^24, else the zero-kept int scratch and a grid barrier
+    flout = mode > 0 and HIST2_FLOAT and R < 2**24
+    out = (torch.zeros if flout else torch.empty)(
+        (B, nb, nbins), dtype=torch.float32, device=dev)
+    scr = None
+    if (mode == 0 and G > 1) or (mode > 0 and not flout):
+        scr = _kept_zeros("agg_hist", B * nb * nbins, dev)
     _launch("agg_hist", "xt_agg_hist", ids.data_ptr(), eligible.data_ptr(),
-            B, R, _split(B, R), fval.data_ptr(), present.data_ptr(),
+            B, R, G, gpw, fval.data_ptr(), present.data_ptr(),
             fval.shape[0], params.data_ptr(), mode, _ptr(codes),
-            _ptr(member), nb, nbins, counts.data_ptr(), out.data_ptr(),
+            _ptr(member), nb, nbins, _ptr(scr),
+            _tickets(B, dev).data_ptr(), out.data_ptr(), int(flout),
             _stream())
     return out
 
 
 def value_bins(v, params, nbins: int):
     """clip(floor((v - lo) * scale), 0, nbins - 1) (ops/aggs.py 56) of
-    v f32[B,R] under params f32[B,2] -> i64[B,R]."""
+    v f32[B,R] under params f32[B,2] -> i64[B,R]; a NaN in bin 0, as
+    JAX's conversion to int32 gives it."""
     f = torch.floor((v - params[:, 0:1]) * params[:, 1:2])
+    f = torch.where(f.isnan(), torch.zeros_like(f), f)
     return f.clamp(0, nbins - 1).long()
 
 
