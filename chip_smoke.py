@@ -701,13 +701,47 @@ KEY_BYTES = {"value": 9, "score": 0, "dist": 5, "geodist": 9,
 
 
 def work_sort(specs, elig, k, n_col=None):
-    """fullwidth_topk / wide_topk: ids, sums and flags per row, the key
-    columns per eligible row (of n_col column rows at most), the top k
-    (docid, score) written."""
+    """wide_topk: ids, sums and flags per row, the key columns per
+    eligible row (of n_col column rows at most), the top k (docid, score)
+    written."""
     B, C = elig.shape
     return work_selected(B, C, 9, n_true(elig),
                          sum(KEY_BYTES[s[0]] for s in specs), 9 * B * k,
                          n_col)
+
+
+def work_fullwidth(spec, elig, k, n_col=None):
+    """fullwidth_topk, the function: the flag of every row; an eligible
+    row's docid and its key column bytes (gathered by docid from a column
+    of n_col rows at most: read once); the k winners' docid and score
+    read and written, and the certificate written."""
+    B, R = elig.shape
+    sel = n_true(elig)
+    col = KEY_BYTES[spec[0]] * (sel if n_col is None else min(sel, n_col))
+    return B * R + 4 * sel + col + 16 * B * k + B, B * R + sel
+
+
+def fullwidth_image_call(spec, col, ids, sums, elig, k, targets, strtabs):
+    """A part of fullwidth_topk as one PyTorch call: torch.topk(largest=
+    False) of the masked float32 image over kk rows (JAX's lax.top_k,
+    xapiand_tpu/ops/executor.py:447, :454), without the exact order of the
+    window or the certificate. The image is made at the first call, which
+    the timers take as their warm-up."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    import torch
+
+    kk = min(k + kn.FULLWIDTH_WINDOW, ids.shape[1])
+    img: list = []
+
+    def call():
+        if not img:
+            mk = kn._masked_key(0, spec, col, ids, sums, elig, targets,
+                                strtabs)
+            img.append(mk[0].to(torch.float32).contiguous())
+        return torch.topk(img[0], kk, dim=1, largest=False)
+
+    return call
 
 
 def work_sort_topk(specs, elig, k, n_col=None, emit=False):
@@ -1018,7 +1052,7 @@ def compare_faceted(searcher, cfg, batch, stats_d, rec, shape_name,
         rec.note("fullwidth_topk", 0.0,
                  cuda_ms(lambda: kn.fullwidth_topk(*fargs)),
                  cuda_ms(lambda: kn._fullwidth_topk_plain(*pargs), reps=3),
-                 work_sort((spec,), mask, cfg.k, n_rows(values)))
+                 work_fullwidth(spec, mask, cfg.k, n_rows(values)))
     elif cfg.sort:
         sargs = (cfg.sort, ids, sums, mask, cfg.k, values,
                  batch["sort_targets"])
@@ -1659,6 +1693,31 @@ def held_compact(a):
                                   B * cap * row_b + 4 * B), None)
 
 
+def held_fullwidth(a):
+    """fullwidth_topk (K9): the window's first k and the certificate; its
+    yardstick, torch.topk of the masked image, is a part of the function
+    (timed device-only, no library_ms)."""
+    from xapiand_tpu_torch.ops import kernels as kn
+
+    spec, ids, sums, elig, k, values = a[:6]
+    targets = a[6] if len(a) > 6 else None
+    strtabs = (a[7] if len(a) > 7 else None) or {}
+    col = values.get(spec[1])
+
+    def check(got, want):
+        for nm, g, w in zip(("docids", "scores", "certified"), got, want):
+            check_equal(f"fullwidth_topk {nm}", g, w)
+        return 0.0
+
+    B, R = ids.shape
+    return (lambda: kn._fullwidth_topk_plain(spec, col, ids, sums, elig, k,
+                                             targets, strtabs), check,
+            f"B={B} R={R} k={k} key={spec[0]}{'D' if spec[2] else 'A'}",
+            lambda: work_fullwidth(spec, elig, k, n_rows(values)), None,
+            fullwidth_image_call(spec, col, ids, sums, elig, k, targets,
+                                 strtabs))
+
+
 def held_filter(a):
     from xapiand_tpu_torch.ops import kernels as kn
 
@@ -2054,18 +2113,20 @@ def held_shard_merge(a):
 
     def library():
         # torch.sort of the gathered candidates' packed 64-bit keys
-        # (the score's order word and the tie key), stable
+        # (the score's order word and the tie key), stable; the keys made
+        # at the first call
         import torch
 
         g = scores.permute(1, 0, 2).reshape(Q, S * k)
         key = (kn._fkey(-g) << 31) | (torch.arange(
             S * k, device=g.device).expand(Q, S * k))
-        return cuda_ms(lambda: torch.sort(key, dim=1, stable=True),
-                       reps=5)
+        return lambda: torch.sort(key, dim=1, stable=True)
 
+    yard = lazy_call(library)
     return (lambda: kn._shard_merge_plain(docids, scores, okey, skeys),
             check, f"S={S} Q={Q} k={k}{' okey' if okey is not None else ''}"
-            f"{f' keys={nu}' if nu else ''}", work, library)
+            f"{f' keys={nu}' if nu else ''}", work,
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 def held_shard_reduce(a):
@@ -2163,13 +2224,15 @@ def held_chunk_merge(a):
 
     def library():
         # torch.sort of the finalists' packed keys (the score's order word,
-        # then the docid), stable
+        # then the docid), stable; the keys made at the first call
         import torch
 
         g = scores.permute(1, 0, 2).reshape(Q, NC * k)
         gd = docids.permute(1, 0, 2).reshape(Q, NC * k)
         key = (kn._fkey(-g) << 31) | (kn._ikey(gd) >> 1)
-        return cuda_ms(lambda: torch.sort(key, dim=1, stable=True), reps=5)
+        return lambda: torch.sort(key, dim=1, stable=True)
+
+    yard = lazy_call(library)
 
     # each finalist's docid and score read once, the k winners written;
     # a comparison sort's M * ceil(log2 M) compares of the M = NC * k
@@ -2178,7 +2241,7 @@ def held_chunk_merge(a):
     return (lambda: kn._shard_merge_plain(docids, scores, stripe=False),
             check, f"NC={NC} Q={Q} k={k}",
             lambda: (8 * M * Q + 8 * Q * k, Q * M * log2c(M) * 3),
-            library)
+            lambda: cuda_ms(yard, reps=5), yard)
 
 
 def held_metrics(a):
@@ -2363,7 +2426,8 @@ HELD = {"collapse_rows": held_collapse, "dense_rows": held_dense,
         "agg_ranges": held_ranges, "agg_hist": held_hist,
         "agg_filter": held_afilter, "kmeans": held_kmeans,
         "shard_merge": held_shard_merge, "shard_reduce": held_shard_reduce,
-        "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge}
+        "semijoin_rows": held_semijoin, "chunk_merge": held_chunk_merge,
+        "fullwidth_topk": held_fullwidth}
 
 # the port's wrapper Held and capture hold for a kernel where it is not the
 # kernel's own name: kmeans_cosine calls kmeans_loop (kernels.kmeans, one
@@ -2386,9 +2450,10 @@ def wrapper_home(name):
 # python3 chip_smoke.py --capture DIR: the launches tools/sort_pairs.py
 # replays, by their HELD keys or the start of them up to a space (the
 # first launch of each), or by a pattern the whole key matches, alone or
-# after the tag of the Held block the launch must come in (the widest
-# launch that matches, the most rows; None: the kernel's widest launch),
-# as the paths make them
+# after the tag of the Held block the launch must come in (a tag None:
+# outside every Held block) (the widest launch that matches, the most
+# rows; an entry None: the kernel's widest launch), as the paths make
+# them
 CAPTURE = {
     "score_slices": ("B=1 R=2105472 T=4",        # browse C
                      "B=36 R=3670144 T=4",       # mesh
@@ -2504,7 +2569,26 @@ CAPTURE = {
                   ("rest mesh",
                    re.compile(r"B=\d+ R=\d{1,4} k=\d+ keys=.*")),
                   re.compile(rf"B={WIDE_TABLE_B} R={WIDE_TABLE_R} k=\d+ "
-                             r"keys=.*"))}
+                             r"keys=.*")),
+    # faceted A's fullwidth launches (XT_FULLWIDTH=1): the widest and the
+    # two narrower groups
+    "fullwidth_topk": ("B=64 R=1310720 k=10", "B=64 R=131072 k=10",
+                       "B=128 R=65536 k=10"),
+    # faceted A at XT_FULLWIDTH=0 (caps 262144, 65536) and B's
+    # precompaction (cap 131072; B=128 R=65536 cap=32768 is A's and B's)
+    "compact_rows": ("B=64 R=1310720 cap=262144", "B=64 R=1310720 cap=131072",
+                     "B=128 R=65536 cap=32768", "B=64 R=131072 cap=65536"),
+    # the mesh's sub-batches of 36 queries; the REST mesh's widest merge
+    # with order keys
+    "shard_merge": ("S=8 Q=36 k=10",
+                    ("rest mesh", re.compile(r"S=\d+ Q=\d+ k=\d+ okey.*"))),
+    # K21's chunked relevance ORs (16 chunks of 1,024 rows)
+    "chunk_merge": ("NC=16 Q=64 k=10",),
+    # the relevance path's prefix groups (outside any Held block: tag
+    # None), the schemes path's BM25Plus prefix launch
+    "prefix_certify": ((None, re.compile(r"B=64 K=\d+ T=\d+")),
+                       ("schemes bm25plus",
+                        re.compile(r"B=\d+ K=\d+ T=\d+")))}
 # the wrappers whose wide mode CAPTURE's wide_topk entries take
 WIDE_WRAPPERS = ("topk_rows", "sort_topk")
 # the launches that matched each CAPTURE pattern, by (kernel, index): how
@@ -2566,7 +2650,7 @@ def capture(dirname):
                 for i, p in enumerate(CAPTURE[kname]):
                     if isinstance(p, tuple):
                         tag, p = p
-                        if HELD_TAGS[-1:] != [tag]:
+                        if HELD_TAGS[-1:] != ([tag] if tag else []):
                             continue
                     if isinstance(p, re.Pattern):
                         if p.fullmatch(key):
@@ -3611,11 +3695,17 @@ def faceted_path(dev, rec, smi) -> tuple:
         torch.cuda.synchronize()
         return out
 
-    # the path, counted
+    # the path, counted: every compaction and fullwidth launch held to its
+    # plain version (the comparison's launches uncounted)
     kn.reset_launches()
-    results = run_all(fams)
+    with Held(rec, "faceted", ("compact_rows", "fullwidth_topk"),
+              exact=True, counted=True) as held:
+        results = run_all(fams)
     counts = dict(kn.launches)
     log(f"[main] faceted launches {counts}")
+    log(f"[held] faceted: {held.calls} launches held, bit for bit")
+    if held.calls != {n: counts[n] for n in held.calls}:
+        raise AssertionError(f"faceted: {held.calls} held of {counts}")
     if not all(counts[n] for n in FACETED_KERNELS) or \
             counts["prefix_certify"]:
         raise AssertionError(f"faceted launches wrong: {counts}")
@@ -3643,8 +3733,13 @@ def faceted_path(dev, rec, smi) -> tuple:
         faceted_parity(qs, results, want, ncat, tag)
 
     parity(results, "faceted")
-    with fullwidth("0"):
+    with fullwidth("0"), Held(rec, "faceted XT_FULLWIDTH=0",
+                              ("compact_rows",), exact=True) as held0:
         parity(run_all(fams0), "faceted XT_FULLWIDTH=0")
+    log(f"[held] faceted XT_FULLWIDTH=0: {held0.calls} launches held, bit "
+        f"for bit")
+    if not held0.calls["compact_rows"]:
+        raise AssertionError("XT_FULLWIDTH=0: no compaction held")
     first_a = next(qi for qi, (f, *_x) in enumerate(qs) if f == "A")
     shaped = am.merge_and_shape(names, metas, [results[first_a]["aggs"]],
                                 [{0: metas[0]["cat_names"]}])
@@ -5471,13 +5566,24 @@ def collapse_designs_phase(dev):
 ALONE = {"relevance": "relevance_path", "positional": "positional_path",
          "geo": "geo_path", "mesh": "mesh_path",
          "rest_mesh": "rest_mesh_path", "faceted": "faceted_browse_path",
-         "database": "database_path", "wide_table": "wide_table_alone"}
+         "database": "database_path", "wide_table": "wide_table_alone",
+         "schemes_k21": "schemes_k21_alone"}
 
 
 def wide_table_alone(dev, rec, _smi):
     """wide_topk's key-word table phase (--only wide_table: its
     capture)."""
     wide_table_phase(dev, rec)
+
+
+def schemes_k21_alone(dev, rec, smi):
+    """The relevance and faceted paths, then the schemes and K21 paths over
+    their worlds (--only schemes_k21: the captures of the schemes path's
+    prefix_certify and of K21's chunk_merge)."""
+    _rel, rel_world = relevance_path(dev, rec, smi)
+    _fac, corpus, searcher, gate = faceted_path(dev, rec, smi)
+    schemes_path(dev, rec, smi, rel_world, corpus, searcher)
+    k21_path(dev, rec, smi, rel_world, corpus, searcher, gate)
 
 
 def faceted_browse_path(dev, rec, smi):

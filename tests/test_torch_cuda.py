@@ -2630,3 +2630,118 @@ def test_wide_sort_topk_table_shape_matches_plain_version(cuda):
     want = kernels._sort_topk_plain(specs, cols, *da, 10, None, {})
     for a, b in zip(got, want):
         assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+# --------------------------------------------------------------------------
+# fullwidth_topk's warp lists, shard_merge's staged ranks, compact_rows'
+# cases: from tests/test_torch_fullwidth_shard_design.py
+# --------------------------------------------------------------------------
+
+FW_PLANS = (None, (1, 32), (1, 1), (3, 4), (17, 2))
+
+
+@pytest.mark.parametrize("plan", FW_PLANS)
+@pytest.mark.parametrize("case", ["random", "few", "none", "kk_R",
+                                  "hi_collide", "zeros", "nan_inf",
+                                  "nan_few", "strmetric", "geodist",
+                                  "cert_ties", "many_ties", "dense"])
+def test_fullwidth_topk_lists_match_plain_version(cuda, case, plan,
+                                                  monkeypatch):
+    """fullwidth_topk's warp buffers and block merge on every named case
+    (fewer than k eligible rows, none, kk = R, hi words one float32 image,
+    -0.0 and +0.0, NaN and +-inf keys, NaN keys in the first k, ties on
+    the image across k - 1 and kk - 1, more than MAX_FULLWIDTH_KK rows on
+    one key, warps whose buffers overflow mid-walk), at the launch's plan
+    and at forced ones (one block, one group a warp a step, blocks of a
+    few warps' rows, more blocks than a merge warp takes): bit for bit the
+    plain version and the emulation, twice."""
+    import test_torch_fullwidth_shard_design as fs
+
+    c = fs.fw_case(case, seed=1, k=60 if case == "many_ties" else 10)
+    if plan is not None:
+        monkeypatch.setattr(kernels, "fullwidth_plan", lambda B, R: plan)
+    spec, col, ids, sums, elig, k, tg, st = c
+    dcol = {ch: x.to(cuda) for ch, x in col.items()}
+    got = _twice(lambda: kernels.fullwidth_topk(
+        spec, ids.to(cuda), sums.to(cuda), elig.to(cuda), k,
+        {spec[1]: dcol}, tg.to(cuda), {i: t.to(cuda) for i, t in st.items()}))
+    want = fs.fw_plain(c)
+    emu = fs.emulate_fullwidth(*c, plan=plan)
+    for a, b, e in zip(got, want, emu):
+        assert a.cpu().numpy().tobytes() == b.tobytes()
+        assert a.cpu().numpy().tobytes() == np.asarray(e).tobytes()
+
+
+@pytest.mark.parametrize("kind", ["value", "dist"])
+def test_fullwidth_topk_wide_launch_matches_plain_version(cuda, kind):
+    """A launch of several blocks a query whose warps fill their lists
+    many times over (B4 R400000, 30% eligible, k 64: kk 128, the widest
+    list): equal to the plain version, twice."""
+    import test_torch_fullwidth_shard_design as fs
+
+    c = list(fs.fw_case("random", B=4, R=400_000, seed=9, k=64,
+                        n_docs=300_000))
+    if kind == "dist":
+        c[0] = ("dist", fs.SLOT, True)
+    spec, col, ids, sums, elig, k, tg, st = c
+    assert kernels.fullwidth_plan(4, 400_000)[0] > 1
+    dcol = {ch: x.to(cuda) for ch, x in col.items()}
+    got = _twice(lambda: kernels.fullwidth_topk(
+        spec, ids.to(cuda), sums.to(cuda), elig.to(cuda), k,
+        {spec[1]: dcol}, tg.to(cuda), {}))
+    want = fs.fw_plain(c)
+    for a, b in zip(got, want):
+        assert a.cpu().numpy().tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("case", ["relevance", "okey", "keys", "chunk", "k1",
+                                  "s1", "wide", "global"])
+def test_shard_merge_staged_ranks_match_plain_version(cuda, case):
+    """shard_merge's planes in shared memory (in the device scratch for
+    the global case) and its counted ranks, through the shard_merge
+    wrapper or, unstriped, chunk_merge's: bit for bit the plain version
+    and the emulation, twice."""
+    import test_torch_fullwidth_shard_design as fs
+
+    c = fs.merge_case(case, seed=3)
+    d, s, ok, keys, stripe = c
+    dv = [None if x is None else x.to(cuda) for x in (d, s, ok, keys)]
+    if stripe:
+        got = _twice(lambda: kernels.shard_merge(*dv))
+    else:
+        got = _twice(lambda: kernels.chunk_merge(dv[0], dv[1]))
+    want = fs.merge_plain(*c)
+    emu = fs.emulate_merge(*c)
+    for a, b, e in zip(got, want, emu):
+        assert a.cpu().numpy().tobytes() == b.tobytes() == e.tobytes()
+
+
+@pytest.mark.parametrize("case", ["orbits", "no_orbits", "full", "zero",
+                                  "run"])
+def test_compact_rows_cases_match_plain_version(cuda, case):
+    """compact_rows with and without orbits, count = cap, count 0, a run
+    of masked rows across the kernel's chunks: bit for bit the plain
+    version, twice."""
+    import test_torch_fullwidth_shard_design as fs
+
+    c = fs.compact_case(case, B=3, R=30000, seed=2)
+    got = _twice(lambda: kernels.compact_rows(
+        *(x.to(cuda) if isinstance(x, torch.Tensor) else x for x in c)))
+    want = fs.compact_plain(c)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.cpu().numpy().tobytes() == b.tobytes()
+
+
+def test_compact_rows_past_the_cap_keeps_the_first_rows(cuda):
+    """Past the cap the kernel writes the first cap rows in row order and
+    reports the full count (the plain version refuses)."""
+    import test_torch_fullwidth_shard_design as fs
+
+    mask, ids, sums, orbits, _cap = fs.compact_case("orbits", seed=4)
+    got = _twice(lambda: kernels.compact_rows(
+        mask.to(cuda), ids.to(cuda), sums.to(cuda), orbits.to(cuda), 50))
+    want = fs.compact_expect(mask, ids, sums, orbits, 50)
+    for a, e in zip(got, want):
+        assert a.cpu().numpy().tobytes() == e.tobytes()

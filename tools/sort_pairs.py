@@ -27,8 +27,14 @@ agg_metrics at faceted A and D and the geo aggregations; agg_ranges and
 agg_hist at the Database path's one-query launches; wide_topk, the wide
 mode of the topk_rows and sort_topk wrappers, at the REST mesh's pages
 of 300 and sorted collapses of k 80 and at the key-word table's sort of
-``--only wide_table``; the ``--only faceted`` run takes the faceted
-path, then browse). DIR is a
+``--only wide_table``; fullwidth_topk at faceted A's three fullwidth
+groups; compact_rows at faceted A's XT_FULLWIDTH=0 caps and B's
+precompaction; shard_merge at the mesh's sub-batches and the REST mesh's
+widest merge with order keys; chunk_merge at K21's chunked ORs;
+prefix_certify at the relevance prefix groups and the schemes path's
+BM25Plus launch; the ``--only faceted`` run takes the faceted
+path, then browse, ``--only schemes_k21`` the relevance and faceted
+paths, then the schemes and K21 paths). DIR is a
 checkout of the version to compare with (for example a ``git archive``
 of the parent commit unpacked under ``_archive/``). The versions, each built with the
 flags of ``ops/kernels.py`` into ``_archive/sort_pairs/`` (one nvcc a
@@ -52,6 +58,9 @@ semijoin_rows, ``torch.sum`` / ``amin`` / ``amax`` over the shards for
 shard_reduce, ``torch.bincount`` of the rows' precomputed codes for
 agg_buckets and of their (bucket, bin) indices for agg_hist,
 ``torch.topk`` of the masked scores for topk_rows' wide mode,
+``torch.topk`` of the masked float32 image for fullwidth_topk (a part of
+its function: no exact order, no certificate), ``torch.sort`` of the
+packed candidate keys for shard_merge and chunk_merge,
 ``torch.searchsorted`` of the K15 lookups for phrase_leaves
 and of the two counts for geo_leaves) and the bound (HELD's work over
 ``chip_smoke.py``'s rates).
@@ -91,7 +100,11 @@ SOURCES = {"sort_topk": "sort_topk.cu", "agg_filter": "agg_filter.cu",
            "filter_leaves": "filter_leaves.cu",
            "agg_distinct": "agg_distinct.cu", "agg_metrics": "agg_metrics.cu",
            "agg_ranges": "agg_ranges.cu", "agg_hist": "agg_hist.cu",
-           "wide_topk": "wide_topk.cu"}
+           "wide_topk": "wide_topk.cu",
+           "fullwidth_topk": "fullwidth_topk.cu",
+           "compact_rows": "compact_rows.cu",
+           "shard_merge": "shard_merge.cu", "chunk_merge": "shard_merge.cu",
+           "prefix_certify": "prefix_certify.cu"}
 # variants of this tree's kernels: (kernel, nvcc -D flags of its source,
 # ops/kernels.py attributes set around each call)
 VARIANTS = {
@@ -149,6 +162,12 @@ VARIANTS = {
     "wt_tile4096": ("wide_topk", (), {"WIDE_TILE_MIN": 4096}),
     "wt_merge1280": ("wide_topk", (), {"WIDE_MERGE": 1280}),
     "wt_merge5120": ("wide_topk", (), {"WIDE_MERGE": 5120}),
+    # fullwidth_topk: blocks of at least 65,536 rows; B x G up to 528,
+    # 2,112 or 4,224 blocks
+    "fw_rows65536": ("fullwidth_topk", (), {"FULLWIDTH_ROWS": 65536}),
+    "fw_blocks528": ("fullwidth_topk", (), {"FULLWIDTH_BLOCKS": 528}),
+    "fw_blocks2112": ("fullwidth_topk", (), {"FULLWIDTH_BLOCKS": 2112}),
+    "fw_blocks4224": ("fullwidth_topk", (), {"FULLWIDTH_BLOCKS": 4224}),
 }
 REPS = 20
 
@@ -358,7 +377,8 @@ def replay(path, libs, pmod, rounds):
     by: dict = {}
     device_ms(run["change"], REPS, by=by)
     b, ops = work()
-    elig = args[3] if name == "sort_topk" else \
+    elig = args[3] if name in ("sort_topk", "fullwidth_topk") else \
+        args[0] if name == "compact_rows" else \
         args[2] if name in ("collapse_rows", "topk_rows") else \
         args[1] if name in ("agg_filter", "agg_buckets", "agg_distinct",
                             "agg_metrics", "agg_ranges", "agg_hist") else \

@@ -489,8 +489,8 @@ __device__ __forceinline__ unsigned mask16_of(uint4 w) {
 // Rows of one query that are eligible, 16 at a time: bit j of the result
 // is row 16 * g + j's flag (torch bool bytes are 0 or 1). Aligned rows
 // are one 16-byte load; a misaligned row start or the ragged end reads
-// byte by byte. The aggregation and fullwidth kernels test these masks
-// first and gather value columns for the set bits only.
+// byte by byte. agg_buckets.cu tests these masks first and gathers value
+// columns for the set bits only.
 __device__ __forceinline__ unsigned elig_mask16(const unsigned char* e,
                                                 long long R, long long g,
                                                 bool aligned) {
@@ -548,7 +548,8 @@ __device__ __forceinline__ uint4 flat_load16(const unsigned char* e,
     return make_uint4(x[0], x[1], x[2], x[3]);
 }
 
-// Warp row queues (agg_metrics.cu, agg_ranges.cu). Query b's rows are the
+// Warp row queues (agg_metrics.cu, agg_ranges.cu, agg_hist.cu,
+// fullwidth_topk.cu). Query b's rows are the
 // flat rows [lo, hi) = [b R, b R + R) of the [B, R] eligible flags; a
 // block walks the flat 16-row groups [q0, q1) of its share, and each of
 // its NW warps takes gpw groups a step (1 <= gpw <= 32: a block of few
@@ -562,7 +563,10 @@ __device__ __forceinline__ uint4 flat_load16(const unsigned char* e,
 // step drain(n) takes what is left (n < 32, maybe 0). each(gi, msk) sees
 // every lane's group (gi >= q1, with msk 0, for a lane without one). The
 // first step's flags are wrq_first's, which a kernel issues before its
-// block's set-up. -> the lane's count of eligible rows.
+// block's set-up. span > 1 interleaves span blocks a query: the block whose
+// share starts at q0 = f0 + g NW gpw walks every span-th step of the
+// query's groups [f0, q1) (fullwidth_topk.cu). -> the lane's count of
+// eligible rows.
 #define RQ_CAP 544   // a warp's queue: 31 rows left over and a step's 512
 
 __device__ __forceinline__ uint4 wrq_first(const unsigned char* e,
@@ -579,10 +583,10 @@ template <int NW, bool QUEUE, class Each, class Drain>
 __device__ __forceinline__ int warp_row_queue(
     const unsigned char* __restrict__ e, long long lo, long long hi,
     long long q0, long long q1, int gpw, int warp, int lane, uint4 next,
-    int* queue, Each&& each, Drain&& drain) {
+    int* queue, Each&& each, Drain&& drain, long long span = 1) {
     const bool aligned = (reinterpret_cast<uintptr_t>(e) & 15) == 0;
     int cnt = 0, qn = 0;
-    const long long stride = (long long)NW * gpw;
+    const long long stride = (long long)NW * gpw * span;
     long long gi = lane < gpw ? q0 + warp * gpw + lane : q1;
     for (long long gs = q0 + warp * gpw; gs < q1; gs += stride) {
         const unsigned msk = mask16_of(next);
@@ -751,10 +755,14 @@ __device__ __forceinline__ unsigned spec_const(int kind) {
 // eligible row of docid d in query b. spec holds (kind, desc, nb, 0), c
 // the spec's ST_COLS column words; sc points at the row's score and is
 // read by a score key only; targets f32[B][S][2] by dist and geodist.
+// KIND: the spec's kind where the caller knows it (the other kinds' code
+// then drops out), else -1 (read from spec).
+template <int KIND = -1>
 __device__ __forceinline__ unsigned spec_word(
     const int* spec, const long long* c, const float* targets, int S,
     int s, int b, int d, const float* sc, int half) {
-    const int kind = spec[0], desc = spec[1], nb = spec[2];
+    const int kind = KIND >= 0 ? KIND : spec[0];
+    const int desc = spec[1], nb = spec[2];
     const float inf = __int_as_float(0x7f800000);
     const long long n = c[7];
     const long long dd = n > 0 ? ((long long)d < n - 1 ? (long long)d
@@ -802,29 +810,6 @@ __device__ __forceinline__ unsigned spec_word(
         if (desc) kf = -kf;
     }
     return fkey(kf);
-}
-
-// the key words of row r (of the query whose rows start at base) for the
-// S sort specs, then the masked docid, then r
-template <int NK>
-__device__ __forceinline__ void row_key(
-    int r, long long base, int b, const int* __restrict__ ids,
-    const float* __restrict__ sums, const unsigned char* __restrict__ elig,
-    int S, const int* __restrict__ spec, const long long* __restrict__ cols,
-    const float* __restrict__ targets, unsigned* key) {
-    const int d = ids[base + r];
-    const bool el = elig[base + r] != 0;
-    int pos = 0;
-    for (int s = 0; s < S; ++s) {
-        const int kind = spec[s * 4];
-        for (int h = 0; h < (kind == ST_VALUE ? 2 : 1); ++h)
-            key[pos++] = el ? spec_word(spec + s * 4, cols + s * ST_COLS,
-                                        targets, S, s, b, d, sums + base + r,
-                                        h)
-                            : spec_const(kind);
-    }
-    key[pos++] = el ? ikey(d) : 0xffffffffu;
-    key[pos] = (unsigned)r;
 }
 
 // Keep the stream-ordered pool's memory between calls (the scratch of the

@@ -14,8 +14,9 @@
 //   topk_rows  (~monotone(score), [tie rank,] docid): score desc, then the
 //              tie rank, then docid asc; the owner rows whose score is not
 //              NaN are the candidates (topk_rows.cu's rules);
-//   sort_topk  row_key's words (common.cuh spec_word): the sort keys, the
-//              masked docid, the row index; every row is a candidate.
+//   sort_topk  sort_topk.cu's words (common.cuh spec_word): the sort
+//              keys, the masked docid, the row index; every row is a
+//              candidate.
 // Keys are unique (owner docids are unique in a query; the row index is),
 // so exactly min(k, candidates) rows are at or before the k-th key.
 //

@@ -23,7 +23,10 @@ what bounds it on the H100 and what its design does about that):
                          word by word, then their merge
   compact_rows    K11    stream compaction of the masked rows to a cap
   fullwidth_topk  K9     sort-free top-k of one sort key at full width,
-                         with the exactness certificate
+                         with the exactness certificate: each warp's
+                         eligible rows kept behind a threshold in a
+                         buffer whose kk best it selects when it fills,
+                         then each query's candidates selected again
   agg_metrics     K17a   count, masked n / sum / sum of squares / min /
                          max of value columns, in one launch: the flags
                          first, each warp's eligible rows queued and
@@ -89,7 +92,8 @@ what bounds it on the H100 and what its design does about that):
   shard_merge     K19    the mesh merge: each query's global top-k of S
                          shards' top-k lists, striped docids, by score or
                          by the shards' emitted sort keys, insertion-order
-                         ties (parallel/sharded.py)
+                         ties (parallel/sharded.py): the keys staged in
+                         shared memory, each ranked by counting up to k
   shard_reduce    K19    the psum of the counts and the psum / pmin / pmax
                          of the packed aggregation statistics over S shards
 
@@ -165,7 +169,12 @@ MAX_TREE_DEPTH = 64       # the tree program's bit stack, one register;
                           # tree_program's order needs log2(leaves) + 1 at
                           # most, and it checks the need against this
 FULLWIDTH_WINDOW = 64     # K9's tie window (executor.py:428)
-MAX_FULLWIDTH_KK = 128    # fullwidth_topk per-thread lists (k + window)
+MAX_FULLWIDTH_KK = 128    # fullwidth_topk's warp lists (k + window) at most
+FULLWIDTH_WARPS = 8       # fullwidth_topk: warps a block (csrc FW_WARPS)
+FULLWIDTH_ROWS = 16384    # fullwidth_plan: rows a block at least
+FULLWIDTH_BLOCKS = 1056   # fullwidth_plan: B x G at most (8 an SM)
+SHARD_MERGE_SMEM = 163840  # shard_merge: its word planes in shared
+                          # memory up to these bytes (csrc SM_SMEM_MAX)
 MAX_AGG_METRICS = 8       # agg_metrics channels a launch (csrc AM_MAXM)
 MAX_AGG_BUCKETS = 4096    # agg_buckets / agg_ranges shared-memory histogram
 AGG_WARPS = 8             # agg_buckets, agg_ranges: warps a block (csrc
@@ -187,7 +196,6 @@ MAX_HIST_BINS = 2048      # agg_hist's shared histogram (ORDER_STAT_BINS)
 HIST_FILL = 66            # row_plan's fill for agg_hist's top level, and
 HIST2_FILL = 132          # for its hist2 (codes, member)
 HIST2_FLOAT = True        # hist2 by float atomics into a zeroed output
-SPLIT_BLOCKS = 528        # split-row kernels: B x G ~ 4 blocks an SM
 MAX_PHRASES = 32          # phrase_leaves: the verdicts of a row, one word
 MAX_CAND_CAP = 4096       # query/plan.py DEFAULT_CAND_CAP
 MAX_PMAX = 128            # query/plan.py DEFAULT_PMAX (the positions guard)
@@ -338,8 +346,8 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _P],
     "xt_sort_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P],
-    "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P,
-                          _P, _P, _P, _P, _P],
+    "xt_fullwidth_topk": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
     "xt_agg_metrics": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P],
     "xt_agg_buckets": [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _LL, _LL, _P,
@@ -1583,12 +1591,6 @@ def _sort_topk_plain(specs, cols, ids, sums, eligible, k, targets, strtabs,
     return dd, ss, torch.where(kw >= 2**31, kw - 2**32, kw).to(torch.int32)
 
 
-def _split(B: int, R: int) -> int:
-    """Blocks per query for the kernels that split a query's rows: enough
-    for B x G to fill the card, each block at least 256 16-row groups."""
-    return max(1, min(SPLIT_BLOCKS // max(B, 1), -(-R // 16) // 256))
-
-
 # --------------------------------------------------------------------------
 # K9: fullwidth_topk
 # --------------------------------------------------------------------------
@@ -1610,7 +1612,13 @@ def fullwidth_topk(spec, ids, sums, eligible, k: int, values: dict,
     (-inf there), certified bool[B]. The window is the first kk rows in
     the exact key order, which is a window of smallest images (the image
     is monotone in the key); JAX's top_k may break ties among equal images
-    otherwise, which changes the result of uncertified queries only."""
+    otherwise, which changes the result of uncertified queries only.
+
+    The kernel (csrc/fullwidth_topk.cu) walks each query's rows in G
+    blocks (``fullwidth_plan``), each warp queueing its eligible rows and
+    keeping those below its threshold in a buffer in shared memory, whose
+    kk best it selects when it fills; each warp appends its candidates to
+    the query's, and a second kernel selects and orders their kk best."""
     B, R = ids.shape
     kk = min(k + FULLWIDTH_WINDOW, R)
     if not 0 < k < kk <= MAX_FULLWIDTH_KK:
@@ -1638,18 +1646,37 @@ def fullwidth_topk(spec, ids, sums, eligible, k: int, values: dict,
                                      targets, strtabs)
     dev = ids.device
     spec_tab, tab = _sort_tables((spec,), cols, strtabs, dev)
-    G = _split(B, R)
-    nk = 4 if spec[0] == "value" else 3
-    cand = torch.empty(B * G * kk * nk, dtype=torch.int32, device=dev)
+    G, gpw = fullwidth_plan(B, R)
+    # each query's candidates (at most kk a warp, two 64-bit words each);
+    # each query's count of them, its eligible rows and its bound, zeroed
+    cand = torch.empty(B * FULLWIDTH_WARPS * G * kk * 2, dtype=torch.int64,
+                       device=dev)
+    qs = torch.zeros(3 * B, dtype=torch.int64, device=dev)
     out_d = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     cert = torch.empty(B, dtype=torch.bool, device=dev)
     _launch("fullwidth_topk", "xt_fullwidth_topk", ids.data_ptr(),
-            sums.data_ptr(), eligible.data_ptr(), B, R, G, k, kk, nk,
+            sums.data_ptr(), eligible.data_ptr(), B, R, G, gpw, k, kk,
+            SORT_KINDS[spec[0]],
             spec_tab.data_ptr(), tab.data_ptr(), _ptr(targets),
-            cand.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
-            cert.data_ptr(), _stream())
+            cand.data_ptr(), qs.data_ptr(), out_d.data_ptr(),
+            out_s.data_ptr(), cert.data_ptr(), _stream())
     return out_d, out_s, cert
+
+
+def fullwidth_plan(B: int, R: int) -> tuple:
+    """(G, gpw) of fullwidth_topk: G blocks a query, each at least
+    FULLWIDTH_ROWS rows, B x G at most FULLWIDTH_BLOCKS; its
+    FULLWIDTH_WARPS warps take gpw 16-row groups a step each, gpw halved
+    (down to 1) while a block's groups would leave a warp without a
+    step."""
+    B = max(B, 1)
+    G = max(1, min(FULLWIDTH_BLOCKS // B, -(-R // FULLWIDTH_ROWS)))
+    groups = -(-(-(-R // 16)) // G)
+    gpw = 32
+    while gpw > 1 and groups < FULLWIDTH_WARPS * gpw:
+        gpw //= 2
+    return G, gpw
 
 
 def _fullwidth_topk_plain(spec, col, ids, sums, eligible, k, targets,
@@ -3085,17 +3112,32 @@ def shard_merge(docids, scores, orderkey=None, sort_keys=None):
     if not _on_cuda("shard_merge", docids, scores, *opt):
         return _shard_merge_plain(docids, scores, orderkey, sort_keys)
     dev = docids.device
-    nw = (nu if sort_keys is not None else 1) + 2
-    scratch = torch.empty(max(Q * S * k * nw, 1), dtype=torch.int32,
-                          device=dev)
+    scratch = _merge_scratch(S * k, Q, (nu if sort_keys is not None else 1)
+                             + 2, dev)
     out_d = torch.empty((Q, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     _launch("shard_merge", "xt_shard_merge", docids.data_ptr(),
             scores.data_ptr(), _ptr(orderkey),
             orderkey.shape[1] if orderkey is not None else 0,
-            _ptr(sort_keys), nu, S, Q, k, 1, scratch.data_ptr(),
+            _ptr(sort_keys), nu, S, Q, k, 1, _ptr(scratch),
             out_d.data_ptr(), out_s.data_ptr(), _stream())
     return out_d, out_s
+
+
+def merge_plane_bytes(M: int, nw: int) -> int:
+    """The bytes of shard_merge.cu's planes of a query's M candidates with
+    nw key words: ceil(nw / 2) planes of 64-bit word pairs, the gdoc and
+    score planes (csrc sm_plane_bytes)."""
+    return M * (8 * ((nw + 1) // 2) + 8)
+
+
+def _merge_scratch(M: int, Q: int, nw: int, dev):
+    """shard_merge.cu's device scratch: each query's planes where they pass
+    SHARD_MERGE_SMEM, else None (they are staged in shared memory)."""
+    n = merge_plane_bytes(M, nw)
+    if n <= SHARD_MERGE_SMEM:
+        return None
+    return torch.empty(Q * n // 8, dtype=torch.int64, device=dev)
 
 
 def _shard_merge_plain(docids, scores, orderkey=None, sort_keys=None,
@@ -3190,12 +3232,11 @@ def chunk_merge(docids, scores):
     if not _on_cuda("chunk_merge", docids, scores):
         return _shard_merge_plain(docids, scores, stripe=False)
     dev = docids.device
-    scratch = torch.empty(max(Q * NC * k * 3, 1), dtype=torch.int32,
-                          device=dev)
+    scratch = _merge_scratch(NC * k, Q, 3, dev)
     out_d = torch.empty((Q, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     _launch("chunk_merge", "xt_shard_merge", docids.data_ptr(),
-            scores.data_ptr(), 0, 0, 0, 0, NC, Q, k, 0, scratch.data_ptr(),
+            scores.data_ptr(), 0, 0, 0, 0, NC, Q, k, 0, _ptr(scratch),
             out_d.data_ptr(), out_s.data_ptr(), _stream())
     return out_d, out_s
 
